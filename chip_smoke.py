@@ -9,20 +9,27 @@ kernels are built for sm_90a):
 Phases, each fatal on failure:
   1. TF32 off for matmuls and cuDNN (the s=931 ridge solves need full
      fp32); print the card's name and power limit.
-  2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
-  3. K1 (training forward) and K2 (streaming logits) against their plain
-     PyTorch versions on the card, at the server's shapes (32 slots x a
-     window of 4 = 128 samples, T=93, Nx=30, Ny=10, ragged lengths down to
-     1), with times.
-  4. The port's main path at full width: the paper's ARAB configuration
+  2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all at once.
+  3. Each kernel against its plain PyTorch version on the card, at the
+     server's shapes, with times: K1 (training forward), K2 (streaming
+     logits) and K5 (int8 streaming logits, int32 accumulators equal bit
+     for bit) at 32 slots x a window of 4 = 128 samples, T=93, Nx=30,
+     Ny=10, ragged lengths down to 1; K3 (factor fold) at 32 factors of
+     931 x 931 and windows of 4 rows, sign +1, and sign -1 with one
+     guard-skipped rotation.
+  4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
-     slots and windows of 4.  Both kernels' launch counts must equal the
-     number of server rounds.
-  4b. One wave of the same path under torch.profiler: the device's busy
+     slots and windows of 4.  Two episodes, each with every launch count
+     set to 0 before it and read after it:
+       fp32   - recompute refresh: K1 and K2 once per round;
+       int8   - quantize='int8', refresh_mode='incremental': K1, K2, K5 and
+                K3 once per round.
+  4b. One wave of each episode under torch.profiler: the device's busy
      share and the kernels and host ops that take the time.
-  5. Agreement: a reduced episode (8 streams on 4 slots, the first 800 ARAB
-     samples, same widths) served on the card and on the CPU.
+  5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
+     first 800 ARAB samples, same widths) served on the card and on the CPU.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
@@ -43,13 +50,32 @@ import torch  # noqa: E402
 from repro_torch.core.types import DFRConfig  # noqa: E402
 from repro_torch.data import PAPER_DATASETS, load  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import cholupdate as k_cholupdate  # noqa: E402
 from repro_torch.kernels import streaming as k_streaming  # noqa: E402
+from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
 from repro_torch.runtime import StreamRequest, StreamServer  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12   # H100 SXM fp32 outside the tensor cores
+PEAK_INT8_OP_S = 1979e12   # H100 SXM int8, dense
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # fp32 sums in another order
+K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
+# phase 3 at the server's shapes: slots, window, T, Nx, Ny for K1, K2 and
+# K5; factors, rows per window, s = Nx^2 + Nx + 1 for K3
+STREAM_SHAPE = (32, 4, 93, 30, 10)
+K3_SHAPE = (32, 4, 931)
+
+KERNELS = {"K1 train_forward": k_train.KERNEL,
+           "K2 streaming_logits": k_streaming.KERNEL,
+           "K5 streaming_logits_q8": k_streaming_q8.KERNEL,
+           "K3 cholupdate_window_t": k_cholupdate.KERNEL}
+# the main paths: server knobs and the kernels each must launch every round
+PATHS = {
+    "fp32": (dict(), ("K1 train_forward", "K2 streaming_logits")),
+    "int8": (dict(quantize="int8", refresh_mode="incremental"),
+             tuple(KERNELS)),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -69,18 +95,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, setup=None) -> float:
     """Median device time of one call: a busy-wait kernel keeps the card
     occupied while the host enqueues the start event, the call and the end
     event, so the events bracket the call's device work and not the host's
-    launch latency."""
+    launch latency.  ``setup()``, if given, runs before each rep outside the
+    timed region, and its result is the call's argument."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
+        arg = setup() if setup is not None else None
         torch.cuda._sleep(2_000_000)
         start.record()
-        fn()
+        fn(arg) if setup is not None else fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -100,16 +128,22 @@ def wall_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: int, flops: int, int_ops: int = 0) -> tuple:
+    """Least time for the given work: bytes at the memory rate against fp32
+    flops and int8 operations, each at its peak rate; the larger bounds."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FP32_FLOP_S + int_ops / PEAK_INT8_OP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(live_steps: int, n: int, nx: int, extra_bytes: int,
           extra_flops: int) -> tuple:
     """Least time for the work this run's inputs need: each live step of a
     sample reads Nx inputs and does 3 Nx^2 + 7 Nx flops (nonlinearity, ring
     matvec, DPRR update); frozen steps past a length need nothing."""
-    nbytes = live_steps * nx * 4 + n * 4 + extra_bytes
-    flops = live_steps * (3 * nx * nx + 7 * nx) + extra_flops
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(live_steps * nx * 4 + n * 4 + extra_bytes,
+                    live_steps * (3 * nx * nx + 7 * nx) + extra_flops)
 
 
 def compare(name: str, got, want) -> float:
@@ -129,7 +163,7 @@ def compare(name: str, got, want) -> float:
 
 def kernel_phase(dev) -> dict:
     """K1 and K2 against their plain versions at the server's shapes."""
-    S, W, T, nx, ny = 32, 4, 93, 30, 10
+    S, W, T, nx, ny = STREAM_SHAPE
     n = S * W
     rng = np.random.default_rng(0)
     lengths = rng.integers(1, T + 1, n)
@@ -180,7 +214,124 @@ def kernel_phase(dev) -> dict:
                             replaces=replaces, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))
+    records.append(k5_record(j, lens, p, q, b, f, lengths))
+    records.extend(k3_records(dev))
     return {r["name"]: r for r in records}
+
+
+def k5_record(j, lens, p, q, b, f, lengths) -> dict:
+    """K5 against its plain version on the K2 operands with int8 readout
+    codes and per-slot scales (the last slot unarmed): the int32 DPRR
+    accumulators must be equal, the logits within KERNEL_TOL."""
+    name = "K5 streaming_logits_q8"
+    S, W, T, nx = j.shape
+    ny = b.shape[-1]
+    nr = nx * (nx + 1)
+    n = S * W
+    rng = np.random.default_rng(1)
+    dev = j.device
+    Wq = torch.from_numpy(rng.integers(-127, 128, (S, ny, nr)).astype(
+        np.int8)).to(dev)
+    w_scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, S).astype(
+        np.float32)).to(dev)
+    x_scale = torch.from_numpy(rng.uniform(0.01, 0.05, S).astype(
+        np.float32)).to(dev)
+    w_scale[-1] = x_scale[-1] = 0.0
+
+    def k5(backend, acc=False):
+        return ops.streaming_logits_slots_q8(
+            j, lens, p, q, Wq, w_scale, x_scale, b, f, backend=backend,
+            return_acc=acc)
+
+    (got, got_acc), (want, want_acc) = k5("cuda", True), k5("torch", True)
+    torch.cuda.synchronize()
+    differ = int((got_acc != want_acc).sum())
+    print(f"  {name}: {differ} of {got_acc.numel()} int32 accumulator "
+          f"cells differ from the plain version (0 required)")
+    check(differ == 0, f"{name}: accumulators differ from the plain version")
+    err = compare(name, (got,), (want,))
+    # the kernel alone on the codes and scales the wrapper builds; the
+    # wrapper's prep (ring codes, powers, scales: about a dozen small ops)
+    # is timed apart
+    args = ops.streaming_q8_operands(j, lens, p, q, Wq, w_scale, x_scale, b,
+                                     f)
+    ms = device_ms(lambda: k_streaming_q8.streaming_logits_q8_cuda(*args))
+    prep_ms = device_ms(lambda: ops.streaming_q8_operands(
+        j, lens, p, q, Wq, w_scale, x_scale, b, f))
+    plain_ms = wall_ms(lambda: k5("torch"))
+    live = int(lengths.sum())
+    # bytes: live inputs, lengths, the ring codes and powers, the scales,
+    # the readout codes and bias, the logits; ops: per live step an int8
+    # ring dot (Nx^2 MACs) and DPRR update (Nx(Nx+1) MACs), about 12 fp32
+    # ops a node, and the fp32 readout
+    nbytes = (live * nx * 4 + n * 4 + S * (nx * nx + 4 * nx + 16 + ny * nr
+                                           + 4 * ny) + 4 * n * ny)
+    bnd, by = bound_ms(nbytes, live * 12 * nx + n * ny * (4 * nr + 1),
+                       live * 2 * (nx * nx + nx * (nx + 1)))
+    print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50; the "
+          f"wrapper's code and scale prep {prep_ms:.4f} ms more), plain "
+          f"{plain_ms:.3f} ms (back to back), bound {bnd:.5f} ms ({by}) at "
+          f"B={n} T={T} Nx={nx} Ny={ny}, {live} live steps")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/streaming_q8.cu",
+                replaces="src/repro/kernels/streaming.py:106",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def k3_records(dev) -> list:
+    """K3 against its plain version at the server's fold: 32 factors of
+    931 x 931 and windows of 4 rows; sign +1 on random upper-triangular
+    factors, then sign -1 on the updated factors with one row that the
+    downdate guard must skip."""
+    name = "K3 cholupdate_window_t"
+    K, W, s = K3_SHAPE
+    g = torch.Generator().manual_seed(0)
+    Lt = torch.triu(0.05 * torch.randn(K, s, s, generator=g), diagonal=1)
+    Lt = (Lt + torch.diag_embed(1.0 + torch.rand(K, s, generator=g))).to(dev)
+    X = (0.3 * torch.randn(K, W, s, generator=g)).to(dev)
+    X[:, 1] = 0.0   # a dead sample: zero rows are exact no-ops
+    err = 0.0
+    up = None
+    for sign in (1.0, -1.0):
+        base, rows = Lt, X
+        if sign < 0:
+            base, rows = up, X.clone()
+            rows[0, -1] = 0.0
+            rows[0, -1, s // 2] = 3.0 * base[0, s // 2, s // 2]
+        got = ops.cholupdate_window_t(base, rows, sign, backend="cuda")
+        want = ops.cholupdate_window_t(base, rows, sign, backend="torch")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        e = float((got - want).abs().max())
+        rel = e / float(want.abs().max())
+        print(f"  {name} sign {sign:+.0f}: max abs err {e:.3e}, relative to "
+              f"max |Lt| {rel:.3e} (tolerance {K3_REL})")
+        check(rel <= K3_REL, f"{name}: kernel disagrees with its plain "
+                             f"version (sign {sign:+.0f})")
+        err = max(err, e)
+        up = got
+    # the server's call: an in-place fold, here into a fresh copy of the
+    # factors made before each rep, outside the timed region
+    ms = device_ms(lambda dst: ops.cholupdate_window_t(dst, X, out=dst,
+                                                       backend="cuda"),
+                   setup=Lt.clone)
+    plain_ms = wall_ms(lambda: ops.cholupdate_window_t(Lt, X,
+                                                       backend="torch"),
+                       reps=2)
+    # the upper triangle of each factor (diagonal included) read once and
+    # written once, the rows read once; about 6 flops per factor element
+    # right of the diagonal per row
+    bnd, by = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4,
+                       6 * K * W * s * (s - 1) // 2)
+    print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50), plain "
+          f"{plain_ms:.1f} ms (back to back), bound {bnd:.5f} ms ({by}) at "
+          f"K={K} W={W} s={s}")
+    return [dict(name=name, route="cuda",
+                 source="src/repro_torch/kernels/csrc/cholupdate.cu",
+                 replaces="src/repro/kernels/cholupdate.py:53",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                 bound_by=by, library_ms=None)]
 
 
 def load_arab():
@@ -212,70 +363,93 @@ def phase_steps_for(samples_per_stream: int, window: int) -> int:
     return max(1, min(int(windows * 0.4) or 1, windows - 1))
 
 
-def serve(cfg, streams, t_max, per_stream, max_streams, device):
+def serve(cfg, streams, t_max, per_stream, max_streams, device, **kw):
     srv = StreamServer(cfg, t_max=t_max, max_streams=max_streams, window=4,
                        phase_steps=phase_steps_for(per_stream, 4),
-                       refresh_every=5, device=device)
+                       refresh_every=5, device=device, **kw)
     for s in streams:
         srv.submit(s)
     done = srv.run_until_drained(strict=True)
     return srv, {r.rid: r for r in done}
 
 
-def main_path_phase(card: str, cfg, arrays) -> dict:
+def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
+    """One full-width ARAB episode of ``path`` (see PATHS), with every
+    kernel's launch count set to 0 just before it and read just after."""
+    knobs, on_path = PATHS[path]
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 64)
     n_total = sum(s.n_samples for s in streams)
-    # warm-up: one-time CUDA library set-up (cuBLAS, cuSOLVER) stays out of
-    # the measured episode
-    wstreams, wper = make_streams(arrays, 2, n_samples=16)
-    serve(cfg, wstreams, t_max, wper, 2, "cuda")
+    # warm-up on all 32 slots through a refresh round: one-time CUDA library
+    # set-up and the first load of each kernel at the episode's batch
+    # shapes stay out of the measured episode
+    wstreams, wper = make_streams(arrays, 32, n_samples=32 * 24)
+    serve(cfg, wstreams, t_max, wper, 32, "cuda", **knobs)
+    del wstreams   # their final-state snapshots would count in the peak
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    k_train.KERNEL.launches = 0
-    k_streaming.KERNEL.launches = 0
+    for kernel in KERNELS.values():
+        kernel.launches = 0
     t0 = time.perf_counter()
-    srv, done = serve(cfg, streams, t_max, per_stream, 32, "cuda")
+    srv, done = serve(cfg, streams, t_max, per_stream, 32, "cuda", **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1 train_forward": k_train.KERNEL.launches,
-                "K2 streaming_logits": k_streaming.KERNEL.launches}
+    launches = {name: kernel.launches for name, kernel in KERNELS.items()}
     rounds = srv.global_step
     served = sum(len(r.preds) for r in done.values())
     lat = srv.latency_percentiles_ms()
     acc = float(np.mean([r.online_accuracy for r in done.values()]))
-    print(f"  [{card}] ARAB Nx=30 s={cfg.s}: {len(done)} streams, "
-          f"{rounds} rounds, {served} samples served in {wall:.3f} s "
-          f"({served / wall:.1f} samples/s)")
-    print(f"  [{card}] step p50 {lat['p50_ms']:.3f} ms, p99 "
+    tag = f"[{card}] {path}"
+    print(f"  {tag}: ARAB Nx={cfg.n_nodes} s={cfg.s} {knobs or 'defaults'}: "
+          f"{len(done)} streams, {rounds} rounds, {served} samples served "
+          f"in {wall:.3f} s ({served / wall:.1f} samples/s)")
+    print(f"  {tag}: step p50 {lat['p50_ms']:.3f} ms, p99 "
           f"{lat['p99_ms']:.3f} ms (prediction read p50 "
           f"{lat['drain_p50_ms']:.3f} ms); mean rolling online accuracy "
           f"{acc:.4f}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    print(f"  [{card}] launches: K1 {launches['K1 train_forward']}, "
-          f"K2 {launches['K2 streaming_logits']} over {rounds} rounds")
+    if knobs.get("quantize") == "int8":
+        print(f"  {tag}: {srv.served_int8} of {served} predictions "
+              f"({srv.served_int8 / served:.4f}) served from armed int8 "
+              f"slots")
+        check(srv.served_int8 > 0, "no prediction came from an armed slot")
+    print(f"  {tag}: launches: " + ", ".join(
+        f"{name.split()[0]} {count}" for name, count in launches.items())
+        + f" over {rounds} rounds")
     check(served == n_total, f"served {served} of {n_total} samples")
     check(len(done) == len(streams), "not every stream completed")
     for name, count in launches.items():
-        check(count == rounds, f"{name}: {count} launches over {rounds} "
-                               f"rounds (one per round expected)")
+        want = rounds if name in on_path else 0
+        check(count == want, f"{path}: {name}: {count} launches over "
+                             f"{rounds} rounds ({want} expected)")
     for r in done.values():
         st = r.final_state
         check(all(bool(torch.isfinite(t).all()) for t in
-                  (st.params.p, st.params.q, st.params.W, st.params.b)),
-              f"stream {r.rid}: non-finite final parameters")
+                  (st.params.p, st.params.q, st.params.W, st.params.b,
+                   st.ridge.Lt)),
+              f"stream {r.rid}: non-finite final state")
         check(all(0 <= x < cfg.n_classes for x in r.preds),
               f"stream {r.rid}: prediction out of range")
-    return launches
+    if knobs.get("refresh_mode") == "incremental":
+        # the live factor still factors the accumulated statistics
+        st = max(done.values(), key=lambda r: r.n_samples).final_state
+        Lt = st.ridge.Lt.double()
+        Bb = st.ridge.B.double() + float(st.ridge.factor_beta) * torch.eye(
+            cfg.s, dtype=torch.float64, device=Lt.device)
+        rel = float((Lt.T @ Lt - Bb).abs().max() / Bb.abs().max())
+        print(f"  {tag}: max |Lt^T Lt - (B + beta I)| / max |B + beta I| "
+              f"{rel:.3e} (tolerance 1e-4)")
+        check(rel <= 1e-4, "the live factor no longer factors B + beta I")
+    return {name: launches[name] for name in on_path}
 
 
-def profile_phase(card: str, cfg, arrays, top: int = 8) -> None:
-    """Where a server step's time goes: one wave of the main path (32 ARAB
-    streams on the 32 slots) under torch.profiler.  Prints the device's
-    busy share of the wall time and the kernels and host ops that take the
-    most time.  Profiling slows the host, so the main path's own numbers
-    come from phase 4, not from here."""
+def profile_phase(card: str, cfg, arrays, path: str, top: int = 8) -> None:
+    """Where a server step's time goes: one wave of the main path ``path``
+    (32 ARAB streams on the 32 slots) under torch.profiler.  Prints the
+    device's busy share of the wall time and the kernels and host ops that
+    take the most time.  Profiling slows the host, so the main path's own
+    numbers come from phase 4, not from here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,7 +457,7 @@ def profile_phase(card: str, cfg, arrays, top: int = 8) -> None:
     streams, per_stream = make_streams(arrays, 32, n_samples=3300)
     srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
                        phase_steps=phase_steps_for(per_stream, 4),
-                       refresh_every=5, device="cuda")
+                       refresh_every=5, device="cuda", **PATHS[path][0])
     for s in streams:
         srv.submit(s)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -297,7 +471,8 @@ def profile_phase(card: str, cfg, arrays, top: int = 8) -> None:
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in dev)
-    print(f"  [{card}] profiled {srv.global_step} rounds in {wall:.3f} s; "
+    print(f"  [{card}] {path}: profiled {srv.global_step} rounds in "
+          f"{wall:.3f} s; "
           f"device busy {busy_us / 1e3:.3f} ms = "
           f"{100 * busy_us / 1e6 / wall:.1f}% of wall (idle "
           f"{100 - 100 * busy_us / 1e6 / wall:.1f}%)")
@@ -312,12 +487,13 @@ def profile_phase(card: str, cfg, arrays, top: int = 8) -> None:
     check(busy_us > 0, "the profiler saw no device time")
 
 
-def agreement_phase(cfg, arrays) -> None:
+def agreement_phase(cfg, arrays, path: str) -> None:
+    knobs = PATHS[path][0]
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 8, n_samples=800)
-    _, on_card = serve(cfg, streams, t_max, per_stream, 4, "cuda")
+    _, on_card = serve(cfg, streams, t_max, per_stream, 4, "cuda", **knobs)
     streams, _ = make_streams(arrays, 8, n_samples=800)
-    _, on_cpu = serve(cfg, streams, t_max, per_stream, 4, "cpu")
+    _, on_cpu = serve(cfg, streams, t_max, per_stream, 4, "cpu", **knobs)
     total = agree = 0
     diffs = {"p": 0.0, "q": 0.0, "W": 0.0}
     for rid, r in on_cpu.items():
@@ -329,7 +505,8 @@ def agreement_phase(cfg, arrays) -> None:
                  - getattr(r.final_state.params, k)).abs().max()
             diffs[k] = max(diffs[k], float(d))
     frac = agree / total
-    print(f"  card vs CPU: {agree}/{total} predictions agree ({frac:.4f}); "
+    print(f"  {path}: card vs CPU: {agree}/{total} predictions agree "
+          f"({frac:.4f}); "
           f"largest final |dp| {diffs['p']:.3e}, |dq| {diffs['q']:.3e}, "
           f"|dW| {diffs['W']:.3e}")
     check(frac >= 0.98, f"card and CPU agree on {frac:.4f} < 0.98")
@@ -348,7 +525,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    logs = _build.build(["train", "streaming"], verbose=True)
+    logs = _build.build(["train", "streaming", "streaming_q8", "cholupdate"],
+                        verbose=True)
     print(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
           f"(parallel nvcc, {', '.join(sorted(logs)) or 'already built'})")
     for name, log in sorted(logs.items()):
@@ -360,13 +538,19 @@ def main() -> int:
     records = kernel_phase(dev)
     t0 = time.perf_counter()
     cfg, arrays = load_arab()
-    print(f"[4] main path: StreamServer on ARAB at full width "
+    print(f"[4] main paths: StreamServer on ARAB at full width "
           f"(data made in {time.perf_counter() - t0:.1f} s)")
-    launches = main_path_phase(card, cfg, arrays)
+    launches = {}
+    for path in PATHS:
+        # each kernel reports the launches of the first path it is on
+        for name, count in main_path_phase(card, cfg, arrays, path).items():
+            launches.setdefault(name, count)
     print("[4b] where the server's time goes (torch.profiler)")
-    profile_phase(card, cfg, arrays)
+    for path in PATHS:
+        profile_phase(card, cfg, arrays, path)
     print("[5] agreement, card vs CPU")
-    agreement_phase(cfg, arrays)
+    for path in PATHS:
+        agreement_phase(cfg, arrays, path)
 
     for name, count in launches.items():
         records[name]["launches"] = count

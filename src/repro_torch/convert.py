@@ -5,9 +5,11 @@ reads either: ``state_leaves`` turns a state (the reference's or the port's,
 batched or not) into a dict of numpy arrays under flat leaf names, and
 ``state_from_leaves`` builds the port's ``OnlineState`` from such a dict.
 The names are the ones the reference's own golden fixtures use
-(``params_p`` ... ``ridge_B``, ``step``, ``loss_ema``).  Nothing here
-imports the JAX package: a caller on that side builds its own state from
-the same dict.
+(``params_p`` ... ``ridge_B``, ``step``, ``loss_ema``).  Every leaf keeps
+its dtype, so an armed int8 state (``quant_Wq`` codes and scales) and a live
+incremental factor (``ridge_Lt``, ``ridge_factor_beta``) cross unchanged.
+Nothing here imports the JAX package: a caller on that side builds its own
+state from the same dict.
 """
 from __future__ import annotations
 

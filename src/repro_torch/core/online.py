@@ -2,8 +2,10 @@
 
 The counterpart of the parts of ``repro.core.online`` the stream server
 runs: the ``OnlineState`` carry, the fused serve step (infer-before-update
-plus truncated-BP SGD plus (A, B) accumulation from ONE forward pass) and the
-recompute-mode Ridge refresh of selected slot rows.
+plus truncated-BP SGD plus (A, B) accumulation from ONE forward pass), the
+Ridge refresh of selected slot rows in both modes (recompute: a batched
+Cholesky; incremental: two triangular solves against the live factor) and
+the int8 serving scale fold.
 
 The reference writes these for one system and ``vmap``s them over the
 server's slot axis.  Here every function takes the slot-batched state
@@ -13,7 +15,7 @@ for the server), and the data leads with the same axes.  Slots never mix.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,8 +28,9 @@ from repro_torch.core.types import (DFRConfig, DFRParams, QuantParams,
 class OnlineState:
     """Carry of the online system; leaves may lead with slot axes.
 
-    ``quant`` (the reference's int8 serving codes) and the drift-detector
-    EMAs ``loss_fast``/``loss_slow`` are inert zeros in this port: the serving
+    ``quant`` holds the int8 serving codes and scales (``quantize='int8'``
+    moves them; otherwise they stay zeros).  The drift-detector EMAs
+    ``loss_fast``/``loss_slow`` are inert zeros in this port: the retirement
     modes that move them are not ported, and they ride along so the state
     keeps the reference's shape.
     """
@@ -41,12 +44,23 @@ class OnlineState:
     loss_slow: Tensor
 
 
-def init_state(cfg: DFRConfig, device=None) -> OnlineState:
-    """Fresh single-system state: paper init (p, q), zero readout + stats."""
+def init_state(cfg: DFRConfig, device=None,
+               factor_beta: Optional[float] = None) -> OnlineState:
+    """Fresh single-system state: paper init (p, q), zero readout + stats.
+
+    With ``factor_beta`` the state also carries a live incremental factor
+    of the empty system (``ridge.seed_factor``: sqrt(beta) I), the
+    incremental refresh's starting point."""
     zero = torch.zeros((), dtype=cfg.dtype, device=device)
+    rs = RidgeState.zeros(cfg.s, cfg.n_classes, cfg.dtype, device)
+    if factor_beta is not None:
+        rs = dataclasses.replace(
+            rs, Lt=ridge.seed_factor(cfg.s, factor_beta, cfg.dtype, device),
+            factor_beta=torch.tensor(factor_beta, dtype=cfg.dtype,
+                                     device=device))
     return OnlineState(
         params=DFRParams.init(cfg, device),
-        ridge=RidgeState.zeros(cfg.s, cfg.n_classes, cfg.dtype, device),
+        ridge=rs,
         step=torch.zeros((), dtype=torch.int32, device=device),
         loss_ema=zero.clone(),
         quant=QuantParams.zeros(cfg.n_classes, cfg.n_rep, device),
@@ -66,7 +80,9 @@ def online_serve_step(
     weight: Tensor,       # (*P, B) 0/1 live-sample mask
     accumulate: Tensor,   # (*P) 0/1: accumulate (A, B) this step?
     *,
+    maintain_factor=False,
     train: bool = True,
+    track_state_absmax: bool = False,
     fused: bool = False,
 ) -> Tuple[OnlineState, Tensor, Dict[str, Tensor]]:
     """Fused infer-before-update + train step for the serving path.
@@ -86,11 +102,25 @@ def online_serve_step(
     the gradients, statistics and logits read the same ``ForwardAux``
     fields either way.
 
-    This is the reference's step with ``maintain_factor=False`` and
-    ``forget=None``: any live incremental factor is dropped once statistics
-    move.  Returns (new state, logits (*P, B, Ny), metrics).  The input
-    state is not modified.
+    ``maintain_factor=False`` drops any live incremental factor once
+    statistics move.  ``maintain_factor='defer'`` keeps it live without
+    rotating it and returns the gated r~ rows (*P, B, s) as
+    ``metrics['rt_rows']``; the caller folds them into ``Lt``
+    (``kernels.ops.cholupdate_window_t``), as the stream server does after
+    its liveness select.  Dead and phase-1 rows are zero, hence no-ops.
+    (The reference's inline fold, ``True``, has no caller in the port.)
+
+    ``track_state_absmax`` raises ``quant.x_absmax`` to the largest |x| of
+    the window's live boundary states ``x_last``/``x_prev`` (weight-gated):
+    the int8 state scale's calibration.
+
+    ``forget=None`` always: the retirement modes are not ported.  Returns
+    (new state, logits (*P, B, Ny), metrics).  The input state is not
+    modified.
     """
+    if maintain_factor not in (False, "defer"):
+        raise ValueError(f"maintain_factor must be False or 'defer', got "
+                         f"{maintain_factor!r}")
     f = cfg.f()
     dt = cfg.dtype
     j_seq = masking.apply_mask(mask, u)
@@ -123,6 +153,16 @@ def online_serve_step(
     A, B = ridge.accumulate_ab(state.ridge.A, state.ridge.B, rt, onehot)
     moved = acc * n_w
     fb = state.ridge.factor_beta
+    if maintain_factor != "defer":
+        # statistics move without rotating a factor: drop any live one
+        fb = torch.where(moved > 0, torch.zeros_like(fb), fb)
+    quant = state.quant
+    if track_state_absmax:
+        wb = w[..., None]
+        amax = torch.maximum((aux.x_last.abs() * wb).amax(dim=(-2, -1)),
+                             (aux.x_prev.abs() * wb).amax(dim=(-2, -1)))
+        quant = dataclasses.replace(quant, x_absmax=torch.maximum(
+            quant.x_absmax, amax.to(quant.x_absmax.dtype)))
     new = OnlineState(
         params=params,
         ridge=RidgeState(
@@ -130,17 +170,18 @@ def online_serve_step(
             B=B,
             count=state.ridge.count + moved.to(state.ridge.count.dtype),
             Lt=state.ridge.Lt,
-            # statistics move without rotating a factor: drop any live one
-            factor_beta=torch.where(moved > 0, torch.zeros_like(fb), fb),
+            factor_beta=fb,
         ),
         step=state.step + 1,
         loss_ema=0.99 * state.loss_ema + 0.01 * loss * inv,
-        quant=state.quant,
+        quant=quant,
         loss_fast=state.loss_fast,
         loss_slow=state.loss_slow,
     )
     hits = (aux.logits.argmax(dim=-1) == label).to(torch.float32) * w
     metrics = {"loss": loss * inv, "acc": hits.sum(dim=-1) * inv}
+    if maintain_factor == "defer":
+        metrics["rt_rows"] = rt
     return new, aux.logits, metrics
 
 
@@ -185,3 +226,45 @@ def refresh_output_rows(
     Wt = ridge.ridge_cholesky_batched(
         state.ridge.A[idx], ridge.regularize(state.ridge.B[idx], beta))
     return scatter_readout_rows(state, Wt, eligible_rows, rows)
+
+
+def refresh_output_factor_rows(
+    state: OnlineState, rows: Tensor, eligible_rows: Tensor
+) -> OnlineState:
+    """Incremental-mode cohort refresh: the due rows carry live factors of
+    B + beta I (beta baked in at seeding), so the refresh is two triangular
+    solves per slot, no factorization."""
+    idx = rows.to(torch.int64)
+    Wt = ridge.ridge_solve_from_factor_t_batched(
+        state.ridge.A[idx], state.ridge.Lt[idx])
+    return scatter_readout_rows(state, Wt, eligible_rows, rows)
+
+
+def fold_quant_rows(
+    state: OnlineState, rows: Tensor, eligible_rows: Tensor
+) -> OnlineState:
+    """Fold fresh int8 serving scales into slot rows ``rows`` where
+    ``eligible_rows`` holds (the scatter contract of
+    ``scatter_readout_rows``): ``Wq``/``w_scale`` from the freshly refreshed
+    readout, ``x_scale`` from the running ``x_absmax``.  Runs at refresh
+    boundaries, the only place W moves once a slot is frozen.  A positive
+    ``w_scale`` arms the slot's int8 logits."""
+    from repro_torch.kernels import ops as kops  # kernels import core
+
+    q = state.quant
+    idx = rows.to(torch.int64)
+    el = eligible_rows
+    W_rows = state.params.W[idx].to(torch.float32)          # (R, Ny, Nr)
+    w_scale = kops.symmetric_scale(W_rows.abs().amax(dim=(-2, -1)))
+    Wq = kops.quantize_symmetric(W_rows, w_scale[:, None, None])
+    x_scale = kops.symmetric_scale(q.x_absmax[idx])
+    quant = QuantParams(
+        Wq=q.Wq.index_copy(0, idx, torch.where(el[:, None, None], Wq,
+                                               q.Wq[idx])),
+        w_scale=q.w_scale.index_copy(0, idx, torch.where(el, w_scale,
+                                                         q.w_scale[idx])),
+        x_scale=q.x_scale.index_copy(0, idx, torch.where(el, x_scale,
+                                                         q.x_scale[idx])),
+        x_absmax=q.x_absmax,
+    )
+    return dataclasses.replace(state, quant=quant)

@@ -147,11 +147,13 @@ class DFRParams:
 
 @dataclasses.dataclass
 class QuantParams:
-    """Int8 serving state of the reference (``quantize='int8'``).
+    """Int8 serving state (``quantize='int8'``).
 
-    The port does not serve int8 yet; the leaves stay inert zeros so that
-    ``OnlineState`` keeps the reference's shape and ``convert`` can carry
-    every leaf across.
+    ``x_absmax`` tracks the running max |x| of the reservoir states served
+    (``online_serve_step(track_state_absmax=True)``); at each refresh
+    boundary ``online.fold_quant_rows`` folds ``Wq``/``w_scale`` from the
+    refreshed readout and ``x_scale`` from ``x_absmax``.  A slot with
+    ``w_scale == 0`` is unarmed and serves its fp32 logits.
     """
 
     Wq: Tensor        # (Ny, Nr) int8
@@ -175,16 +177,19 @@ class RidgeState:
 
     A = E R~^T (Ny, s) and B = R~ R~^T (s, s), both sums over samples
     (beta * I is added at solve time).  ``Lt``/``factor_beta`` carry the
-    reference's incremental Cholesky factor; the port's recompute-mode
-    refresh never reads them, and ``factor_beta`` drops to 0 as soon as
-    statistics move, exactly as the reference does without a live factor.
+    incremental Cholesky factor, transposed: with ``refresh_mode=
+    'incremental'`` a slot is seeded with Lt = sqrt(beta) I and every
+    accumulated r~ row is rotated into it, so Lt^T Lt = B + beta I holds and
+    the refresh is two triangular solves.  Without a live factor
+    (recompute mode) ``factor_beta`` drops to 0 as soon as statistics move,
+    and Lt is never read.
     """
 
     A: Tensor
     B: Tensor
     count: Tensor        # int32 number of accumulated samples
-    Lt: Tensor           # (s, s) transposed live factor (unused here)
-    factor_beta: Tensor  # scalar; > 0 would mark Lt live
+    Lt: Tensor           # (s, s) transposed live factor (upper triangular)
+    factor_beta: Tensor  # scalar; > 0 marks Lt live
 
     @classmethod
     def zeros(cls, s: int, n_classes: int, dtype=torch.float32,

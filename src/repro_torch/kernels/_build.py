@@ -117,21 +117,28 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_sample_operands(j_seq, lengths, p, q) -> tuple:
-    """Validate the flat operands shared by both kernels (see
-    ``kernels.ref``) and return (N, T, Nx, samples per system, device)."""
+def check_operand(name: str, t, dtype, dev, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``dev`` (and,
+    where given, of ``shape``)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_samples(j_seq, lengths, n_sys: int) -> tuple:
+    """Validate the flat sample operands shared by K1, K2 and K5 (see
+    ``kernels.ref``) for ``n_sys`` systems and return (N, T, Nx, samples
+    per system, device)."""
     dev = j_seq.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel needs CUDA tensors, got {dev}")
-    for name, t, dtype in (("j_seq", j_seq, torch.float32),
-                           ("lengths", lengths, torch.int32),
-                           ("p", p, torch.float32), ("q", q, torch.float32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, j_seq on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operand("j_seq", j_seq, torch.float32, dev)
     if j_seq.ndim != 3:
         raise ValueError(f"j_seq must be (N, T, Nx), got {tuple(j_seq.shape)}")
     n, t_len, nx = j_seq.shape
@@ -140,13 +147,21 @@ def check_sample_operands(j_seq, lengths, p, q) -> tuple:
                          f"(one warp per sample), got Nx={nx}")
     if n < 1 or t_len < 1:
         raise ValueError(f"empty j_seq {tuple(j_seq.shape)}")
-    if lengths.shape != (n,):
-        raise ValueError(f"lengths must be ({n},), got {tuple(lengths.shape)}")
-    if p.ndim != 1 or q.shape != p.shape or p.shape[0] < 1 \
-            or n % p.shape[0]:
-        raise ValueError(f"p and q must be (S,) with S dividing N={n}, got "
-                         f"{tuple(p.shape)} and {tuple(q.shape)}")
-    return n, t_len, nx, n // p.shape[0], dev
+    check_operand("lengths", lengths, torch.int32, dev, (n,))
+    if n_sys < 1 or n % n_sys:
+        raise ValueError(f"{n_sys} systems do not divide N={n} samples")
+    return n, t_len, nx, n // n_sys, dev
+
+
+def check_sample_operands(j_seq, lengths, p, q) -> tuple:
+    """``check_samples`` plus the per-system gains p, q (S,) of K1 and K2."""
+    if p.ndim != 1 or q.shape != p.shape:
+        raise ValueError(f"p and q must be (S,), got {tuple(p.shape)} and "
+                         f"{tuple(q.shape)}")
+    out = check_samples(j_seq, lengths, p.shape[0])
+    for name, t in (("p", p), ("q", q)):
+        check_operand(name, t, torch.float32, out[-1])
+    return out
 
 
 def stream_handle(device: torch.device) -> int:

@@ -15,16 +15,46 @@ counterpart here: the kernels work on the true Nx and Ny.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import reservoir as core_res
+from repro_torch.core import ridge as core_ridge
 from repro_torch.core.types import Nonlinearity, Tensor
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.cholupdate import cholupdate_window_t_cuda
 from repro_torch.kernels.streaming import streaming_logits_cuda
+from repro_torch.kernels.streaming_q8 import streaming_logits_q8_cuda
 from repro_torch.kernels.train import train_forward_cuda
 
 BACKENDS = ("cuda", "torch")
+MAX_Q8_STEPS = 2 ** 17  # int32 headroom of K5's accumulator: 127^2 * T
+
+
+# ---------------------------------------------------------------------------
+# Symmetric int8 quantization (the reference's convention: scale =
+# absmax / 127 with an epsilon floor, codes clipped to +-127, no zero point;
+# rounding is half to even in both frameworks)
+# ---------------------------------------------------------------------------
+
+
+def symmetric_scale(absmax: Tensor, eps: float = 1e-12) -> Tensor:
+    """Symmetric int8 scale ``max(absmax, eps) / 127``; the floor keeps an
+    all-zero operand coding to zeros instead of NaNs."""
+    return torch.clamp(absmax.to(torch.float32), min=eps) / 127.0
+
+
+def quantize_symmetric(v: Tensor, scale: Tensor) -> Tensor:
+    """fp -> int8 codes: ``clip(round(v / scale), -127, 127)``."""
+    return torch.clamp(torch.round(v.to(torch.float32) / scale),
+                       -127, 127).to(torch.int8)
+
+
+def dequantize_symmetric(q: Tensor, scale: Tensor,
+                         dtype=torch.float32) -> Tensor:
+    """int8 codes -> fp: ``q * scale``."""
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def resolve_backend(backend: Optional[str], t: Tensor) -> str:
@@ -117,3 +147,140 @@ def streaming_logits(
         j_seq[None], lengths[None], torch.as_tensor(p)[None],
         torch.as_tensor(q)[None], W[None], b[None], f, backend=backend,
     )[0]
+
+
+def streaming_logits_slots_q8(
+    j_seq: Tensor,     # (S, B, T, Nx) masked inputs, slot axis leading
+    lengths: Tensor,   # (S, B) int
+    p: Tensor,         # (S,) per-slot reservoir gains
+    q: Tensor,         # (S,) (coded into ring-matrix codes here)
+    Wq: Tensor,        # (S, Ny, Nr) int8 readout codes
+    w_scale: Tensor,   # (S,) f32 readout scale (0 = unarmed)
+    x_scale: Tensor,   # (S,) f32 reservoir-state scale (0 = unarmed)
+    b: Tensor,         # (S, Ny) fp readout bias (stays fp)
+    f: Nonlinearity = Nonlinearity(),
+    *,
+    backend: Optional[str] = None,
+    return_acc: bool = False,
+) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """Int8 readout logits (S, B, Ny) f32 of every slot in one kernel
+    launch (K5): the stream server's serving path for armed slots.
+
+    Owns the code and scale prep, once, in PyTorch, so the kernel and its
+    plain version see the same bits: the ring matrix L(q) and its powers
+    in fp32 (``core.reservoir``), ring codes with sL = max|L| / 127, and the
+    unarmed scales (0) replaced by 1.0 so the program stays NaN-free (the
+    caller discards unarmed slots' logits).  ``return_acc`` also returns the
+    int32 DPRR code accumulators (S, B, Nx, Nx+1).
+    """
+    be = resolve_backend(backend, j_seq)
+    n_sys, bsz, t_len, nx = j_seq.shape
+    args = streaming_q8_operands(j_seq, lengths, p, q, Wq, w_scale, x_scale,
+                                 b, f)
+    if be == "cuda":
+        acc = (torch.empty((n_sys * bsz, nx, nx + 1), dtype=torch.int32,
+                           device=j_seq.device) if return_acc else None)
+        logits = streaming_logits_q8_cuda(*args, acc=acc)
+    else:
+        logits, acc = kref.streaming_q8_ref(*args)
+    logits = logits.reshape(n_sys, bsz, -1)
+    if return_acc:
+        return logits, acc.reshape(n_sys, bsz, nx, nx + 1)
+    return logits
+
+
+def streaming_q8_operands(j_seq, lengths, p, q, Wq, w_scale, x_scale, b,
+                          f: Nonlinearity = Nonlinearity()) -> tuple:
+    """The flat operands of K5 and of its plain version (contract in
+    ``kernels.ref``) from ``streaming_logits_slots_q8``'s arguments."""
+    n_sys, bsz, t_len, nx = j_seq.shape
+    if t_len > MAX_Q8_STEPS:
+        raise ValueError(f"int8 streaming takes T <= {MAX_Q8_STEPS} (int32 "
+                         f"accumulator headroom), got T={t_len}")
+    ny = Wq.shape[-2]
+    q32 = q.to(torch.float32)
+    L = core_res.ring_matrix(q32, nx, torch.float32)           # (S, Nx, Nx)
+    sL = symmetric_scale(L.abs().amax(dim=(-2, -1)))
+    Lq = quantize_symmetric(L, sL[:, None, None])
+    qpow = core_res.ring_powers(q32, nx, torch.float32)        # (S, Nx)
+    sx = torch.where(x_scale > 0, x_scale, 1.0).to(torch.float32)
+    sw = torch.where(w_scale > 0, w_scale, 1.0).to(torch.float32)
+    scales = torch.stack([p.to(torch.float32), sx, sL, sw], dim=-1)
+    return (_flat(j_seq, (n_sys * bsz, t_len, nx), torch.float32),
+            _flat(lengths, (n_sys * bsz,), torch.int32),
+            Lq.contiguous(), qpow.contiguous(), scales.contiguous(),
+            _flat(Wq, (n_sys, ny, nx * (nx + 1)), torch.int8),
+            _flat(b, (n_sys, ny), torch.float32), f)
+
+
+def streaming_logits_q8(
+    j_seq: Tensor,     # (B, T, Nx) masked inputs
+    lengths: Tensor,   # (B,) int
+    p: Tensor,         # scalar
+    q: Tensor,         # scalar
+    Wq: Tensor,        # (Ny, Nr) int8
+    w_scale: Tensor,   # scalar
+    x_scale: Tensor,   # scalar
+    b: Tensor,         # (Ny,)
+    f: Nonlinearity = Nonlinearity(),
+    *,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Int8 readout logits (B, Ny) of one system in one kernel launch (K5)."""
+    def one(v):
+        return torch.as_tensor(v)[None]
+
+    return streaming_logits_slots_q8(
+        j_seq[None], lengths[None], one(p), one(q), Wq[None], one(w_scale),
+        one(x_scale), b[None], f, backend=backend,
+    )[0]
+
+
+def cholupdate_window_t(
+    Lt: Tensor,        # (*K, s, s) transposed live factors (upper)
+    X: Tensor,         # (*K, W, s) sample rows, stream order
+    sign: float = 1.0,
+    *,
+    out: Optional[Tensor] = None,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Rotate the W rows of X into the transposed factors, in stream order:
+    Lt'^T Lt' = Lt^T Lt + sign x x^T per row (sign -1: the guarded
+    downdate).  One kernel launch for all K factors (K3).  Zero rows are
+    exact no-ops.
+
+    ``out`` (contiguous, Lt's shape) receives the result and may be ``Lt``
+    itself: the stream server folds its (S, s, s) factors in place."""
+    be = resolve_backend(backend, Lt)
+    *lead, s, s2 = Lt.shape
+    w = X.shape[-2]
+    if s != s2 or tuple(X.shape) != (*lead, w, s):
+        raise ValueError(f"Lt must be (..., s, s) and X (..., W, s) with the "
+                         f"same leading axes, got {tuple(Lt.shape)} and "
+                         f"{tuple(X.shape)}")
+    if out is not None and (out.shape != Lt.shape or not out.is_contiguous()):
+        raise ValueError("out must be contiguous with Lt's shape")
+    if be == "torch":
+        res = core_ridge.cholupdate_window_t(Lt, X, sign)
+        return res if out is None else out.copy_(res)
+    k = int(torch.Size(lead).numel())
+    if out is None:
+        out = Lt.clone(memory_format=torch.contiguous_format)
+    elif out.data_ptr() != Lt.data_ptr():
+        out.copy_(Lt)
+    cholupdate_window_t_cuda(out.view(k, s, s),
+                             _flat(X, (k, w, s), torch.float32), sign)
+    return out
+
+
+def cholupdate_window(
+    L: Tensor,         # (*K, s, s) live LOWER factors
+    X: Tensor,         # (*K, W, s)
+    sign: float = 1.0,
+    *,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """``cholupdate_window_t`` on lower factors L = Lt^T, the reference's
+    ``ops.cholupdate_window`` layout: the same kernel on ``L.mT``."""
+    Lt = L.transpose(-1, -2).contiguous()
+    return cholupdate_window_t(Lt, X, sign, backend=backend).transpose(-1, -2)

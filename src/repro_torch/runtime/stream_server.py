@@ -1,7 +1,8 @@
 """Continuous-batching stream server: train-while-serve for sensor streams.
 
-The PyTorch counterpart of ``repro.runtime.stream_server`` on its default
-fp32 path.  Many independent sensor streams each get an online DFR that
+The PyTorch counterpart of ``repro.runtime.stream_server`` with its refresh
+modes and int8 serving.  Many independent sensor streams each get an online
+DFR that
 (a) answers every window from the parameters it had before seeing the
 labels (infer-before-update) and (b) keeps adapting: truncated-BP SGD on
 (p, q, W, b) while the slot is young (phase 1), then frozen-reservoir (A, B)
@@ -10,10 +11,13 @@ server steps (phase 2).  A fixed number of slots holds one stream each as
 row i of a slot-batched ``OnlineState``; one step advances every live slot.
 
 On a CUDA device one server step launches each hand-written kernel once for
-all slots: K1 (``kernels/csrc/train.cu``) for the shared training forward
-and K2 (``kernels/csrc/streaming.cu``) for the infer-before-update logits.
-On the CPU the step keeps the reference's off-TPU choices: the plain
-forward, and the serve step's own logits unless ``fused_infer=True``.
+all slots: K1 (``kernels/csrc/train.cu``) for the shared training forward,
+K2 (``kernels/csrc/streaming.cu``) for the infer-before-update logits, and,
+when their knobs are set, K5 (``kernels/csrc/streaming_q8.cu``) for the
+int8 logits and K3 (``kernels/csrc/cholupdate.cu``) for the fold of the
+window's samples into the live factors.  On the CPU the step keeps the
+reference's off-TPU choices: the plain forward, and the serve step's own
+logits unless ``fused_infer=True``; K5 and K3 run their plain versions.
 
 The host keeps a mirror of every slot's step count, so choosing between the
 training and the frozen step never waits for the device; the one blocking
@@ -31,8 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import masking
-from repro_torch.core.online import (OnlineState, init_state,
-                                     online_serve_step, refresh_output_rows)
+from repro_torch.core.online import (OnlineState, fold_quant_rows, init_state,
+                                     online_serve_step,
+                                     refresh_output_factor_rows,
+                                     refresh_output_rows)
 from repro_torch.core.types import (DFRConfig, RequestPool, Tensor,
                                     map_leaves)
 from repro_torch.kernels import ops
@@ -86,12 +92,14 @@ def _step_core(
     train: bool,
     fused_infer: bool = True,
     fused: bool = False,
-) -> Tuple[OnlineState, Tensor, Dict[str, Tensor]]:
+    maintain_factor: bool = False,
+    quantize: str = "none",
+) -> Tuple[OnlineState, Tensor, Optional[Tensor]]:
     """One server step: infer-before-update + train for every live slot.
 
-    Returns (new states, predictions (S, W), per-slot metrics).  Admitted
-    slots start from ``fresh``; dead slots compute in their lanes and are
-    frozen by ``live`` (skipped when the host knows ``all_live``).
+    Returns (new states, predictions (S, W), armed (S,) bool or None).
+    Admitted slots start from ``fresh``; dead slots compute in their lanes
+    and are frozen by ``live`` (skipped when the host knows ``all_live``).
 
     ``train`` picks the training or the frozen serve step: whether any live
     slot is still in phase 1.  The reference decides that on the device;
@@ -100,6 +108,12 @@ def _step_core(
 
     K2, when ``fused_infer`` is set, reads the PRE-update, post-admission
     parameters: the infer-before-update contract.
+
+    ``quantize='int8'`` serves armed slots (``w_scale > 0``) from K5 on the
+    same pre-update parameters and their int8 codes; unarmed slots keep the
+    fp32 logits.  ``maintain_factor`` folds the window's gated r~ rows into
+    every slot's live factor through K3, once, after the liveness select;
+    dead, tail and phase-1 rows are zero, hence no-ops.
     """
     f = cfg.f()
     if fresh_rows is not None:
@@ -117,21 +131,40 @@ def _step_core(
 
     new_states, logits, metrics = online_serve_step(
         cfg, mask, states, u, length, label, lr_slot, weight, acc_slot,
-        train=train, fused=fused,
+        maintain_factor="defer" if maintain_factor else False, train=train,
+        track_state_absmax=quantize == "int8", fused=fused,
     )
-    if fused_infer:
+    if fused_infer or quantize == "int8":
         j_seq = masking.apply_mask(mask, u)
+    if fused_infer:
         logits = ops.streaming_logits_slots(
             j_seq, length, states.params.p, states.params.q,
             states.params.W, states.params.b, f,
         )
+    armed = None
+    if quantize == "int8":
+        qt = states.quant
+        q_logits = ops.streaming_logits_slots_q8(
+            j_seq, length, states.params.p, states.params.q, qt.Wq,
+            qt.w_scale, qt.x_scale, states.params.b, f,
+        )
+        armed = qt.w_scale > 0
+        logits = torch.where(armed[:, None, None], q_logits.to(logits.dtype),
+                             logits)
     preds = logits.argmax(dim=-1)
 
     if not all_live:
+        # a leaf the step left as it was (the deferred Lt among them) needs
+        # no select; dead slots' rt_rows are zero, so the fold skips them
         new_states = map_leaves(
-            lambda n, o: torch.where(_bcast_to(live, n), n, o),
+            lambda n, o: n if n is o else torch.where(_bcast_to(live, n), n, o),
             new_states, states)
-    return new_states, preds, metrics
+    if maintain_factor:
+        # in place: the old state is dropped once the step returns, and
+        # retired rows were snapshot by clone
+        ops.cholupdate_window_t(new_states.ridge.Lt, metrics["rt_rows"],
+                                out=new_states.ridge.Lt)
+    return new_states, preds, armed
 
 
 def _gather_window(
@@ -178,6 +211,16 @@ class StreamServer:
       * ``refresh_mode='recompute'`` with ``refresh_cohorts=C``: the batched
         (s, s) Cholesky re-factorization every ``refresh_every`` steps,
         staggered over C round-robin slot cohorts.
+      * ``refresh_mode='incremental'``: every admitted slot carries a live
+        transposed factor of B + beta I, seeded sqrt(beta) I; each step
+        rotates the window's accumulated samples into it (K3 on the card),
+        and the refresh is two triangular solves, no factorization.
+      * ``quantize='int8'``: armed slots serve logits computed on int8 codes
+        (K5 on the card); a slot arms when its scales first fold at a
+        refresh boundary (``online.fold_quant_rows``), and serves fp32
+        until then.  Training, statistics and refreshes stay fp32.  Needs
+        ``staging='device'``, as in the reference.  ``served_int8`` counts
+        the predictions served from armed slots.
       * ``staging='device'`` (default): each stream's payload is uploaded
         once and windows are gathered on the device by cursor; the refresh
         runs inside ``step``.  ``'host'`` builds and uploads each window
@@ -197,11 +240,11 @@ class StreamServer:
         in one warp and have no chunks.
 
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``refresh_mode='incremental'``, ``retirement`` other than
-    'none', ``quantize='int8'``, ``step_block > 1``, ``pipeline_depth > 0``,
-    ``devices > 1``, ``config='auto'``, ``attach_autotuner`` and a
-    non-float32 ``cfg.dtype``; the reference's retirement and quantization
-    parameters (``forget``, ``retire_window``, ``adapt_*``) come with them.
+    ROADMAP item: ``retirement`` other than 'none', ``step_block > 1``,
+    ``pipeline_depth > 0``, ``devices > 1``, ``config='auto'``,
+    ``attach_autotuner`` and a non-float32 ``cfg.dtype``; the reference's
+    retirement parameters (``forget``, ``retire_window``, ``adapt_*``) come
+    with them.
     """
 
     def __init__(
@@ -238,17 +281,12 @@ class StreamServer:
         refresh_mode = "recompute" if refresh_mode is None else refresh_mode
         if refresh_mode not in ("recompute", "incremental"):
             raise ValueError(f"unknown refresh_mode: {refresh_mode!r}")
-        if refresh_mode == "incremental":
-            raise _unported("refresh_mode='incremental'",
-                            "Incremental refresh")
         if retirement not in ("none", "forget", "window", "adaptive"):
             raise ValueError(f"unknown retirement: {retirement!r}")
         if retirement != "none":
             raise _unported(f"retirement={retirement!r}", "Retirement modes")
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize: {quantize!r}")
-        if quantize == "int8":
-            raise _unported("quantize='int8'", "Int8 serving")
         step_block = 1 if step_block is None else step_block
         if step_block < 1:
             raise ValueError(f"step_block must be >= 1, got {step_block!r}")
@@ -268,6 +306,10 @@ class StreamServer:
             raise _unported(f"cfg.dtype={cfg.dtype}", "bf16")
         if staging not in ("device", "host"):
             raise ValueError(f"unknown staging: {staging!r}")
+        if quantize == "int8" and staging != "device":
+            raise ValueError(
+                "quantize='int8' requires staging='device' (the scale fold "
+                "rides the refresh of the device-staged step)")
         if latency_window < 1:
             raise ValueError(
                 f"latency_window must be >= 1, got {latency_window!r}")
@@ -291,6 +333,8 @@ class StreamServer:
         self.phase_steps = int(phase_steps)
         self.refresh_every = int(refresh_every)
         self.beta = float(beta)
+        self.refresh_mode = refresh_mode
+        self.quantize = quantize
         self.staging = staging
         self.cohorts = RefreshCohorts(
             self.max_streams, self.refresh_every,
@@ -314,7 +358,11 @@ class StreamServer:
         self.slot_pos = np.zeros(self.max_streams, np.int64)
         # host mirror of states.step: the train/frozen choice never syncs
         self._slot_steps = np.zeros(self.max_streams, np.int64)
-        self._fresh_row = init_state(cfg, self.device)
+        # incremental mode: admitted slots carry a live factor of the empty
+        # system (sqrt(beta) I); every accumulated sample rotates it rank-1
+        self._fresh_row = init_state(
+            cfg, self.device,
+            factor_beta=beta if refresh_mode == "incremental" else None)
         self.states: OnlineState = map_leaves(
             lambda leaf: leaf.expand(self.max_streams, *leaf.shape).clone(),
             self._fresh_row)
@@ -329,6 +377,7 @@ class StreamServer:
         self._mask_cache: Dict[bytes, Tensor] = {}
         self._rows_cache: Dict[bytes, Tuple[Tensor, Tensor]] = {}
         self.global_step = 0
+        self.served_int8 = 0   # predictions served from armed int8 slots
         self.step_times_s: Deque[float] = deque(maxlen=latency_window)
         self.dispatch_times_s: Deque[float] = deque(maxlen=latency_window)
         self.drain_times_s: Deque[float] = deque(maxlen=latency_window)
@@ -416,10 +465,12 @@ class StreamServer:
 
     def _refresh(self, rows: np.ndarray, ok: np.ndarray,
                  live: Tensor) -> None:
-        """Recompute-mode Ridge refresh of slot rows ``rows`` on the
-        post-step state; only live slots past phase 1 with accumulated
+        """Ridge refresh of slot rows ``rows`` on the post-step state (a
+        batched Cholesky, or two triangular solves against the live factor
+        in incremental mode); only live slots past phase 1 with accumulated
         samples (and ``ok`` rows) take the new readout - solving a
-        zero-statistics system would wipe a trained W."""
+        zero-statistics system would wipe a trained W.  Under int8 the same
+        rows fold their serving scales."""
         key = rows.tobytes() + ok.tobytes()
         hit = self._rows_cache.get(key)
         if hit is None:
@@ -430,7 +481,13 @@ class StreamServer:
         st = self.states
         el = (ok_t & live[rows_t] & (st.step[rows_t] >= self.phase_steps)
               & (st.ridge.count[rows_t] > 0))
-        self.states = refresh_output_rows(st, self.beta, rows_t, el)
+        if self.refresh_mode == "incremental":
+            st = refresh_output_factor_rows(st, rows_t, el)
+        else:
+            st = refresh_output_rows(st, self.beta, rows_t, el)
+        if self.quantize == "int8":
+            st = fold_quant_rows(st, rows_t, el)
+        self.states = st
 
     # -- the serving loop --------------------------------------------------
 
@@ -474,11 +531,13 @@ class StreamServer:
                 torch.from_numpy(a).to(self.device)
                 for a in (u, length, label, weight))
 
-        self.states, preds, _ = _step_core(
+        self.states, preds, armed = _step_core(
             self.cfg, self.mask, self.states, self._fresh_row, fresh_rows,
             u, length, label, weight, live, self.lr, self.phase_steps,
             all_live=bool(live_np.all()), train=train,
             fused_infer=self.fused_infer, fused=self.fused,
+            maintain_factor=self.refresh_mode == "incremental",
+            quantize=self.quantize,
         )
         self._slot_steps[live_np] += 1
         self.global_step += 1
@@ -502,9 +561,16 @@ class StreamServer:
         self.dispatch_times_s.append(time.perf_counter() - t_start)
 
         t0 = time.perf_counter()
-        preds_np = preds.cpu().numpy()   # blocks: the served predictions
+        if armed is None:
+            preds_np = preds.cpu().numpy()   # blocks: the served predictions
+        else:   # the armed flags ride the same read
+            out = torch.cat([preds.reshape(-1), armed.to(preds.dtype)])
+            out = out.cpu().numpy()
+            preds_np, armed_np = out[:S * W].reshape(S, W), out[S * W:]
         self.drain_times_s.append(time.perf_counter() - t0)
         for i, req, lo, n in meta:
+            if armed is not None and armed_np[i]:
+                self.served_int8 += n
             for k in range(n):
                 pred = int(preds_np[i, k])
                 req.preds.append(pred)

@@ -8,21 +8,30 @@ PyTorch and the CUDA toolkit but no JAX; there, skip the JAX-importing
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: rtol 1e-4 / atol 1e-4 - the kernels sum the same fp32 terms as
-the plain versions in another order (register FMAs against tensor ops).
+Tolerances:
+  * K1, K2 and K5's logits: rtol 1e-4 / atol 1e-4 - the kernels sum the
+    same fp32 terms as the plain versions in another order (register FMAs
+    against tensor ops);
+  * K5's int32 DPRR accumulators for linear f: exact - the kernel rounds
+    every fp32 operation before a requantization as the plain version does;
+  * K3: max |dLt| <= 1e-5 x max |Lt| - the same rotations in the same
+    order, each divided by c and d.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.types import DFRConfig, Nonlinearity
+from repro_torch.kernels import cholupdate as k_cholupdate
 from repro_torch.kernels import ops
 from repro_torch.kernels import streaming as k_streaming
+from repro_torch.kernels import streaming_q8 as k_streaming_q8
 from repro_torch.kernels import train as k_train
 from repro_torch.runtime import StreamRequest, StreamServer
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
+K3_REL = 1e-5
 
 
 @pytest.fixture
@@ -122,6 +131,121 @@ def test_server_on_card_agrees_with_cpu(dev):
         if device == "cuda":
             assert k_train.KERNEL.launches - k1 == srv.global_step
             assert k_streaming.KERNEL.launches - k2 == srv.global_step
+        results[device] = {r.rid: r.preds for r in done}
+    total = sum(len(v) for v in results["cpu"].values())
+    agree = sum(int(a == b) for rid, v in results["cpu"].items()
+                for a, b in zip(v, results["cuda"][rid]))
+    assert agree / total >= 0.98
+
+
+def _q8_operands(dev, n_sys, b, t, nx, ny, seed):
+    """K5's operands: the K2 operands plus int8 readout codes and per-slot
+    scales, the last slot unarmed (scales 0)."""
+    j, lens, p, q, _, bias = _operands(dev, n_sys, b, t, nx, ny, seed)
+    rng = np.random.default_rng(seed + 1)
+    Wq = torch.from_numpy(rng.integers(-127, 128, (n_sys, ny, nx * (nx + 1)))
+                          .astype(np.int8)).to(dev)
+    w_scale = torch.from_numpy(
+        rng.uniform(1e-4, 1e-3, n_sys).astype(np.float32)).to(dev)
+    x_scale = torch.from_numpy(
+        rng.uniform(0.01, 0.05, n_sys).astype(np.float32)).to(dev)
+    w_scale[-1] = x_scale[-1] = 0.0
+    return j, lens, p, q, Wq, w_scale, x_scale, bias
+
+
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+@pytest.mark.parametrize("f_name", ["linear", "tanh", "mackey_glass"])
+def test_k5_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
+    args = _q8_operands(dev, n_sys, b, t, nx, ny, seed=2 * t + nx)
+    f = Nonlinearity(f_name, 0.8)
+    got, got_acc = ops.streaming_logits_slots_q8(*args, f, backend="cuda",
+                                                 return_acc=True)
+    want, want_acc = ops.streaming_logits_slots_q8(*args, f, backend="torch",
+                                                   return_acc=True)
+    torch.cuda.synchronize()
+    if f_name == "linear":
+        assert torch.equal(got_acc, want_acc)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def _k3_operands(dev, k, w, s, seed):
+    """Upper-triangular factors with a positive diagonal, and sample rows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    Lt = torch.triu(0.05 * torch.randn(k, s, s, generator=g), diagonal=1)
+    Lt = Lt + torch.diag_embed(1.0 + torch.rand(k, s, generator=g))
+    X = 0.3 * torch.randn(k, w, s, generator=g)
+    return Lt.to(dev), X.to(dev)
+
+
+def _assert_factor_close(got, want):
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= K3_REL * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("k,w,s", [(1, 1, 5), (3, 4, 73), (2, 11, 200),
+                                   (4, 4, 931)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_k3_kernel_matches_plain(dev, k, w, s, sign):
+    Lt, X = _k3_operands(dev, k, w, s, seed=s + w)
+    X[:, 0] = 0.0                                  # a zero row: a no-op
+    if sign < 0:
+        Lt = ops.cholupdate_window_t(Lt, X, 1.0, backend="torch")
+        X[0, -1] = 0.0
+        X[0, -1, s // 2] = 3.0 * Lt[0, s // 2, s // 2]   # guard-skipped
+    want = ops.cholupdate_window_t(Lt, X, sign, backend="torch")
+    got = ops.cholupdate_window_t(Lt, X, sign, backend="cuda")
+    torch.cuda.synchronize()
+    _assert_factor_close(got, want)
+    inplace = Lt.clone()
+    ops.cholupdate_window_t(inplace, X, sign, out=inplace, backend="cuda")
+    torch.cuda.synchronize()
+    _assert_factor_close(inplace, want)
+
+
+def test_k5_k3_launch_counts_and_rejections(dev):
+    args = _q8_operands(dev, 2, 3, 9, 6, 3, seed=0)
+    Lt, X = _k3_operands(dev, 2, 3, 10, seed=0)
+    k5, k3 = k_streaming_q8.KERNEL.launches, k_cholupdate.KERNEL.launches
+    ops.streaming_logits_slots_q8(*args)                 # backend from device
+    ops.cholupdate_window_t(Lt, X)
+    ops.cholupdate_window_t(Lt, X, backend="torch")      # the plain version
+    assert k_streaming_q8.KERNEL.launches == k5 + 1
+    assert k_cholupdate.KERNEL.launches == k3 + 1
+    with pytest.raises(ValueError, match="s <="):
+        k_cholupdate.cholupdate_window_t_cuda(
+            torch.zeros(1, 4097, 4097, device=dev),
+            torch.zeros(1, 1, 4097, device=dev), 1.0)
+    with pytest.raises(TypeError):
+        k_cholupdate.cholupdate_window_t_cuda(Lt, X.double(), 1.0)
+
+
+def test_int8_incremental_server_on_card_agrees_with_cpu(dev):
+    """A short armed int8 + incremental episode on the card against the same
+    episode on the CPU; K1, K2, K5 and K3 each launch once per round."""
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=8)
+    rng = np.random.default_rng(0)
+    mask = np.sign(rng.normal(size=(8, 2))).astype(np.float32)
+    kernels = (k_train.KERNEL, k_streaming.KERNEL, k_streaming_q8.KERNEL,
+               k_cholupdate.KERNEL)
+    results = {}
+    for device in ("cuda", "cpu"):
+        srv = StreamServer(cfg, t_max=16, max_streams=3, window=2,
+                           phase_steps=2, refresh_every=3, mask=mask,
+                           refresh_mode="incremental", quantize="int8",
+                           device=device)
+        for rid, n in enumerate((12, 6, 10, 4, 9)):
+            r = np.random.default_rng(rid)
+            srv.submit(StreamRequest(
+                rid=rid, u=r.normal(size=(n, 16, 2)).astype(np.float32),
+                length=r.integers(4, 17, n).astype(np.int32),
+                label=r.integers(0, 3, n).astype(np.int32)))
+        before = [kn.launches for kn in kernels]
+        done = srv.run_until_drained()
+        if device == "cuda":
+            for kn, b in zip(kernels, before):
+                assert kn.launches - b == srv.global_step, kn.name
+            assert srv.served_int8 > 0
         results[device] = {r.rid: r.preds for r in done}
     total = sum(len(v) for v in results["cpu"].values())
     agree = sum(int(a == b) for rid, v in results["cpu"].items()

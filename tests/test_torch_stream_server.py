@@ -148,11 +148,9 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("kw", [
-    {"refresh_mode": "incremental"},
     {"retirement": "forget"},
     {"retirement": "window"},
     {"retirement": "adaptive"},
-    {"quantize": "int8"},
     {"step_block": 2},
     {"pipeline_depth": 1},
     {"devices": 2},
@@ -170,6 +168,15 @@ def test_unported_dtype_and_autotuner_raise():
     srv = StreamServer(CFG, t_max=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         srv.attach_autotuner(object())
+
+
+def test_int8_needs_device_staging():
+    """As in the reference: the int8 scale fold rides the device-staged
+    step's refresh."""
+    with pytest.raises(ValueError, match="staging='device'"):
+        StreamServer(CFG, t_max=16, device="cpu", quantize="int8",
+                     staging="host")
+    StreamServer(CFG, t_max=16, device="cpu", quantize="int8")
 
 
 def test_unknown_knob_values_raise_value_error():
