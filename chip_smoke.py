@@ -12,12 +12,18 @@ Phases, each fatal on failure:
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once.
   3. Each kernel against its plain PyTorch version on the card, at the
-     server's shapes, with times: K1 (training forward), K2 (streaming
-     logits) and K5 (int8 streaming logits, int32 accumulators equal bit
-     for bit) at 32 slots x a window of 4 = 128 samples, T=93, Nx=30,
-     Ny=10, ragged lengths down to 1; K3 (factor fold) at 32 factors of
-     931 x 931 and windows of 4 rows, sign +1, and sign -1 with one
-     guard-skipped rotation.
+     shapes its path gives it, with times: K1 (training forward), K2
+     (streaming logits) and K5 (int8 streaming logits, int32 accumulators
+     equal bit for bit) at 32 slots x a window of 4 = 128 samples, T=93,
+     Nx=30, Ny=10, ragged lengths down to 1; K3 (factor fold) at 32
+     factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
+     one guard-skipped rotation; K6 (reservoir states) and K7 (DPRR) on the
+     ARAB training split, a chunk of 256 samples and all 6600; K4a (tile
+     Cholesky) on the blocked solve's diagonal tiles and K4b (tile
+     triangular solves) on its 896-row panel and its Ny-row solves, at
+     s=931 with tiles of 128; the blocked ridge solve at s=931 against the
+     unblocked library solve over the beta sweep, with tiles of 128 and
+     256.
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
@@ -30,10 +36,25 @@ Phases, each fatal on failure:
      share and the kernels and host ops that take the time.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
      first 800 ARAB samples, same widths) served on the card and on the CPU.
+  6. The training path at full width: DFRModel.fit(train, minibatch=4) on
+     the whole ARAB training split (6600 samples, Nx=30, s=931, FIT_EPOCHS
+     epochs, the paper's recipe with select='val'), with every launch count
+     set to 0 before it and read after it (K6, K7, K4a and K4b); the wall
+     time of the SGD and of the ridge fits, the chosen beta, the train and
+     test accuracy.  Then OnlineDFR streamed over the training split in
+     windows of 8, refresh_output(1e-2) and its accuracy, each call's
+     launches read apart: at ONLINE_LR, and at the reference test's 0.5,
+     whose refresh must be finite on the card exactly when it is on the
+     CPU.  torch.profiler over one fit_ridge and over one
+     SGD epoch of 256 samples: the device's busy share and top kernels.
+  7. Card against CPU on a reduced fit (Nx=30, the first 512 ARAB training
+     samples, 2 epochs): the same beta, at least 0.98 of the test split's
+     predictions equal, and |dW| / max |W|.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,10 +68,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core.types import DFRConfig  # noqa: E402
+from repro_torch.core import masking, ridge  # noqa: E402
+from repro_torch.core.dfr import DFRModel  # noqa: E402
+from repro_torch.core.online import OnlineDFR  # noqa: E402
+from repro_torch.core.types import DFRConfig, TimeSeriesBatch  # noqa: E402
 from repro_torch.data import PAPER_DATASETS, load  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import cholesky as k_cholesky  # noqa: E402
 from repro_torch.kernels import cholupdate as k_cholupdate  # noqa: E402
+from repro_torch.kernels import dprr as k_dprr  # noqa: E402
+from repro_torch.kernels import reservoir as k_reservoir  # noqa: E402
+from repro_torch.kernels import ridge_solve as k_ridge  # noqa: E402
 from repro_torch.kernels import streaming as k_streaming  # noqa: E402
 from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
@@ -65,16 +93,35 @@ K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
 # K5; factors, rows per window, s = Nx^2 + Nx + 1 for K3
 STREAM_SHAPE = (32, 4, 93, 30, 10)
 K3_SHAPE = (32, 4, 931)
+# the training path: ridge tiles (the DFRModel path's block), the chunk of
+# fit_ridge, the sizes of the card-vs-CPU fit, and the epochs of the
+# full-width fit (the paper's 25)
+TILE = 128
+CHUNK = 256
+AGREE_SAMPLES, AGREE_EPOCHS = 512, 2
+FIT_EPOCHS = 25
+ONLINE_LR = 0.01  # OnlineDFR's SGD rate at ARAB's width
+K4A_REL = 1e-5   # K4a: the same rounded operations as its plain version
+K4B_REL = 1e-4   # K4b: dot products in another order
+SOLVE_REL = 1e-3  # blocked vs unblocked ridge solve at a well-posed beta
+WELL_POSED_BETAS = (1e-2, 1e0)
 
 KERNELS = {"K1 train_forward": k_train.KERNEL,
            "K2 streaming_logits": k_streaming.KERNEL,
            "K5 streaming_logits_q8": k_streaming_q8.KERNEL,
-           "K3 cholupdate_window_t": k_cholupdate.KERNEL}
+           "K3 cholupdate_window_t": k_cholupdate.KERNEL,
+           "K6 reservoir_states": k_reservoir.KERNEL,
+           "K7 dprr_features": k_dprr.KERNEL,
+           "K4a chol_tile": k_cholesky.CHOL_KERNEL,
+           "K4b trsm_tile": k_cholesky.TRSM_KERNEL}
+TRAINING_KERNELS = ("K6 reservoir_states", "K7 dprr_features",
+                    "K4a chol_tile", "K4b trsm_tile")
 # the main paths: server knobs and the kernels each must launch every round
 PATHS = {
     "fp32": (dict(), ("K1 train_forward", "K2 streaming_logits")),
     "int8": (dict(quantize="int8", refresh_mode="incremental"),
-             tuple(KERNELS)),
+             ("K1 train_forward", "K2 streaming_logits",
+              "K5 streaming_logits_q8", "K3 cholupdate_window_t")),
 }
 
 
@@ -334,14 +381,225 @@ def k3_records(dev) -> list:
                  bound_by=by, library_ms=None)]
 
 
+def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=library_ms)
+
+
+def check_rel(name: str, got, want, tol: float) -> float:
+    """max |got - want| <= tol * max |want|, both finite; returns the
+    largest absolute error."""
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    e = float((got - want).abs().max())
+    rel = e / max(float(want.abs().max()), 1e-30)
+    print(f"  {name}: max abs err {e:.3e}, relative to the largest "
+          f"{rel:.3e} (tolerance {tol})")
+    check(rel <= tol, f"{name}: kernel disagrees with its plain version")
+    return e
+
+
+def training_kernel_records(model: DFRModel, train) -> dict:
+    """K6, K7, K4a and K4b against their plain versions on the card at the
+    training path's shapes: ARAB's masked training split (a fit_ridge chunk
+    and the whole split) at the initial (p, q), and the blocked solve's
+    tiles of the ridge system those features give, with tiles of 128."""
+    cfg = model.cfg
+    nx, nr, dev = cfg.n_nodes, cfg.n_rep, model.device
+    params = model.init_params()
+    u = train.u.to(dev)
+    lens = train.length.to(dev)
+    j_all = masking.apply_mask(model.mask, u)
+    f = cfg.f()
+    records = {}
+
+    def k6(j, ln, backend):
+        return ops.reservoir_states(j, ln, params.p, params.q, nx, f=f,
+                                    backend=backend)
+
+    def k7(x, ln, backend):
+        return ops.dprr_features(x, ln, nx, backend=backend)
+
+    stats = {}
+    for n in (CHUNK, train.batch):
+        j, ln = j_all[:n], lens[:n]
+        t_len = j.shape[1]
+        live = int(ln.sum())
+        x = k6(j, ln, "cuda")
+        x_plain = k6(j, ln, "torch")
+        torch.cuda.synchronize()
+        e6 = compare(f"K6 at B={n}", (x,), (x_plain,))
+        r = k7(x_plain, ln, "cuda")
+        r_plain = k7(x_plain, ln, "torch")
+        torch.cuda.synchronize()
+        e7 = compare(f"K7 at B={n}", (r,), (r_plain,))
+        ms6 = device_ms(lambda: k6(j, ln, "cuda"))
+        ms7 = device_ms(lambda: k7(x, ln, "cuda"))
+        plain6 = wall_ms(lambda: k6(j, ln, "torch"), reps=3)
+        plain7 = wall_ms(lambda: k7(x, ln, "torch"), reps=3)
+        # the library's DPRR: one bmm of the masked X^T and the shifted X
+        # with its ones column (the operands built once, outside the call)
+        step = torch.arange(t_len, device=dev)
+        x1m = (x * (step[None, :] < ln[:, None])[..., None]).mT.contiguous()
+        x0 = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+        x0a = torch.cat([x0, torch.ones_like(x0[..., :1])], -1).contiguous()
+        lib7 = device_ms(lambda: torch.bmm(x1m, x0a))
+        # K6: each live step reads Nx inputs and does about Nx^2 + 5 Nx
+        # flops (ring matvec, nonlinearity, wrap); every row of X is
+        # written, the frozen ones too.  K7: each live row of X read once
+        # and 2 Nx (Nx + 1) flops; r written once.
+        b6 = bound_ms(live * nx * 4 + n * 4 + 8 + n * t_len * nx * 4,
+                      live * (nx * nx + 5 * nx))
+        b7 = bound_ms(live * nx * 4 + n * 4 + n * nr * 4,
+                      live * 2 * nx * (nx + 1))
+        print(f"  K6 at B={n} T={t_len} Nx={nx} ({live} live steps): kernel "
+              f"{ms6:.4f} ms, plain {plain6:.3f} ms, bound {b6[0]:.5f} ms "
+              f"({b6[1]})")
+        print(f"  K7 at B={n}: kernel {ms7:.4f} ms, plain {plain7:.3f} ms, "
+              f"one bmm {lib7:.4f} ms, bound {b7[0]:.5f} ms ({b7[1]})")
+        stats[n] = (e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7)
+    e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7 = stats[train.batch]
+    records["K6 reservoir_states"] = record(
+        "K6 reservoir_states", "src/repro_torch/kernels/csrc/reservoir.cu",
+        "src/repro/kernels/reservoir.py:30",
+        max(e6, stats[CHUNK][0]), ms6, plain6, b6, None)
+    records["K7 dprr_features"] = record(
+        "K7 dprr_features", "src/repro_torch/kernels/csrc/dprr.cu",
+        "src/repro/kernels/dprr.py:28", max(e7, stats[CHUNK][4]), ms7,
+        plain7, b7, lib7)
+
+    # the ridge system of these features, and the blocked solve's tiles
+    A, B = model.ridge_statistics(train, params, CHUNK)
+    tiles = capture_tiles(A, ridge.regularize(B, 1e-2))
+    diag = torch.cat([a for (a,) in tiles["chol_block_batched"]])
+    got, want = (k_cholesky.chol_block_batched(diag, backend=be)
+                 for be in ("cuda", "torch"))
+    torch.cuda.synchronize()
+    e4a = check_rel(f"K4a on the blocked solve's {diag.shape[0]} diagonal "
+                    f"tiles",
+                    got, want, K4A_REL)
+    tile = diag[:1].contiguous()
+    ms4a = device_ms(lambda: k_cholesky.chol_tile_cuda(tile))
+    plain4a = wall_ms(lambda: ref.chol_tile_ref(tile), reps=3)
+    lib4a = device_ms(lambda: torch.linalg.cholesky_ex(tile))
+    b4a = bound_ms(2 * TILE * TILE * 4, TILE ** 3 // 3)
+    print(f"  K4a one {TILE}x{TILE} tile: kernel {ms4a:.4f} ms, plain "
+          f"{plain4a:.3f} ms, torch.linalg.cholesky_ex {lib4a:.4f} ms, bound "
+          f"{b4a[0]:.6f} ms ({b4a[1]})")
+    records["K4a chol_tile"] = record(
+        "K4a chol_tile", "src/repro_torch/kernels/csrc/cholesky.cu",
+        "src/repro/kernels/cholesky.py:37", e4a, ms4a, plain4a, b4a, lib4a)
+
+    e4b = 0.0
+    timed = {}
+    for key, fn in (("trsm_lower_t_batched", k_cholesky.trsm_lower_t_batched),
+                    ("trsm_lower_batched", k_cholesky.trsm_lower_batched)):
+        for rhs, L in tiles[key]:
+            got, want = fn(rhs, L, backend="cuda"), fn(rhs, L, backend="torch")
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            check(bool(torch.isfinite(got).all()) and rel <= K4B_REL,
+                  f"K4b {key} at m={rhs.shape[1]}: relative error {rel:.3e}")
+            e4b = max(e4b, err)
+            timed.setdefault((key, rhs.shape[1]), (rhs, L))
+    print(f"  K4b: {sum(len(tiles[k]) for k in tiles if 'trsm' in k)} "
+          f"solves of the blocked solve within {K4B_REL} of the plain "
+          f"version (max abs err {e4b:.3e})")
+    panel = max(m for _, m in timed)
+    rows = min(m for _, m in timed)   # Ny padded to 8
+    for (key, m), (rhs, L) in sorted(timed.items(), key=lambda kv: -kv[0][1]):
+        if m not in (panel, rows):
+            continue
+        back = key == "trsm_lower_batched"
+        rhs, L = rhs.contiguous(), L.contiguous()
+        ms = device_ms(lambda: k_cholesky.trsm_tile_cuda(rhs, L, back))
+        plain_fn = ref.trsm_lower_ref if back else ref.trsm_lower_t_ref
+        plain = wall_ms(lambda: plain_fn(rhs, L), reps=3)
+        # X L = D is solve_triangular(L, left=False); X L^T = A with L^T
+        lib = device_ms(lambda: torch.linalg.solve_triangular(
+            L if back else L.mT, rhs, upper=not back, left=False))
+        bnd = bound_ms((2 * m * TILE + TILE * TILE) * 4, m * TILE * TILE)
+        print(f"  K4b {key} m={m} bs={TILE}: kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, solve_triangular {lib:.4f} ms, bound "
+              f"{bnd[0]:.6f} ms ({bnd[1]})")
+        if "K4b trsm_tile" not in records:   # the largest: the panel
+            records["K4b trsm_tile"] = record(
+                "K4b trsm_tile", "src/repro_torch/kernels/csrc/cholesky.cu",
+                "src/repro/kernels/cholesky.py:101", e4b, ms, plain, bnd,
+                lib)
+    ridge_solve_check(A, B, cfg.betas)
+    return records
+
+
+def capture_tiles(A, B) -> dict:
+    """The tile operands the blocked solve gives K4a and K4b for
+    W = A B^-1 (with tiles of TILE), from a run of the blocked solve over
+    the plain tiles: no kernel launches."""
+    names = ("chol_block_batched", "trsm_lower_t_batched",
+             "trsm_lower_batched")
+    seen = {n: [] for n in names}
+    orig = {n: getattr(k_ridge, n) for n in names}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            seen[name].append(tuple(a.clone() for a in args))
+            return orig[name](*args, **kw)
+        return fn
+
+    for n in names:
+        setattr(k_ridge, n, recorder(n))
+    try:
+        k_ridge.ridge_solve_blocked(A, B, block=TILE, backend="torch")
+    finally:
+        for n in names:
+            setattr(k_ridge, n, orig[n])
+    return seen
+
+
+def ridge_solve_check(A, B, betas) -> None:
+    """ops.ridge_solve at s=931 (the blocked solve over K4a and K4b, tiles
+    of 128 and 256) against the unblocked library solve, over the sweep;
+    the well-posed betas must agree within SOLVE_REL."""
+    for beta in betas:
+        Bb = ridge.regularize(B, beta)
+        want = ref.ridge_solve_ref(A, Bb)
+        line = []
+        for block in (TILE, 2 * TILE):
+            got = ops.ridge_solve(A, Bb, block=block)
+            fin = bool(torch.isfinite(got).all())
+            rel = (float((got - want).abs().max() / want.abs().max())
+                   if fin and bool(torch.isfinite(want).all()) else None)
+            line.append(f"block {block}: finite {fin}, max |dW| / max |W| "
+                        f"{rel if rel is None else f'{rel:.3e}'}")
+            if beta in WELL_POSED_BETAS:
+                check(rel is not None and rel <= SOLVE_REL,
+                      f"ridge solve at beta {beta}, block {block}: {rel}")
+        print(f"  ridge solve s={B.shape[0]} beta {beta:g} (library finite "
+              f"{bool(torch.isfinite(want).all())}): " + "; ".join(line))
+    Bb = ridge.regularize(B, 1e-2)
+    ms = {block: device_ms(lambda: ops.ridge_solve(A, Bb, block=block),
+                           reps=10) for block in (TILE, 2 * TILE)}
+
+    def library():
+        C, _ = torch.linalg.cholesky_ex(Bb)
+        return torch.cholesky_solve(A.mT, C)
+
+    lib = device_ms(library, reps=10)
+    print(f"  ridge solve s={B.shape[0]}: blocked solve {ms[TILE]:.3f} ms "
+          f"(tiles of {TILE}), {ms[2 * TILE]:.3f} ms (tiles of {2 * TILE}); "
+          f"torch.linalg.cholesky_ex + cholesky_solve {lib:.3f} ms")
+
+
 def load_arab():
-    """The paper's ARAB configuration (configs/dfr_paper.py) and its full
-    training split as numpy arrays."""
+    """The paper's ARAB configuration (configs/dfr_paper.py), its full
+    training split as numpy arrays, and both splits as batches."""
     spec = PAPER_DATASETS["ARAB"]
-    train, _ = load("ARAB")
+    train, test = load("ARAB")
     cfg = DFRConfig(n_in=spec.n_in, n_classes=spec.n_classes, n_nodes=30,
                     nonlinearity="linear")
-    return cfg, (train.u.numpy(), train.length.numpy(), train.label.numpy())
+    arrays = (train.u.numpy(), train.length.numpy(), train.label.numpy())
+    return cfg, arrays, (train, test)
 
 
 def make_streams(arrays, n_streams: int, n_samples=None):
@@ -512,6 +770,228 @@ def agreement_phase(cfg, arrays, path: str) -> None:
     check(frac >= 0.98, f"card and CPU agree on {frac:.4f} < 0.98")
 
 
+def timed(obj, name: str, log: list) -> None:
+    """Wrap the bound method ``name`` of ``obj`` to append each call's wall
+    seconds (synchronized) to ``log``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def chosen_beta(model: DFRModel, train, params) -> tuple:
+    """The beta of the sweep whose solve gives the fitted W: fit_ridge's
+    statistics and solves repeated for ``params``' (p, q), each beta's W
+    compared with the fitted one.  Returns (beta, max |dW| / max |W| per
+    finite beta)."""
+    cfg = model.cfg
+    A, B = model.ridge_statistics(train, params, CHUNK)
+    dist = {}
+    for beta in cfg.betas:
+        Wt = ridge.ridge_solve(A, ridge.regularize(B, beta))
+        if bool(torch.isfinite(Wt).all()):
+            dist[beta] = float((Wt[:, :-1] - params.W).abs().max()
+                               / params.W.abs().max())
+    return min(dist, key=dist.get), dist
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def check_launches(what: str, launches: dict, on_path) -> None:
+    """Every kernel of ``on_path`` launched, no other."""
+    print(f"  {what}: launches: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in launches.items()))
+    for name, n in launches.items():
+        ok = n > 0 if name in on_path else n == 0
+        check(ok, f"{what}: {name} launched {n} times")
+
+
+def training_phase(card: str, cfg, data) -> dict:
+    """DFRModel.fit at full width, then OnlineDFR over the training split;
+    returns the fit's launches of the training path's kernels."""
+    train, test = data
+    fit_cfg = dataclasses.replace(cfg, epochs=FIT_EPOCHS)
+    model = DFRModel.create(fit_cfg,
+                            generator=torch.Generator().manual_seed(0))
+    sgd_s, ridge_s = [], []
+    timed(model, "fit_sgd", sgd_s)
+    timed(model, "fit_ridge", ridge_s)
+    cut = "" if FIT_EPOCHS == cfg.epochs else \
+        f" (CUT from the paper's {cfg.epochs})"
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params = model.fit(train, minibatch=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    del model.fit_sgd, model.fit_ridge
+    tag = f"[{card}] DFRModel.fit"
+    # select='val' trains on all but a quarter, minibatches of 4
+    steps = FIT_EPOCHS * ((train.batch - train.batch // 4) // 4)
+    print(f"  {tag}: ARAB Nx={cfg.n_nodes} s={cfg.s}, {train.batch} "
+          f"samples, {FIT_EPOCHS} epochs{cut}, minibatch 4, select='val': "
+          f"{wall:.2f} s; fit_sgd {sum(sgd_s):.2f} s ({steps} steps, "
+          f"{1e3 * sum(sgd_s) / steps:.3f} ms a step), fit_ridge "
+          f"{sum(ridge_s):.2f} s ({len(ridge_s)} calls, "
+          f"{1e3 * np.median(ridge_s):.1f} ms median)")
+    check_launches(tag, launches, TRAINING_KERNELS)
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (params.p, params.q, params.W, params.b)),
+          "DFRModel.fit: non-finite parameters")
+    beta, dist = chosen_beta(model, train, params)
+    acc_tr = float(model.accuracy(train, params))
+    acc_te = float(model.accuracy(test, params))
+    print(f"  {tag}: p {float(params.p):.6g}, q {float(params.q):.6g}, "
+          f"beta {beta:g} (max |dW| / max |W| against each finite beta's "
+          f"solve: {', '.join(f'{b:g}: {d:.2e}' for b, d in dist.items())}); "
+          f"train accuracy {acc_tr:.4f}, test accuracy {acc_te:.4f} on "
+          f"{test.batch}")
+    check(dist[beta] <= 1e-3, "no beta of the sweep gives the fitted W")
+    check(acc_te > 3.0 / cfg.n_classes, f"test accuracy {acc_te}")
+
+    # the single-stream edge loop on the same mask: at ONLINE_LR, and at
+    # the rate of the reference's own edge-loop test (JPVOW, Nx=16), which
+    # at ARAB's width leaves B + 1e-2 I too ill-conditioned for fp32; that
+    # episode's finiteness must match the CPU's
+    for lr in (ONLINE_LR, 0.5):
+        state, acc = online_episode(cfg, model.mask, train, test, lr, "cuda")
+        if lr == ONLINE_LR:
+            check(acc is not None and acc > 3.0 / cfg.n_classes,
+                  f"OnlineDFR at lr {lr}: test accuracy {acc}")
+        else:
+            _, acc_cpu = online_episode(cfg, model.mask, train, test, lr,
+                                        "cpu")
+            print(f"  [OnlineDFR] lr {lr}: refresh finite on the card "
+                  f"{acc is not None}, on the CPU {acc_cpu is not None}")
+            check((acc is None) == (acc_cpu is None),
+                  "OnlineDFR: card and CPU disagree on a finite refresh")
+
+    profile_training(card, model, train, params)
+    return {name: launches[name] for name in TRAINING_KERNELS}
+
+
+def online_episode(cfg, mask, train, test, lr: float, device: str):
+    """OnlineDFR over the training split in windows of 8 at learning rate
+    ``lr``, then refresh_output(1e-2); on the card every call's launches
+    are read apart.  Returns the state and the test accuracy (None when
+    the refreshed readout is not finite)."""
+    card = device == "cuda"
+    online = OnlineDFR(cfg, mask=mask, device=device)
+    state = online.init()
+    reset_launches()
+    t0 = time.perf_counter()
+    for lo in range(0, train.batch - 7, 8):
+        state, _ = online.step(state, train.u[lo:lo + 8],
+                               train.length[lo:lo + 8],
+                               train.label[lo:lo + 8], lr, lr)
+    if card:
+        torch.cuda.synchronize()
+        check_launches(f"[OnlineDFR] lr {lr}: step", read_launches(),
+                       TRAINING_KERNELS[:2])
+        reset_launches()
+    steps_s = time.perf_counter() - t0
+    state = online.refresh_output(state, 1e-2)
+    if card:
+        check_launches(f"[OnlineDFR] lr {lr}: refresh_output",
+                       read_launches(), TRAINING_KERNELS[2:])
+        reset_launches()
+    preds = online.infer(state, test.u, test.length).cpu()
+    if card:
+        check_launches(f"[OnlineDFR] lr {lr}: infer", read_launches(),
+                       TRAINING_KERNELS[:2])
+    finite = bool(torch.isfinite(state.params.W).all())
+    acc = float((preds == test.label).float().mean()) if finite else None
+    print(f"  [OnlineDFR] {device}, lr {lr}: {train.batch // 8} windows of "
+          f"8 in {steps_s:.2f} s; p {float(state.params.p):.6g}, q "
+          f"{float(state.params.q):.6g}; refresh_output(1e-2) "
+          + (f"test accuracy {acc:.4f} on {test.batch}" if finite else
+             "NOT FINITE (B + 1e-2 I is not positive definite in fp32)"))
+    return state, acc
+
+
+def profile_training(card: str, model: DFRModel, train, params,
+                     top: int = 6) -> None:
+    """torch.profiler over one fit_ridge at full width and over one SGD
+    epoch of 256 samples: the device's busy share and top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sub = TimeSeriesBatch(u=train.u[:CHUNK], length=train.length[:CHUNK],
+                          label=train.label[:CHUNK])
+    one_epoch = DFRModel(dataclasses.replace(model.cfg, epochs=1),
+                         model.mask)
+    for what, fn in (
+            (f"fit_ridge, {train.batch} samples",
+             lambda: model.fit_ridge(train, params)),
+            ("fit_sgd, one epoch of 256 samples",
+             lambda: one_epoch.fit_sgd(sub, minibatch=4))):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"  [{card}] {what}: launches " + ", ".join(
+            f"{name.split()[0]} {n}" for name, n in read_launches().items()
+            if n))
+        events = prof.key_averages()
+        dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in dev) / 1e6
+        print(f"  [{card}] {what}: profiled {wall:.3f} s, device busy "
+              f"{1e3 * busy:.3f} ms = {100 * busy / wall:.1f}% (idle "
+              f"{100 - 100 * busy / wall:.1f}%)")
+        for e in dev[:top]:
+            print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
+        check(busy > 0, "the profiler saw no device time")
+
+
+def training_agreement_phase(cfg, data) -> None:
+    """The same reduced fit on the card and on the CPU."""
+    train, test = data
+    sub = TimeSeriesBatch(u=train.u[:AGREE_SAMPLES],
+                          length=train.length[:AGREE_SAMPLES],
+                          label=train.label[:AGREE_SAMPLES])
+    small = dataclasses.replace(cfg, epochs=AGREE_EPOCHS)
+    mask = DFRModel.create(small, device="cpu").mask
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = DFRModel(small, mask, device=device)
+        t0 = time.perf_counter()
+        params = model.fit(sub, minibatch=4)
+        beta, _ = chosen_beta(model, sub, params)
+        out[device] = (params, beta, model.predict(test, params).cpu(),
+                       time.perf_counter() - t0)
+    (pg, bg, yg, tg), (pc, bc, yc, tc) = out["cuda"], out["cpu"]
+    agree = float((yg == yc).float().mean())
+    dW = float((pg.W.cpu() - pc.W).abs().max() / pc.W.abs().max())
+    print(f"  DFRModel.fit, {AGREE_SAMPLES} samples, {AGREE_EPOCHS} epochs: "
+          f"card {tg:.1f} s, CPU {tc:.1f} s; beta card {bg:g}, CPU {bc:g}; "
+          f"{agree:.4f} of {test.batch} test predictions agree; |dp| "
+          f"{abs(float(pg.p) - float(pc.p)):.3e}, |dq| "
+          f"{abs(float(pg.q) - float(pc.q)):.3e}, max |dW| / max |W| "
+          f"{dW:.3e}")
+    check(bg == bc, f"card and CPU chose beta {bg:g} and {bc:g}")
+    check(agree >= 0.98, f"card and CPU agree on {agree:.4f} < 0.98")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -525,7 +1005,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    logs = _build.build(["train", "streaming", "streaming_q8", "cholupdate"],
+    logs = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")),
                         verbose=True)
     print(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
           f"(parallel nvcc, {', '.join(sorted(logs)) or 'already built'})")
@@ -534,12 +1014,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3] kernels vs plain versions on the card")
-    records = kernel_phase(dev)
     t0 = time.perf_counter()
-    cfg, arrays = load_arab()
-    print(f"[4] main paths: StreamServer on ARAB at full width "
-          f"(data made in {time.perf_counter() - t0:.1f} s)")
+    cfg, arrays, data = load_arab()
+    print(f"[3] kernels vs plain versions on the card (ARAB data made in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    records = kernel_phase(dev)
+    records.update(training_kernel_records(
+        DFRModel.create(cfg, generator=torch.Generator().manual_seed(0)),
+        data[0]))
+    print("[4] main paths: StreamServer on ARAB at full width")
     launches = {}
     for path in PATHS:
         # each kernel reports the launches of the first path it is on
@@ -551,6 +1034,10 @@ def main() -> int:
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)
+    print("[6] the training path at full width: DFRModel.fit, OnlineDFR")
+    launches.update(training_phase(card, cfg, data))
+    print("[7] training path agreement, card vs CPU")
+    training_agreement_phase(cfg, data)
 
     for name, count in launches.items():
         records[name]["launches"] = count

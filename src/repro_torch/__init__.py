@@ -1,4 +1,5 @@
-"""PyTorch and CUDA port of the DFR train-while-serve system.
+"""PyTorch and CUDA port of the DFR train-while-serve system and its offline
+training recipe.
 
 Mirrors the layout of the JAX package ``repro`` (core/, kernels/, runtime/,
 data/) and imports nothing from it.  Entry points run on the CUDA device

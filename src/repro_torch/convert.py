@@ -1,4 +1,10 @@
-"""Carry DFR weights and online state between the JAX package and the port.
+"""Carry DFR weights, masks and online state between the JAX package and
+the port.
+
+``params_leaves`` / ``params_from_leaves`` carry a ``DFRParams`` (either
+package's) as a dict of numpy arrays ``p``, ``q``, ``W``, ``b``;
+``mask_to_numpy`` / ``mask_from_numpy`` carry an input mask, so both
+packages can run one system on the same weights.
 
 Both packages' ``OnlineState`` have the same attribute tree, so one walk
 reads either: ``state_leaves`` turns a state (the reference's or the port's,
@@ -47,6 +53,29 @@ def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def params_leaves(params) -> Dict[str, np.ndarray]:
+    """A ``DFRParams`` (either package's) as numpy ``p``, ``q``, ``W``,
+    ``b``."""
+    return {k: _to_numpy(getattr(params, k)) for k in ("p", "q", "W", "b")}
+
+
+def params_from_leaves(leaves: Dict[str, np.ndarray],
+                       device=None) -> DFRParams:
+    """The port's ``DFRParams`` from ``params_leaves`` output."""
+    return DFRParams(**{k: torch.from_numpy(np.array(leaves[k])).to(device)
+                        for k in ("p", "q", "W", "b")})
+
+
+def mask_to_numpy(mask) -> np.ndarray:
+    """An input mask (Nx, n_in), either package's, as numpy."""
+    return _to_numpy(mask)
+
+
+def mask_from_numpy(mask: np.ndarray, device=None) -> torch.Tensor:
+    """The port's input mask from numpy."""
+    return torch.from_numpy(np.array(mask)).to(device)
 
 
 def state_leaves(state) -> Dict[str, np.ndarray]:

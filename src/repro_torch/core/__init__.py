@@ -1,1 +1,2 @@
-"""Core DFR math: types, masking, reservoir, DPRR, backprop, ridge, online."""
+"""Core DFR math: types, masking, reservoir, DPRR, backprop, ridge, online,
+and the offline classifier (dfr)."""

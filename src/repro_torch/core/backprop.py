@@ -11,6 +11,11 @@ The counterpart of ``repro.core.backprop`` on the serving path:
 * ``forward_fused`` - the same ``ForwardAux`` through K1, the fused kernel
   that never stores X, as a ``torch.autograd.Function`` whose backward is the
   closed form of Eq. 33-36 from (r, x(T), x(T-1), j(T)).
+* ``grads_truncated`` - the offline recipe's gradients (``DFRModel``,
+  ``online_step``): ``grads_truncated_from_aux`` over a forward whose
+  states and DPRR come from ``kernels.ops.reservoir_states`` (K6) and
+  ``kernels.ops.dprr_features`` (K7).  The truncation cuts the gradient
+  through that forward, so neither kernel needs a backward.
 
 Parameters may carry leading system axes *P (the stream server's slots):
 ``p``/``q`` are (*P), ``W`` (*P, Ny, Nr), ``b`` (*P, Ny), and the data
@@ -42,6 +47,14 @@ class ForwardAux(NamedTuple):
 def loss_from_logits(logits: Tensor, onehot: Tensor) -> Tensor:
     """Cross-entropy (Eq. 24) with a numerically safe log-softmax."""
     return -(onehot * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+
+
+def loss_mse(logits: Tensor, targets: Tensor) -> Tensor:
+    """Squared-error loss for regression readouts: 0.5 * ||logits -
+    targets||^2 per sample, so dL/dlogits = logits - targets mirrors the
+    cross-entropy case's (probs - onehot) in Eq. 25."""
+    d = logits - targets
+    return 0.5 * (d * d).sum(dim=-1)
 
 
 def _per_sample(v: Tensor) -> Tensor:
@@ -82,17 +95,47 @@ def forward(
     r = dprr_mod.compute_dprr(x, lengths=lengths)
     logits = _readout(r, params.W, params.b)
     probs = torch.softmax(logits, dim=-1)
+    return ForwardAux(logits, probs, r,
+                      *_boundary(x, j_seq, _full_lengths(j_seq, lengths)))
+
+
+def _full_lengths(j_seq: Tensor, lengths: Optional[Tensor]) -> Tensor:
     if lengths is None:
-        lengths = torch.full(j_seq.shape[:-2], j_seq.shape[-2],
-                             dtype=torch.int32, device=j_seq.device)
+        return torch.full(j_seq.shape[:-2], j_seq.shape[-2],
+                          dtype=torch.int32, device=j_seq.device)
+    return lengths
+
+
+def _boundary(x: Tensor, j_seq: Tensor, lengths: Tensor):
+    """x(T), x(T-1) (0 when T = 1) and j(T) of each sample from its states
+    x (..., T, Nx)."""
     lengths = lengths.to(torch.int64)
     idx_last = torch.clamp(lengths - 1, min=0)
     idx_prev = lengths - 2  # -1 -> x(0) = 0
     x_last = _take_step(x, idx_last)
     x_prev = torch.where((idx_prev >= 0)[..., None],
                          _take_step(x, torch.clamp(idx_prev, min=0)), 0.0)
-    j_last = _take_step(j_seq, idx_last)
-    return ForwardAux(logits, probs, r, x_last, x_prev, j_last)
+    return x_last, x_prev, _take_step(j_seq, idx_last)
+
+
+def _forward_kernels(
+    params: DFRParams,
+    j_seq: Tensor,
+    f: Nonlinearity,
+    lengths: Optional[Tensor] = None,
+) -> ForwardAux:
+    """``forward`` of one system (j_seq (B, T, Nx)) through the ops layer:
+    the states from ``ops.reservoir_states`` (K6 on the card), the DPRR
+    from ``ops.dprr_features`` (K7)."""
+    from repro_torch.kernels import ops as kops  # kernels import core
+
+    lengths = _full_lengths(j_seq, lengths)
+    nx = j_seq.shape[-1]
+    x = kops.reservoir_states(j_seq, lengths, params.p, params.q, nx, f=f)
+    r = kops.dprr_features(x, lengths, nx)
+    logits = _readout(r, params.W, params.b)
+    return ForwardAux(logits, torch.softmax(logits, dim=-1), r,
+                      *_boundary(x, j_seq, lengths))
 
 
 def truncated_loss_from_aux(
@@ -156,6 +199,22 @@ def grads_truncated_from_aux(
     return _value_and_grad(
         lambda prm: truncated_loss_from_aux(prm, aux, onehot, f, loss_fn),
         params)
+
+
+def grads_truncated(
+    params: DFRParams,
+    j_seq: Tensor,
+    onehot: Tensor,
+    f: Nonlinearity,
+    lengths: Optional[Tensor] = None,
+    loss_fn: Callable[[Tensor, Tensor], Tensor] = loss_from_logits,
+) -> Tuple[Tensor, DFRParams]:
+    """Truncated-BP loss and gradients of one system (j_seq (B, T, Nx)),
+    the forward through K6 and K7; ``loss_fn`` selects the readout
+    objective (cross-entropy default; ``loss_mse`` for regression)."""
+    with torch.no_grad():
+        aux = _forward_kernels(params, j_seq, f, lengths)
+    return grads_truncated_from_aux(params, aux, onehot, f, loss_fn)
 
 
 class _FusedFeatures(torch.autograd.Function):

@@ -1,27 +1,33 @@
-"""Online training + inference for the serving path (paper Sec. 3.1), in PyTorch.
+"""Online training + inference (paper Sec. 3.1), in PyTorch.
 
-The counterpart of the parts of ``repro.core.online`` the stream server
-runs: the ``OnlineState`` carry, the fused serve step (infer-before-update
-plus truncated-BP SGD plus (A, B) accumulation from ONE forward pass), the
-Ridge refresh of selected slot rows in both modes (recompute: a batched
-Cholesky; incremental: two triangular solves against the live factor) and
-the int8 serving scale fold.
+The counterpart of the parts of ``repro.core.online`` the port runs:
 
-The reference writes these for one system and ``vmap``s them over the
-server's slot axis.  Here every function takes the slot-batched state
-directly: each leaf of ``OnlineState`` leads with the slot axes *P (one axis
-for the server), and the data leads with the same axes.  Slots never mix.
+* the stream server's path: the ``OnlineState`` carry, the fused serve step
+  (infer-before-update plus truncated-BP SGD plus (A, B) accumulation from
+  ONE forward pass), the Ridge refresh of selected slot rows in both modes
+  (recompute: a batched Cholesky; incremental: two triangular solves
+  against the live factor) and the int8 serving scale fold.  The reference
+  writes these for one system and ``vmap``s them over the server's slot
+  axis; here they take the slot-batched state directly (each leaf leads
+  with the slot axes *P, and the data with the same axes).  Slots never
+  mix.
+* the single-stream edge loop ``OnlineDFR`` and its functions
+  (``online_logits``, ``online_infer``, ``online_step``,
+  ``refresh_output``, ``reset_statistics``) on one unbatched state, with
+  the features from K6 and K7 and the full refresh from the blocked ridge
+  solve (K4a, K4b) on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import backprop, dprr, masking, ridge
 from repro_torch.core.types import (DFRConfig, DFRParams, QuantParams,
-                                    RidgeState, Tensor)
+                                    RidgeState, Tensor, map_leaves,
+                                    resolve_device, unported)
 
 
 @dataclasses.dataclass
@@ -67,6 +73,134 @@ def init_state(cfg: DFRConfig, device=None,
         loss_fast=zero.clone(),
         loss_slow=zero.clone(),
     )
+
+
+def reset_statistics(state: OnlineState,
+                     factor_beta: Optional[float] = None,
+                     forget=None) -> OnlineState:
+    """Zero the Ridge sufficient statistics, keeping (p, q, W, b) and the
+    step counter: the phase switch of the paper's protocol.  The zeroed
+    ``factor_beta`` drops any live factor; pass ``factor_beta`` to re-seed
+    one for the restarted statistics.  The soft reset (``forget``) is not
+    ported yet."""
+    if forget is not None:
+        raise unported("reset_statistics(forget=...)", "Retirement modes")
+    rs = map_leaves(torch.zeros_like, state.ridge)
+    if factor_beta is not None:
+        s = rs.B.shape[-1]
+        rs = dataclasses.replace(
+            rs, Lt=ridge.seed_factor(s, factor_beta, rs.B.dtype,
+                                     rs.B.device),
+            factor_beta=torch.tensor(factor_beta, dtype=rs.B.dtype,
+                                     device=rs.B.device))
+    return dataclasses.replace(state, ridge=rs)
+
+
+def _features(cfg: DFRConfig, params: DFRParams, j_seq: Tensor,
+              length: Tensor) -> Tensor:
+    """DPRR r (B, Nr) of one system through K6 and K7."""
+    from repro_torch.kernels import ops as kops  # kernels import core
+
+    nx = cfg.n_nodes
+    x = kops.reservoir_states(j_seq, length, params.p, params.q, nx,
+                              f=cfg.f())
+    return kops.dprr_features(x, length, nx)
+
+
+@torch.no_grad()
+def online_logits(
+    cfg: DFRConfig,
+    mask: Tensor,
+    state: OnlineState,
+    u: Tensor,        # (B, T, n_in)
+    length: Tensor,   # (B,)
+) -> Tensor:
+    """Readout logits on a window: (B, Ny)."""
+    j_seq = masking.apply_mask(mask, u)
+    r = _features(cfg, state.params, j_seq, length)
+    return r @ state.params.W.T + state.params.b
+
+
+def online_infer(cfg: DFRConfig, mask: Tensor, state: OnlineState,
+                 u: Tensor, length: Tensor) -> Tensor:
+    """Inference on a window: class predictions (B,)."""
+    return online_logits(cfg, mask, state, u, length).argmax(dim=-1)
+
+
+def online_step(
+    cfg: DFRConfig,
+    mask: Tensor,
+    state: OnlineState,
+    u: Tensor,        # (B, T, n_in) window of streamed samples
+    length: Tensor,   # (B,)
+    label: Tensor,    # (B,) int
+    lr_res,
+    lr_out,
+    axis_names: Sequence[str] = (),
+    weight: Optional[Tensor] = None,
+) -> Tuple[OnlineState, Dict[str, Tensor]]:
+    """One online training step of one system: truncated-BP SGD update,
+    then (A, B) accumulation with the updated reservoir parameters.
+
+    ``weight`` is an optional (B,) 0/1 live-sample mask: dead samples add
+    nothing to the loss, the grads, the statistics or the count.  The
+    reduction over device axes (``axis_names``) is not ported yet.
+    """
+    if tuple(axis_names):
+        raise unported("online_step(axis_names=...)", "Multi-device")
+    f = cfg.f()
+    j_seq = masking.apply_mask(mask, u)
+    onehot = torch.nn.functional.one_hot(
+        label.to(torch.int64), cfg.n_classes).to(cfg.dtype)
+    if weight is None:
+        loss_fn = backprop.loss_from_logits
+        n_live = torch.tensor(float(u.shape[0]), dtype=cfg.dtype,
+                              device=u.device)
+    else:
+        weight = weight.to(cfg.dtype)
+
+        def loss_fn(lg, oh):
+            return weight * backprop.loss_from_logits(lg, oh)
+
+        n_live = weight.sum()
+    loss, g = backprop.grads_truncated(state.params, j_seq, onehot, f,
+                                       lengths=length, loss_fn=loss_fn)
+    inv = 1.0 / torch.clamp(n_live, min=1.0)
+    params = backprop.apply_sgd(state.params, g, lr_res, lr_out,
+                                inv_batch=inv)
+    # streaming sufficient statistics with the *updated* reservoir params
+    r = _features(cfg, params, j_seq, length)
+    rt = dprr.r_tilde(r)
+    # 0/1 weights scale rt once: both the A contraction and the B outer
+    # product (w^2 = w) drop dead samples exactly
+    rt_acc = rt if weight is None else rt * weight[:, None]
+    dA, dB = ridge.accumulate_ab(torch.zeros_like(state.ridge.A),
+                                 torch.zeros_like(state.ridge.B), rt_acc,
+                                 onehot)
+    new = OnlineState(
+        params=params,
+        ridge=RidgeState(
+            A=state.ridge.A + dA,
+            B=state.ridge.B + dB,
+            count=state.ridge.count + n_live.to(state.ridge.count.dtype),
+            # B moved without rotating a factor: any live one is stale
+            Lt=state.ridge.Lt,
+            factor_beta=torch.zeros_like(state.ridge.factor_beta),
+        ),
+        step=state.step + 1,
+        loss_ema=0.99 * state.loss_ema + 0.01 * loss * inv,
+        quant=state.quant,
+        loss_fast=state.loss_fast,
+        loss_slow=state.loss_slow,
+    )
+    logits = r @ params.W.T + params.b
+    hits = (logits.argmax(dim=-1) == label).to(torch.float32)
+    if weight is not None:
+        hits = hits * weight
+    metrics = {"loss": loss * inv,
+               "acc": hits.sum() / torch.clamp(n_live, min=1.0).to(
+                   torch.float32)}
+    return new, metrics
 
 
 def online_serve_step(
@@ -185,6 +319,23 @@ def online_serve_step(
     return new, aux.logits, metrics
 
 
+def refresh_output(state: OnlineState, beta,
+                   method: str = "cholesky_blocked") -> OnlineState:
+    """Ridge re-solve of the output layer of one system from its streamed
+    (A, B).  Fast path: with a live factor for exactly this ``beta``
+    (``factor_beta``), two triangular solves against it; otherwise the full
+    ``ridge.ridge_solve`` (on the card, the blocked solve through K4a and
+    K4b), so a beta sweep over frozen statistics stays correct."""
+    rs = state.ridge
+    beta = torch.as_tensor(beta, dtype=rs.B.dtype, device=rs.B.device)
+    if bool((rs.factor_beta > 0) & (rs.factor_beta == beta)):
+        Wt = ridge.ridge_solve_from_factor_t(rs.A, rs.Lt)
+    else:
+        Wt = ridge.ridge_solve(rs.A, ridge.regularize(rs.B, beta), method)
+    params = dataclasses.replace(state.params, W=Wt[:, :-1], b=Wt[:, -1])
+    return dataclasses.replace(state, params=params)
+
+
 def refresh_output_batched(state: OnlineState, beta) -> OnlineState:
     """Ridge refresh of every slot of a slot-axis state: one batched
     Cholesky over all the (s, s) systems."""
@@ -268,3 +419,59 @@ def fold_quant_rows(
         x_absmax=q.x_absmax,
     )
     return dataclasses.replace(state, quant=quant)
+
+
+# ---------------------------------------------------------------------------
+# Single-stream wrapper (the paper's one-device system)
+# ---------------------------------------------------------------------------
+
+
+class OnlineDFR:
+    """Online train/infer stepper for one stream, windows of a fixed length.
+
+    Runs on the CUDA device unless ``device`` names another (the CPU for
+    tests); without a CUDA device the default raises.  ``mask`` defaults to
+    one drawn from a ``torch.Generator`` seeded by ``cfg.mask_seed``, which
+    cannot replay the reference's ``jax.random`` mask: pass that one in to
+    reproduce a reference system.
+    """
+
+    def __init__(self, cfg: DFRConfig, mask: Optional[Tensor] = None,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device, "OnlineDFR")
+        if mask is None:
+            mask = masking.make_mask(
+                torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes,
+                cfg.n_in, cfg.dtype)
+        self.mask = torch.as_tensor(mask).to(self.device, cfg.dtype)
+
+    def _dev(self, t) -> Tensor:
+        return torch.as_tensor(t).to(self.device)
+
+    def init(self) -> OnlineState:
+        return init_state(self.cfg, self.device)
+
+    def step(self, state: OnlineState, u, length, label, lr_res, lr_out,
+             axis_names: Sequence[str] = ()
+             ) -> Tuple[OnlineState, Dict[str, Tensor]]:
+        """One online training step: SGD update + (A, B) accumulation."""
+        return online_step(self.cfg, self.mask, state,
+                           self._dev(u).to(self.cfg.dtype), self._dev(length),
+                           self._dev(label), lr_res, lr_out,
+                           axis_names=axis_names)
+
+    def infer(self, state: OnlineState, u, length) -> Tensor:
+        """Inference on a window: class predictions (B,)."""
+        return online_infer(self.cfg, self.mask, state,
+                            self._dev(u).to(self.cfg.dtype),
+                            self._dev(length))
+
+    def refresh_output(self, state: OnlineState, beta,
+                       method: str = "cholesky_blocked") -> OnlineState:
+        """Ridge re-solve of the output layer from the streamed (A, B)."""
+        return refresh_output(state, beta, method)
+
+    def reset_statistics(self, state: OnlineState) -> OnlineState:
+        """Restart the (A, B) accumulation (phase switch)."""
+        return reset_statistics(state)

@@ -1,9 +1,12 @@
-"""Ridge regression engine of the stream server's refresh, in PyTorch.
+"""Ridge regression engine, in PyTorch.
 
-The counterpart of the parts of ``repro.core.ridge`` that the stream
-server's two refresh modes run: the streaming sufficient statistics (paper
-Eq. 21-22, 38), the batched Cholesky solve W~ = A (B + beta I)^-1 of the
-recompute mode, and the incremental mode's live factor - seeded as
+The counterpart of the parts of ``repro.core.ridge`` that the port runs:
+the streaming sufficient statistics (paper Eq. 21-22, 38); the offline
+solves of ``DFRModel`` and ``OnlineDFR`` (``ridge_solve``: Algorithm 1 by
+Gauss-Jordan, or Cholesky plus two triangular solves through
+``kernels.ops.ridge_solve``, the blocked tile kernels K4a/K4b on the card);
+the batched Cholesky solve W~ = A (B + beta I)^-1 of the stream server's
+recompute mode; and the incremental mode's live factor - seeded as
 sqrt(beta) I, rotated rank-1 per sample (``cholupdate_window_t``, the plain
 version of K3) and solved by two triangular substitutions.
 
@@ -16,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.types import Tensor
+from repro_torch.core.types import Tensor, unported
 
 # Relative radicand floor of the downdate guard (the reference's value): a
 # rotation with d_k^2 + sign * x_k^2 <= DOWNDATE_GUARD_REL * d_k^2 is
@@ -42,20 +45,84 @@ def regularize(B: Tensor, beta) -> Tensor:
     return B + beta * eye
 
 
+def ridge_gaussian(A: Tensor, B: Tensor) -> Tensor:
+    """Algorithm 1 with row operations vectorized: Gauss-Jordan inversion
+    of B in the reference's pivot order, no pivot search (B is SPD, so the
+    diagonal never vanishes), then A B^-1.  Batched over leading axes."""
+    s = B.shape[-1]
+    B = B.clone()
+    Binv = torch.eye(s, dtype=B.dtype, device=B.device).expand_as(B).clone()
+    for i in range(s):
+        buf = 1.0 / B[..., i, i, None]
+        brow = B[..., i, :] * buf
+        binvrow = Binv[..., i, :] * buf
+        B[..., i, :] = brow
+        Binv[..., i, :] = binvrow
+        col = B[..., :, i].clone()
+        col[..., i] = 0.0  # eliminate everywhere but the pivot row
+        B = B - col[..., :, None] * brow[..., None, :]
+        Binv = Binv - col[..., :, None] * binvrow[..., None, :]
+    return A @ Binv
+
+
+def ridge_cholesky_blocked(A: Tensor, B: Tensor, block: int = 128) -> Tensor:
+    """The production ridge solve W~ = A B^-1: Cholesky plus two triangular
+    solves, no inverse.  Through ``kernels.ops.ridge_solve``: on the card
+    the blocked solve over the tile kernels K4a and K4b with tiles of
+    ``block`` (128, the reference's default here, keeps each tile in one
+    block's shared memory); on the CPU the unblocked library solve, as the
+    reference computes it off the TPU.  NaN where B is not positive
+    definite."""
+    from repro_torch.kernels import ops as kops  # kernels import core
+
+    return kops.ridge_solve(A, B, block=block)
+
+
+def ridge_solve(A: Tensor, B: Tensor,
+                method: str = "cholesky_blocked") -> Tensor:
+    """Dispatch: 'gaussian' | 'cholesky_blocked' ('cholesky_packed' is
+    not ported yet)."""
+    if method == "gaussian":
+        return ridge_gaussian(A, B)
+    if method == "cholesky_packed":
+        raise unported("ridge method 'cholesky_packed'",
+                       "Packed Cholesky ridge")
+    if method == "cholesky_blocked":
+        return ridge_cholesky_blocked(A, B)
+    raise ValueError(f"unknown ridge method: {method}")
+
+
+def cholesky_or_nan(B: Tensor) -> Tensor:
+    """Lower Cholesky factor of (..., s, s), NaN where a system is not
+    positive definite, as ``jnp.linalg.cholesky`` gives it in the reference
+    (``torch.linalg.cholesky`` would raise instead, and reading its status
+    would stall the device queue)."""
+    C, info = torch.linalg.cholesky_ex(B)
+    return torch.where((info == 0)[..., None, None], C,
+                       torch.full((), float("nan"), dtype=C.dtype,
+                                  device=C.device))
+
+
 def ridge_cholesky_batched(A: Tensor, B: Tensor) -> Tensor:
     """Batched ridge solve:  A (K, Ny, s), B (K, s, s)  ->  W~ (K, Ny, s).
 
-    Cholesky plus two triangular solves per member, no inverse.  A system
-    that is not positive definite yields NaN, as ``jnp.linalg.cholesky``
-    does in the reference (``torch.linalg.cholesky`` would raise instead,
-    and reading its status would stall the device queue).
+    Cholesky plus two triangular solves per member, no inverse; NaN for a
+    system that is not positive definite (``cholesky_or_nan``).
     """
-    C, info = torch.linalg.cholesky_ex(B)
-    C = torch.where((info == 0)[..., None, None], C,
-                    torch.full((), float("nan"), dtype=C.dtype,
-                               device=C.device))
+    C = cholesky_or_nan(B)
     X = torch.cholesky_solve(A.transpose(-1, -2), C)
     return X.transpose(-1, -2)
+
+
+def ridge_solve_batched(A: Tensor, B: Tensor,
+                        method: str = "cholesky_blocked") -> Tensor:
+    """Population-axis dispatch mirroring ``ridge_solve``: A (K, Ny, s),
+    B (K, s, s) -> (K, Ny, s)."""
+    if method == "cholesky_blocked":
+        return ridge_cholesky_batched(A, B)
+    if method == "gaussian":
+        return ridge_gaussian(A, B)
+    raise ValueError(f"unknown batched ridge method: {method}")
 
 
 def seed_factor(s: int, beta, dtype=torch.float32, device=None) -> Tensor:
@@ -105,6 +172,12 @@ def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0) -> Tensor:
             U[..., k, k + 1:] = tail
             U[..., k, k] = r
     return U
+
+
+def ridge_solve_from_factor_t(A: Tensor, Lt: Tensor) -> Tensor:
+    """Refresh from one live transposed factor: W~ = A (Lt^T Lt)^-1 for
+    A (Ny, s), Lt (s, s)."""
+    return ridge_solve_from_factor_t_batched(A[None], Lt[None])[0]
 
 
 def ridge_solve_from_factor_t_batched(A: Tensor, Lt: Tensor) -> Tensor:

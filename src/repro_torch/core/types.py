@@ -109,6 +109,28 @@ class DFRConfig:
         return Nonlinearity(self.nonlinearity, float(self.alpha))
 
 
+def resolve_device(device=None,
+                   what: str = "this entry point") -> torch.device:
+    """The device of an entry point: CUDA unless the caller names another.
+    Without a CUDA device the default raises: nothing falls back to the
+    CPU silently."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on the CUDA device by default and this host "
+                f"has none; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def unported(knob: str, item: str) -> NotImplementedError:
+    """The error a knob or method of the reference that is not ported yet
+    raises: it names the knob and its ROADMAP.md item."""
+    return NotImplementedError(
+        f"{knob} is not ported to PyTorch yet: see ROADMAP.md, Queue 1, "
+        f"'{item}'")
+
+
 def map_leaves(fn: Callable[..., Tensor], tree, *rest):
     """Apply ``fn`` leaf by leaf to one or more dataclass trees of the same
     type, rebuilding the tree (the port's ``jax.tree_util.tree_map``)."""

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_NODES = 32  # one warp per sample: lane n holds node n
+BACKENDS = ("cuda", "torch")
 
 
 def _nvcc() -> str:
@@ -166,3 +167,17 @@ def check_sample_operands(j_seq, lengths, p, q) -> tuple:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def resolve_backend(backend: Optional[str], t) -> str:
+    """The backend of one call (``kernels.ops``): 'cuda' for CUDA tensors
+    and 'torch' for CPU tensors unless ``backend`` names one."""
+    if backend is None:
+        return "cuda" if t.is_cuda else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS} or None")
+    if backend == "cuda" and not t.is_cuda:
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got a tensor "
+                         f"on {t.device}")
+    return backend

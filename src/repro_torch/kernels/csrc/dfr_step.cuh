@@ -1,4 +1,5 @@
-// Shared time loop of the two DFR kernels (train.cu: K1, streaming.cu: K2).
+// Shared reservoir step and time loop of the DFR kernels (train.cu: K1,
+// streaming.cu: K2, reservoir.cu: K6).
 //
 // One warp runs one sample.  Lane n holds node n's state x_n (Nx <= 32; the
 // lanes n >= Nx hold zeros) and row n of the (Nx, Nx+1) DPRR accumulator in
@@ -37,6 +38,38 @@ __device__ __forceinline__ float signed_pow(float q, int e) {
   return (q < 0.0f && (e & 1)) ? -m : m;
 }
 
+// Row `lane` of the ring matrix L(q) and the wrap power q^(lane+1), held in
+// registers for the whole time loop (zeros on lanes n >= Nx).
+struct Ring {
+  float l_row[kMaxNodes];
+  float qpow;
+};
+
+__device__ __forceinline__ void make_ring(float q, int nx, Ring& ring) {
+  const int lane = threadIdx.x & 31;
+  const bool node = lane < nx;
+#pragma unroll
+  for (int i = 0; i < kMaxNodes; ++i)
+    ring.l_row[i] = (node && i <= lane) ? signed_pow(q, lane - i) : 0.0f;
+  ring.qpow = node ? signed_pow(q, lane + 1) : 0.0f;
+}
+
+// One live step of the warp's sample: x(k)_lane from j(k)_lane and
+// x(k-1)_lane (zeros on lanes n >= Nx).  Every lane of the warp must call it.
+__device__ __forceinline__ float ring_step(const Ring& ring, float jk,
+                                           float xp, int nx, float p,
+                                           int code, float alpha) {
+  const int lane = threadIdx.x & 31;
+  const bool node = lane < nx;
+  const float wrap = __shfl_sync(kFullMask, xp, nx - 1);
+  const float a = node ? p * nonlin(jk + xp, code, alpha) : 0.0f;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxNodes; ++i)
+    s = fmaf(ring.l_row[i], __shfl_sync(kFullMask, a, i), s);
+  return node ? fmaf(wrap, ring.qpow, s) : 0.0f;
+}
+
 struct SampleResult {
   float x;                    // x(T)_n
   float acc[kMaxNodes];       // acc[n][j] for j < Nx (zeros past Nx)
@@ -54,11 +87,8 @@ __device__ __forceinline__ void run_sample(const float* __restrict__ j,
   const int lane = threadIdx.x & 31;
   const bool node = lane < nx;
 
-  float l_row[kMaxNodes];  // row `lane` of L(q)
-#pragma unroll
-  for (int i = 0; i < kMaxNodes; ++i)
-    l_row[i] = (node && i <= lane) ? signed_pow(q, lane - i) : 0.0f;
-  const float qpow = node ? signed_pow(q, lane + 1) : 0.0f;
+  Ring ring;
+  make_ring(q, nx, ring);
 
   float x = 0.0f, acc_sum = 0.0f, x_bnd = 0.0f, j_bnd = 0.0f;
 #pragma unroll
@@ -70,13 +100,7 @@ __device__ __forceinline__ void run_sample(const float* __restrict__ j,
     const float jk = j_next;
     if (node && k + 1 < len) j_next = __ldg(j + (k + 1) * nx + lane);
     const float xp = x;
-    const float ring = __shfl_sync(kFullMask, xp, nx - 1);
-    const float a = node ? p * nonlin(jk + xp, code, alpha) : 0.0f;
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxNodes; ++i)
-      s = fmaf(l_row[i], __shfl_sync(kFullMask, a, i), s);
-    const float xk = node ? fmaf(ring, qpow, s) : 0.0f;
+    const float xk = ring_step(ring, jk, xp, nx, p, code, alpha);
 #pragma unroll
     for (int i = 0; i < kMaxNodes; ++i)
       out.acc[i] = fmaf(xk, __shfl_sync(kFullMask, xp, i), out.acc[i]);

@@ -1,0 +1,50 @@
+"""K7 on Hopper: the DPRR of stored reservoir states.
+
+The port of ``repro.kernels.dprr._dprr_kernel``.  The kernel
+(``csrc/dprr.cu``) runs one warp per sample over its stored states X
+(N, T, Nx), masks the x(k) side by the sample's length, and writes r
+(N, Nx*(Nx+1)): the outer products row-major, then the sums.  Its plain
+version is ``kernels.ref.dprr_ref``; ``kernels.ops.dprr_features`` chooses
+between them by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.types import Tensor
+from repro_torch.kernels._build import (MAX_NODES, CudaKernel, check_operand,
+                                        stream_handle)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = CudaKernel(
+    "dprr", "dfr_dprr_features",
+    [_P, _P, _I, _I, _I, _P, _I, _P],
+)
+
+
+def dprr_features_cuda(x: Tensor, lengths: Tensor) -> Tensor:
+    """Launch K7 once over all N samples of X (N, T, Nx) with lengths (N,)
+    int32.  Returns r (N, Nx*(Nx+1))."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel needs CUDA tensors, got {dev}")
+    check_operand("x", x, torch.float32, dev)
+    if x.ndim != 3:
+        raise ValueError(f"x must be (N, T, Nx), got {tuple(x.shape)}")
+    n, t_len, nx = x.shape
+    if not (1 <= nx <= MAX_NODES):
+        raise ValueError(f"the CUDA kernels take 1 <= Nx <= {MAX_NODES} "
+                         f"(one warp per sample), got Nx={nx}")
+    if n < 1 or t_len < 1:
+        raise ValueError(f"empty x {tuple(x.shape)}")
+    check_operand("lengths", lengths, torch.int32, dev, (n,))
+    r = torch.empty((n, nx * (nx + 1)), dtype=torch.float32, device=dev)
+    KERNEL.launch(
+        x.data_ptr(), lengths.data_ptr(), n, t_len, nx, r.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        stream_handle(dev),
+    )
+    return r

@@ -10,8 +10,10 @@ Backend per call:
 
 The wrappers take the reference's logical shapes (``repro.kernels.ops``) and
 own the flattening to the kernels' (N, T, Nx) operands.  The reference's
-TPU padding (``n_pad``, ``ny_pad``, the mirrored ring lane) has no
-counterpart here: the kernels work on the true Nx and Ny.
+TPU padding (``n_pad``, ``ny_pad``, the mirrored ring lane) and its tiling
+knobs (``block_b``, ``chunk_t``, ``block_t``) have no counterpart here: the
+kernels work on the true Nx and Ny.  ``block`` stays on the ridge solve and
+the Cholesky: it is the tile size of K4a and K4b.
 """
 from __future__ import annotations
 
@@ -23,12 +25,15 @@ from repro_torch.core import reservoir as core_res
 from repro_torch.core import ridge as core_ridge
 from repro_torch.core.types import Nonlinearity, Tensor
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ridge_solve as kridge
+from repro_torch.kernels._build import resolve_backend
 from repro_torch.kernels.cholupdate import cholupdate_window_t_cuda
+from repro_torch.kernels.dprr import dprr_features_cuda
+from repro_torch.kernels.reservoir import reservoir_states_cuda
 from repro_torch.kernels.streaming import streaming_logits_cuda
 from repro_torch.kernels.streaming_q8 import streaming_logits_q8_cuda
 from repro_torch.kernels.train import train_forward_cuda
 
-BACKENDS = ("cuda", "torch")
 MAX_Q8_STEPS = 2 ** 17  # int32 headroom of K5's accumulator: 127^2 * T
 
 
@@ -57,20 +62,90 @@ def dequantize_symmetric(q: Tensor, scale: Tensor,
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def resolve_backend(backend: Optional[str], t: Tensor) -> str:
-    if backend is None:
-        return "cuda" if t.is_cuda else "torch"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS} or None")
-    if backend == "cuda" and not t.is_cuda:
-        raise ValueError(f"backend='cuda' needs CUDA tensors, got a tensor "
-                         f"on {t.device}")
-    return backend
-
-
 def _flat(t: Tensor, shape, dtype) -> Tensor:
     return t.reshape(shape).to(dtype).contiguous()
+
+
+def _gain(v, like: Tensor) -> Tensor:
+    """A scalar gain (float or tensor) as the (1,) f32 operand of one
+    system."""
+    return torch.as_tensor(v, device=like.device).reshape(1).to(
+        torch.float32)
+
+
+def _check_nodes(nx: int, n_nodes: int) -> None:
+    if nx != n_nodes:
+        raise ValueError(f"n_nodes={n_nodes} does not match the node axis "
+                         f"Nx={nx}")
+
+
+def reservoir_states(
+    j_seq: Tensor,      # (B, T, Nx) masked inputs
+    lengths: Tensor,    # (B,) int
+    p: Tensor,          # scalar
+    q: Tensor,          # scalar
+    n_nodes: int,
+    *,
+    f: Nonlinearity = Nonlinearity(),
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Reservoir states X (B, T, Nx) from x(0) = 0, every step stored and
+    the frozen last state in each row past a length (K6)."""
+    be = resolve_backend(backend, j_seq)
+    b, t_len, nx = j_seq.shape
+    _check_nodes(nx, n_nodes)
+    args = (_flat(j_seq, (b, t_len, nx), torch.float32),
+            _flat(lengths, (b,), torch.int32), _gain(p, j_seq),
+            _gain(q, j_seq), f)
+    fn = reservoir_states_cuda if be == "cuda" else kref.reservoir_ref
+    return fn(*args).to(j_seq.dtype)
+
+
+def dprr_features(
+    x: Tensor,          # (B, T, Nx) reservoir states
+    lengths: Tensor,    # (B,) int
+    n_nodes: int,
+    *,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Batched DPRR r vectors (B, Nx*(Nx+1)) of stored states: the outer
+    products row-major, then the sums (K7)."""
+    be = resolve_backend(backend, x)
+    b, t_len, nx = x.shape
+    _check_nodes(nx, n_nodes)
+    args = (_flat(x, (b, t_len, nx), torch.float32),
+            _flat(lengths, (b,), torch.int32))
+    fn = dprr_features_cuda if be == "cuda" else kref.dprr_ref
+    return fn(*args).to(x.dtype)
+
+
+def ridge_solve(
+    A: Tensor,          # (Ny, s)
+    B: Tensor,          # (s, s), SPD
+    *,
+    block: int = 256,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """W~ = A B^-1.  'cuda': the blocked solve over the tile kernels K4a
+    and K4b with tiles of ``block``; 'torch': the unblocked library solve
+    (``kref.ridge_solve_ref``), as the reference's XLA branch.  A system
+    that is not positive definite gives NaN either way."""
+    if resolve_backend(backend, B) == "torch":
+        return kref.ridge_solve_ref(A, B)
+    return kridge.ridge_solve_blocked(A, B, block=block, backend="cuda")
+
+
+def cholesky(
+    B: Tensor,          # (s, s), SPD
+    *,
+    block: int = 256,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Lower Cholesky factor of B.  'cuda': the blocked solve over K4a and
+    K4b; 'torch': ``kref.chol_ref``, as the reference's XLA branch."""
+    if resolve_backend(backend, B) == "torch":
+        return kref.chol_ref(B)
+    return kridge.cholesky_blocked(B, block=block, backend="cuda")
 
 
 def train_forward(

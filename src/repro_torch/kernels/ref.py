@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the port's streaming and training kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes exactly what its kernel computes, on the same flat
-operands, with a Python loop over time: the CPU path of ``kernels.ops`` and
-the yardstick the kernels are held against on the card.  (K3's plain
-version, the factor fold, is ``core.ridge.cholupdate_window_t``.)
+operands, with a Python loop over time (or over columns): the CPU path of
+``kernels.ops`` and the yardstick the kernels are held against on the card.
+(K3's plain version, the factor fold, is ``core.ridge.cholupdate_window_t``.)
+``chol_ref`` and ``ridge_solve_ref`` are no kernel's plain version: they are
+the unblocked library solves that ``ops.cholesky`` and ``ops.ridge_solve``
+run with ``backend='torch'``, as the reference's XLA branch does.
 
 Operand contract (shared with ``kernels.train``, ``kernels.streaming`` and
 ``kernels.streaming_q8``):
@@ -21,6 +24,9 @@ K5 takes codes and scales in place of p, q and W:
     scales   (S, 4) f32        [p, sx, sL, sw], all > 0
     Wq       (S, Ny, Nr) int8  readout codes (scale sw), DPRR layout
 
+K6 (``reservoir_ref``) writes every state X (N, T, Nx); K7 (``dprr_ref``)
+reads a stored X (N, T, Nx) with its lengths (N,).
+
 A sample's state freezes once k >= length; a dead step adds nothing to the
 DPRR accumulator.  The truncation boundary (x(T-1), j(T)) is latched before
 the state update at k = length-1, so x(T-1) = 0 when length == 1.
@@ -31,7 +37,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import dprr as core_dprr
 from repro_torch.core import reservoir as core_res
+from repro_torch.core import ridge as core_ridge
 from repro_torch.core.types import Nonlinearity, Tensor
 
 
@@ -157,3 +165,84 @@ def streaming_q8_ref(
     w = Wq.to(torch.float32) * scales[:, 3, None, None]      # (S, Ny, Nr)
     logits = r.reshape(n_sys, spp, -1) @ w.transpose(-1, -2) + b[:, None, :]
     return logits.reshape(n, -1), acc
+
+
+def reservoir_ref(
+    j_seq: Tensor,
+    lengths: Tensor,
+    p: Tensor,
+    q: Tensor,
+    f: Nonlinearity = Nonlinearity(),
+) -> Tensor:
+    """Plain version of K6 (``kernels.reservoir``): every state X (N, T, Nx)
+    of ``run_reservoir`` from x(0) = 0.  Rows at k >= length hold the frozen
+    last state, as the reference writes them."""
+    n = j_seq.shape[0]
+    spp = n // p.shape[0]
+    return core_res.run_reservoir(p.repeat_interleave(spp),
+                                  q.repeat_interleave(spp), j_seq, f=f,
+                                  lengths=lengths.to(torch.int64))
+
+
+def dprr_ref(x: Tensor, lengths: Tensor) -> Tensor:
+    """Plain version of K7 (``kernels.dprr``): the DPRR (N, Nx*(Nx+1)) of
+    stored states, sum_k x(k) [x(k-1), 1]^T over k < length with x(0) = 0,
+    the outer products row-major, then the sums.  The length mask sits on
+    the x(k) side only, so frozen rows never count."""
+    return core_dprr.compute_dprr(x, lengths=lengths.to(torch.int64))
+
+
+def chol_tile_ref(a: Tensor) -> Tensor:
+    """Plain version of K4a (``kernels.cholesky``): (K, bs, bs) SPD tiles
+    -> lower L with a = L L^T, strict upper zero.  The right-looking column
+    loop of the reference's ``_chol_tile``: d = sqrt(a[j, j]), the column
+    below j divided by d, then the rank-1 update of the trailing square.
+    Only the lower triangle is ever read.  A tile that is not positive
+    definite gives NaN (sqrt of a negative pivot), with no guard."""
+    a = a.clone()
+    n = a.shape[-1]
+    for j in range(n):
+        d = torch.sqrt(a[..., j, j])
+        col = a[..., j + 1:, j] / d[..., None]
+        a[..., j, j] = d
+        a[..., j + 1:, j] = col
+        a[..., j + 1:, j + 1:] -= col[..., :, None] * col[..., None, :]
+    return torch.tril(a)
+
+
+def trsm_lower_t_ref(a: Tensor, L: Tensor) -> Tensor:
+    """Plain version of K4b's ``trsm_lower_t``: X L^T = a for a (K, m, bs)
+    and lower L (K, bs, bs), forward over columns (the reference's
+    ``_trsm_lower_t_tile``): x[:, j] = (a[:, j] - x[:, :j] L[j, :j]) /
+    L[j, j]."""
+    x = a.clone()
+    for j in range(L.shape[-1]):
+        dot = (x[..., :, :j] @ L[..., j, :j, None])[..., 0]
+        x[..., :, j] = (a[..., :, j] - dot) / L[..., j, j, None]
+    return x
+
+
+def trsm_lower_ref(d: Tensor, L: Tensor) -> Tensor:
+    """Plain version of K4b's ``trsm_lower``: X L = d for d (K, m, bs) and
+    lower L (K, bs, bs), backward over columns (the reference's
+    ``_trsm_lower_tile``): x[:, j] = (d[:, j] - x[:, j+1:] L[j+1:, j]) /
+    L[j, j]."""
+    x = d.clone()
+    for j in range(L.shape[-1] - 1, -1, -1):
+        dot = (x[..., :, j + 1:] @ L[..., j + 1:, j, None])[..., 0]
+        x[..., :, j] = (d[..., :, j] - dot) / L[..., j, j, None]
+    return x
+
+
+def chol_ref(a: Tensor) -> Tensor:
+    """Unblocked lower Cholesky of (..., s, s), NaN where a system is not
+    positive definite (``core.ridge.cholesky_or_nan``)."""
+    return core_ridge.cholesky_or_nan(a)
+
+
+def ridge_solve_ref(A: Tensor, B: Tensor) -> Tensor:
+    """W~ = A B^-1 for A (..., Ny, s), SPD B (..., s, s): ``chol_ref`` and
+    two triangular solves (the reference's ``ref.ridge_solve_ref``)."""
+    C = chol_ref(B)
+    D = torch.linalg.solve_triangular(C, A.mT, upper=False)
+    return torch.linalg.solve_triangular(C.mT, D, upper=True).mT

@@ -40,7 +40,7 @@ from repro_torch.core.online import (OnlineState, fold_quant_rows, init_state,
                                      refresh_output_factor_rows,
                                      refresh_output_rows)
 from repro_torch.core.types import (DFRConfig, RequestPool, Tensor,
-                                    map_leaves)
+                                    map_leaves, resolve_device, unported)
 from repro_torch.kernels import ops
 from repro_torch.runtime.scheduler import RefreshCohorts, SlotScheduler
 
@@ -189,12 +189,6 @@ def _gather_window(
         weight
 
 
-def _unported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported to PyTorch yet: see ROADMAP.md, Queue 1, "
-        f"'{item}'")
-
-
 class StreamServer:
     """Continuous-batching train-while-serve runtime for DFR streams.
 
@@ -277,33 +271,33 @@ class StreamServer:
         if config not in (None, "auto"):
             raise ValueError(f"unknown config: {config!r} (None or 'auto')")
         if config == "auto":
-            raise _unported("config='auto'", "Planner")
+            raise unported("config='auto'", "Planner")
         refresh_mode = "recompute" if refresh_mode is None else refresh_mode
         if refresh_mode not in ("recompute", "incremental"):
             raise ValueError(f"unknown refresh_mode: {refresh_mode!r}")
         if retirement not in ("none", "forget", "window", "adaptive"):
             raise ValueError(f"unknown retirement: {retirement!r}")
         if retirement != "none":
-            raise _unported(f"retirement={retirement!r}", "Retirement modes")
+            raise unported(f"retirement={retirement!r}", "Retirement modes")
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize: {quantize!r}")
         step_block = 1 if step_block is None else step_block
         if step_block < 1:
             raise ValueError(f"step_block must be >= 1, got {step_block!r}")
         if step_block > 1:
-            raise _unported("step_block > 1", "Pipelining and step blocking")
+            raise unported("step_block > 1", "Pipelining and step blocking")
         if pipeline_depth < 0:
             raise ValueError(
                 f"pipeline_depth must be >= 0, got {pipeline_depth!r}")
         if pipeline_depth > 0:
-            raise _unported("pipeline_depth > 0",
-                            "Pipelining and step blocking")
+            raise unported("pipeline_depth > 0",
+                           "Pipelining and step blocking")
         if devices < 1:
             raise ValueError(f"devices must be >= 1, got {devices!r}")
         if devices > 1:
-            raise _unported("devices > 1", "Multi-device")
+            raise unported("devices > 1", "Multi-device")
         if cfg.dtype != torch.float32:
-            raise _unported(f"cfg.dtype={cfg.dtype}", "bf16")
+            raise unported(f"cfg.dtype={cfg.dtype}", "bf16")
         if staging not in ("device", "host"):
             raise ValueError(f"unknown staging: {staging!r}")
         if quantize == "int8" and staging != "device":
@@ -315,14 +309,7 @@ class StreamServer:
                 f"latency_window must be >= 1, got {latency_window!r}")
         if chunk_t is not None and chunk_t < 1:
             raise ValueError(f"chunk_t must be None or >= 1, got {chunk_t!r}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "StreamServer runs on the CUDA device by default and "
-                    "this host has none; pass device='cpu' to run on the "
-                    "CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "StreamServer")
         del donate, chunk_t  # no effect in the port (see the docstring)
 
         self.cfg = cfg
@@ -419,7 +406,7 @@ class StreamServer:
         )
 
     def attach_autotuner(self, tuner) -> None:
-        raise _unported("attach_autotuner", "Autotuner")
+        raise unported("attach_autotuner", "Autotuner")
 
     def submit(self, req: StreamRequest) -> None:
         if req.u.shape[1] != self.t_max:

@@ -16,14 +16,29 @@ Tolerances:
     every fp32 operation before a requantization as the plain version does;
   * K3: max |dLt| <= 1e-5 x max |Lt| - the same rotations in the same
     order, each divided by c and d.
+  * K6 and K7: rtol 1e-4 / atol 1e-4, as K1 (the ring matvec and the DPRR
+    sums in another order);
+  * K4a: max |dL| <= 1e-5 x max |L| - the same column loop with the same
+    rounded operations (no FMA) as its plain version;
+  * K4b: max |dX| <= 1e-4 x max |X| on well-conditioned factors - each dot
+    product is taken in another order, and each column's error feeds the
+    next;
+  * the blocked ridge solve at s = 931: max |dW| <= 1e-3 max |W| against the
+    unblocked library solve at a well-conditioned beta.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.types import DFRConfig, Nonlinearity
+from repro_torch.core.dfr import DFRModel
+from repro_torch.core.online import OnlineDFR
+from repro_torch.core.types import DFRConfig, Nonlinearity, TimeSeriesBatch
+from repro_torch.kernels import cholesky as k_cholesky
 from repro_torch.kernels import cholupdate as k_cholupdate
+from repro_torch.kernels import dprr as k_dprr
 from repro_torch.kernels import ops
+from repro_torch.kernels import reservoir as k_reservoir
+from repro_torch.kernels import ridge_solve as k_ridge
 from repro_torch.kernels import streaming as k_streaming
 from repro_torch.kernels import streaming_q8 as k_streaming_q8
 from repro_torch.kernels import train as k_train
@@ -32,6 +47,9 @@ from repro_torch.runtime import StreamRequest, StreamServer
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
 K3_REL = 1e-5
+K4A_REL = 1e-5
+K4B_REL = 1e-4
+SOLVE_REL = 1e-3
 
 
 @pytest.fixture
@@ -251,3 +269,177 @@ def test_int8_incremental_server_on_card_agrees_with_cpu(dev):
     agree = sum(int(a == b) for rid, v in results["cpu"].items()
                 for a, b in zip(v, results["cuda"][rid]))
     assert agree / total >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# K6, K7, K4a, K4b and the training path (DFRModel, OnlineDFR)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nx", [8, 17, 30])
+@pytest.mark.parametrize("f_name", ["linear", "tanh"])
+def test_k6_k7_kernels_match_plain(dev, nx, f_name):
+    j, lens, p, q, _, _ = _operands(dev, 1, 37, 93, nx, 1, seed=nx)
+    j, lens = j[0], lens[0]
+    lens[2] = 0                                    # an empty sample
+    f = Nonlinearity(f_name, 0.8)
+    got = ops.reservoir_states(j, lens, p[0], q[0], nx, f=f, backend="cuda")
+    want = ops.reservoir_states(j, lens, p[0], q[0], nx, f=f,
+                                backend="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    for i, n in enumerate(lens.tolist()):          # the frozen rows
+        if 0 < n < 93:
+            assert bool((got[i, n:] == got[i, n - 1]).all())
+    assert bool((got[2] == 0).all())
+    # K7 on the kernel's states; rows past a length must not count
+    noisy = got.clone()
+    for i, n in enumerate(lens.tolist()):
+        noisy[i, n:] = 1e3
+    r = ops.dprr_features(noisy, lens, nx, backend="cuda")
+    r_plain = ops.dprr_features(got, lens, nx, backend="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(r, r_plain, **TOL)
+
+
+def _spd_tiles(dev, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    M = torch.randn(k, n, 2 * n, generator=g)
+    return (M @ M.mT + n * torch.eye(n)).to(dev)
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("k,bs", [(1, 16), (3, 64), (2, 128), (1, 256)])
+def test_k4a_kernel_matches_plain(dev, k, bs):
+    a = _spd_tiles(dev, k, bs, seed=bs)
+    got = k_cholesky.chol_block_batched(a, backend="cuda")
+    want = k_cholesky.chol_block_batched(a, backend="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool((torch.triu(got, 1) == 0).all())
+    assert _rel(got, want) <= K4A_REL
+
+
+def test_k4a_non_spd_tile_gives_nan(dev):
+    for bs in (128, 256):
+        a = _spd_tiles(dev, 2, bs, seed=1)
+        a[1, 5, 5] = -a[1, 5, 5]
+        got = k_cholesky.chol_block_batched(a, backend="cuda")
+        want = k_cholesky.chol_block_batched(a, backend="torch")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got[0]).all())
+        assert bool(torch.isnan(got[1]).any())
+        assert bool((torch.isnan(got) == torch.isnan(want)).all())
+
+
+@pytest.mark.parametrize("k,m,bs", [(1, 8, 32), (2, 16, 128), (1, 896, 128),
+                                    (2, 200, 256), (1, 16, 256)])
+def test_k4b_kernels_match_plain(dev, k, m, bs):
+    L = torch.linalg.cholesky(_spd_tiles(dev, k, bs, seed=m))
+    g = torch.Generator().manual_seed(m + bs)
+    rhs = torch.randn(k, m, bs, generator=g).to(dev)
+    for fn in (k_cholesky.trsm_lower_t_batched,
+               k_cholesky.trsm_lower_batched):
+        got = fn(rhs, L, backend="cuda")
+        want = fn(rhs, L, backend="torch")
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= K4B_REL, fn.__name__
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_blocked_ridge_solve_on_card(dev, block):
+    s, ny = 931, 10
+    g = torch.Generator().manual_seed(0)
+    R = torch.randn(s, 3000, generator=g) / 50.0
+    B = (R @ R.T + 1e-2 * torch.eye(s)).to(dev)
+    A = torch.randn(ny, s, generator=g).to(dev)
+    c4a, c4b = (k_cholesky.CHOL_KERNEL.launches,
+                k_cholesky.TRSM_KERNEL.launches)
+    got = ops.ridge_solve(A, B, block=block)
+    want = ops.ridge_solve(A, B, backend="torch")
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= SOLVE_REL
+    nb = -(-s // block)
+    assert k_cholesky.CHOL_KERNEL.launches - c4a == nb
+    assert k_cholesky.TRSM_KERNEL.launches - c4b == (nb - 1) + 2 * nb
+    C = ops.cholesky(B, block=block)
+    assert _rel(C, ops.cholesky(B, backend="torch")) <= SOLVE_REL
+    bad = B.clone()
+    bad[300, 300] = -1.0
+    assert not bool(torch.isfinite(ops.ridge_solve(A, bad,
+                                                   block=block)).all())
+    Wb = k_ridge.ridge_solve_blocked_batched(
+        torch.stack([A, 2 * A]), torch.stack([B, B]), block=block,
+        backend="cuda")
+    assert _rel(Wb[1], 2 * want) <= SOLVE_REL
+
+
+def _small_batch(dev, n, t, n_in, n_classes, seed):
+    rng = np.random.default_rng(seed)
+    return TimeSeriesBatch(
+        u=torch.from_numpy(rng.normal(size=(n, t, n_in)).astype(np.float32)),
+        length=torch.from_numpy(rng.integers(2, t + 1, n).astype(np.int32)),
+        label=torch.from_numpy(rng.integers(0, n_classes, n).astype(
+            np.int32)))
+
+
+def test_dfr_model_fit_on_card_agrees_with_cpu(dev):
+    """A small fit through K6, K7, K4a and K4b on the card against the same
+    fit on the CPU: the same predictions on 0.98 of the samples."""
+    cfg = DFRConfig(n_in=3, n_classes=4, n_nodes=8, epochs=2)
+    train = _small_batch(dev, 96, 20, 3, 4, seed=0)
+    kernels = (k_reservoir.KERNEL, k_dprr.KERNEL, k_cholesky.CHOL_KERNEL,
+               k_cholesky.TRSM_KERNEL)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        m = DFRModel.create(cfg, device=device)
+        before = [kn.launches for kn in kernels]
+        params = m.fit(train, minibatch=4)
+        preds[device] = m.predict(train, params).cpu()
+        if device == "cuda":
+            for kn, b in zip(kernels, before):
+                assert kn.launches > b, kn.symbol
+    assert float((preds["cuda"] == preds["cpu"]).float().mean()) >= 0.98
+
+
+def test_online_dfr_on_card_launches_its_kernels(dev):
+    cfg = DFRConfig(n_in=3, n_classes=4, n_nodes=8)
+    batch = _small_batch(dev, 32, 12, 3, 4, seed=1)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        o = OnlineDFR(cfg, device=device)
+        st = o.init()
+        for lo in range(0, 32, 8):
+            sl = slice(lo, lo + 8)
+            st, _ = o.step(st, batch.u[sl], batch.length[sl],
+                           batch.label[sl], 0.5, 0.5)
+        k6, k7 = k_reservoir.KERNEL.launches, k_dprr.KERNEL.launches
+        c4a, c4b = (k_cholesky.CHOL_KERNEL.launches,
+                    k_cholesky.TRSM_KERNEL.launches)
+        st = o.refresh_output(st, 1e-2)
+        if device == "cuda":
+            assert k_cholesky.CHOL_KERNEL.launches > c4a
+            assert k_cholesky.TRSM_KERNEL.launches > c4b
+        preds[device] = o.infer(st, batch.u, batch.length).cpu()
+        if device == "cuda":
+            assert k_reservoir.KERNEL.launches == k6 + 1
+            assert k_dprr.KERNEL.launches == k7 + 1
+    assert float((preds["cuda"] == preds["cpu"]).float().mean()) >= 0.98
+
+
+def test_k4_k6_k7_reject_what_they_do_not_take(dev):
+    with pytest.raises(ValueError, match="bs"):
+        k_cholesky.chol_tile_cuda(torch.zeros(1, 1025, 1025, device=dev))
+    with pytest.raises(ValueError, match="rhs"):
+        k_cholesky.trsm_tile_cuda(torch.zeros(1, 4, 8, device=dev),
+                                  torch.eye(16, device=dev)[None], False)
+    with pytest.raises(ValueError, match="Nx"):
+        k_dprr.dprr_features_cuda(torch.zeros(2, 4, 33, device=dev),
+                                  torch.ones(2, dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(TypeError):
+        k_dprr.dprr_features_cuda(torch.zeros(2, 4, 3, device=dev),
+                                  torch.ones(2, device=dev))
