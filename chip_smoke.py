@@ -8,7 +8,8 @@ kernels are built for sm_90a):
 
 Phases, each fatal on failure:
   1. TF32 off for matmuls and cuDNN (the s=931 ridge solves need full
-     fp32); print the card's name and power limit.
+     fp32), and bf16 matmuls with fp32 reductions only; print the card's
+     name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once.
   3. Each kernel against its plain PyTorch version on the card, at the
@@ -50,6 +51,31 @@ Phases, each fatal on failure:
   7. Card against CPU on a reduced fit (Nx=30, the first 512 ARAB training
      samples, 2 epochs): the same beta, at least 0.98 of the test split's
      predictions equal, and |dW| / max |W|.
+  8. The LM main path at full width: smollm-135m (configs/smollm_135m.py, 30
+     layers, d_model 576, 9 query heads over 3 KV heads, head_dim 64) with
+     attn_impl='pallas', bf16, parameters from the port's seeded init.
+     make_prefill_step at each PREFILL_SHAPES (B, T), with K8's launch count
+     set to 0 before each and read after (one launch a layer, 30); the wall
+     time, prefill tokens/s and peak memory.  One prefill under
+     torch.profiler: the device's busy share and K8's share of the device
+     time.  The continuous-batching Server with launch/serve.py's defaults
+     (16 requests of 32 tokens, max_tokens 16, max_batch 8, max_len 256):
+     tokens/s, p50/p99 request latency, steps; K8 launches 0 times there,
+     since decode attention is plain in both packages.  One wave of 8 short
+     requests under torch.profiler: the device's busy share of the decode
+     steps, their launches a step, the top kernels and host ops.
+  9. Card against CPU for the LM at full width in fp32: a prefill of B=2,
+     T=256 (|dlogits| <= 1e-3 max |logits|, argmax equal) and the Server on
+     4 requests (greedy tokens equal on >= 0.98 of them); the same figures
+     in bf16, printed without a check.
+Phase 3 also holds K8 (flash attention) against its plain version at the
+prefill's two shapes (B=4, H=9, KV=3, T=4096 and B=1, T=32768, D=64,
+causal, bf16) on transposed views of (B, T, H, D) buffers as the model
+passes them (and at T=4096 also contiguous), Minitron's head layout (B=1,
+H=32, KV=8, T=2048, D=128), a windowed and a ragged non-causal case, and
+two fp32 cases (causal, and windowed), each beside the time of
+torch.nn.functional.scaled_dot_product_attention on the same inputs (timed
+here only; the port never calls it).
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
@@ -68,6 +94,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import masking, ridge  # noqa: E402
 from repro_torch.core.dfr import DFRModel  # noqa: E402
 from repro_torch.core.online import OnlineDFR  # noqa: E402
@@ -77,16 +104,22 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cholesky as k_cholesky  # noqa: E402
 from repro_torch.kernels import cholupdate as k_cholupdate  # noqa: E402
 from repro_torch.kernels import dprr as k_dprr  # noqa: E402
+from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import reservoir as k_reservoir  # noqa: E402
 from repro_torch.kernels import ridge_solve as k_ridge  # noqa: E402
 from repro_torch.kernels import streaming as k_streaming  # noqa: E402
 from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
-from repro_torch.runtime import StreamRequest, StreamServer  # noqa: E402
+from repro_torch.models.attention import blockwise_attention  # noqa: E402
+from repro_torch.models.lm import make_prefill_step  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.runtime import (Request, Server, StreamRequest,  # noqa: E402
+                                 StreamServer)
 
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12   # H100 SXM fp32 outside the tensor cores
 PEAK_INT8_OP_S = 1979e12   # H100 SXM int8, dense
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # fp32 sums in another order
 K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
 # phase 3 at the server's shapes: slots, window, T, Nx, Ny for K1, K2 and
@@ -106,6 +139,49 @@ K4B_REL = 1e-4   # K4b: dot products in another order
 SOLVE_REL = 1e-3  # blocked vs unblocked ridge solve at a well-posed beta
 WELL_POSED_BETAS = (1e-2, 1e0)
 
+# K8 at the LM's shapes: (label, B, H, KV, Tq, Tk, D, causal, window,
+# dtype, layout); the first is the prefill's, whose numbers go in the JSON
+# record.  Layout "bthd": q, k, v are transposed views of (B, T, H, D)
+# buffers, as attn_apply_full passes them; "bhtd": contiguous (B, H, T, D).
+# The prefill's two shapes are both held against the plain version in the
+# model's layout; at T=32768 the dense plain version's scores would take
+# 38 GB, so that case's plain version is blockwise_attention (512 x 1024
+# tiles, the same masked softmax in f32) on the (B, T, H, D) buffers.
+K8_CASES = (
+    ("prefill", 4, 9, 3, 4096, 4096, 64, True, 0, torch.bfloat16, "bthd"),
+    ("prefill contiguous", 4, 9, 3, 4096, 4096, 64, True, 0,
+     torch.bfloat16, "bhtd"),
+    ("prefill_32k", 1, 9, 3, 32768, 32768, 64, True, 0, torch.bfloat16,
+     "bthd"),
+    ("minitron heads", 1, 32, 8, 2048, 2048, 128, True, 0, torch.bfloat16,
+     "bhtd"),
+    ("window 512", 2, 9, 3, 2048, 2048, 64, True, 512, torch.bfloat16,
+     "bhtd"),
+    ("ragged non-causal", 2, 9, 3, 1000, 3001, 64, False, 0, torch.bfloat16,
+     "bthd"),
+    ("fp32", 2, 9, 3, 1024, 1024, 64, True, 0, torch.float32, "bhtd"),
+    ("fp32 window 512", 2, 9, 3, 2048, 2048, 64, True, 512, torch.float32,
+     "bthd"),
+)
+K8_DENSE_MAX_BYTES = 8 << 30   # larger dense f32 scores: blockwise plain
+# |got - want| <= atol + rtol |want|, elementwise.  bf16: both sides round
+# to bf16 from f32 values that differ in their last bits, so they are one
+# bf16 step apart at most, and a step is at most 2^-7 of the value (8 bits
+# of significand); atol 1e-4 covers the f32 difference of outputs near 0.
+# With randn inputs a causal row at T=4096 averages about T/e keys, so a
+# typical |out| is about 0.03: the limit is relative, not absolute.  fp32:
+# the same f32 arithmetic in another order, with the fast exponential.
+K8_TOL = {torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4),
+          torch.float32: dict(rtol=1e-4, atol=1e-4)}
+# the LM main path: smollm-135m, prefill shapes (B, T) - the second is the
+# prefill_32k cell's sequence length - and launch/serve.py's defaults
+LM_ARCH = "smollm-135m"
+PREFILL_SHAPES = ((4, 4096), (1, 32768))
+SERVE = dict(requests=16, prompt_len=32, max_tokens=16, max_batch=8,
+             max_len=256)
+LM_REL = 1e-3        # card vs CPU prefill logits in fp32, of max |logits|
+LM_AGREE = 0.98      # card vs CPU greedy tokens in fp32
+
 KERNELS = {"K1 train_forward": k_train.KERNEL,
            "K2 streaming_logits": k_streaming.KERNEL,
            "K5 streaming_logits_q8": k_streaming_q8.KERNEL,
@@ -113,7 +189,8 @@ KERNELS = {"K1 train_forward": k_train.KERNEL,
            "K6 reservoir_states": k_reservoir.KERNEL,
            "K7 dprr_features": k_dprr.KERNEL,
            "K4a chol_tile": k_cholesky.CHOL_KERNEL,
-           "K4b trsm_tile": k_cholesky.TRSM_KERNEL}
+           "K4b trsm_tile": k_cholesky.TRSM_KERNEL,
+           "K8 flash_attention": k_flash.KERNEL}
 TRAINING_KERNELS = ("K6 reservoir_states", "K7 dprr_features",
                     "K4a chol_tile", "K4b trsm_tile")
 # the main paths: server knobs and the kernels each must launch every round
@@ -992,16 +1069,276 @@ def training_agreement_phase(cfg, data) -> None:
     check(agree >= 0.98, f"card and CPU agree on {agree:.4f} < 0.98")
 
 
+def k8_records(dev) -> dict:
+    """K8 against its plain version on the card over K8_CASES, each beside
+    the library's scaled_dot_product_attention; the JSON record holds the
+    prefill case's numbers and the largest error over the bf16 cases."""
+    import torch.nn.functional as F
+
+    rec = None
+    err_bf16 = 0.0
+    for label, b, h, kv, tq, tk, d, causal, window, dtype, layout in \
+            K8_CASES:
+        g = torch.Generator(device=dev).manual_seed(tq + d)
+        shapes = ((b, tq, h, d), (b, tk, kv, d), (b, tk, kv, d))
+        bufs = [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in shapes]
+        q, k, v = (t.transpose(1, 2) for t in bufs)
+        if layout == "bhtd":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        kw = dict(causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, backend="cuda", **kw)
+        dense = 4 * b * h * tq * tk <= K8_DENSE_MAX_BYTES
+        if dense:
+            plain_fn = lambda: ops.flash_attention(  # noqa: E731
+                q, k, v, backend="torch", **kw)
+        else:
+            plain_fn = lambda: blockwise_attention(  # noqa: E731
+                *bufs, **kw).transpose(1, 2)
+        want = plain_fn()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K8 {label}: non-finite")
+        e = float((got.float() - want.float()).abs().max())
+        ok = torch.allclose(got.float(), want.float(), **K8_TOL[dtype])
+        print(f"  K8 {label} ({layout}, plain "
+              f"{'dense' if dense else 'blockwise'}): max abs err {e:.3e}, "
+              f"max |want| {float(want.float().abs().max()):.3e} (tolerance "
+              f"{K8_TOL[dtype]}, {dtype})")
+        check(ok, f"K8 {label}: kernel disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, e)
+        del got, want
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, backend="cuda",
+                                                   **kw), reps=20)
+        plain = wall_ms(plain_fn, reps=3 if dense else 1)
+        if window:
+            # the library takes a window only as a mask, on expanded heads
+            q_pos = torch.arange(tq, device=dev)[:, None]
+            k_pos = torch.arange(tk, device=dev)[None, :]
+            mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+            ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, ke, ve, attn_mask=mask)
+        else:
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        lib = device_ms(lib_fn, reps=20)
+        # the live (q, k) pairs of this mask, 4 D flops each (two products)
+        rows = np.arange(tq)
+        hi = np.minimum(rows, tk - 1) if causal else np.full(tq, tk - 1)
+        lo = np.maximum(rows - window + 1, 0) if window else np.zeros(tq)
+        pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+        es = torch.finfo(dtype).bits // 8
+        peak = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else \
+            PEAK_FP32_FLOP_S
+        t_bytes = es * d * (2 * b * h * tq + 2 * b * kv * tk) / PEAK_BYTES_S
+        t_ops = 4 * b * h * d * pairs / peak
+        bnd = (max(t_bytes, t_ops) * 1e3,
+               "bytes" if t_bytes >= t_ops else "operations")
+        print(f"  K8 {label} B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d} "
+              f"causal={causal} window={window}: kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+              f"bound {bnd[0]:.5f} ms ({bnd[1]}; {4 * b * h * d * pairs:.3e} "
+              f"flop)")
+        if rec is None:
+            rec = record("K8 flash_attention",
+                         "src/repro_torch/kernels/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention.py:27", 0.0, ms,
+                         plain, bnd, lib)
+        del q, k, v, bufs
+    rec["max_abs_err"] = err_bf16
+    return {rec["name"]: rec}
+
+
+def lm_model(dtype, device: str) -> Transformer:
+    """smollm-135m at full width on the flash route, from the seed-0
+    init (drawn on the CPU, so every device gets the same parameters)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas",
+                              dtype=dtype)
+    return Transformer(cfg, device=device,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def lm_tokens(b: int, t: int, vocab: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (b, t)).astype(
+        np.int32)
+
+
+def serve_lm(model: Transformer, n: int, prompt_len: int, max_tokens: int,
+             max_batch: int, max_len: int) -> tuple:
+    """launch/serve.py's loop: n random prompts through the Server; returns
+    (server, requests by id, wall seconds)."""
+    server = Server(model, max_batch=max_batch, max_len=max_len)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for rid in range(n):
+        prompt = rng.integers(0, model.cfg.vocab, prompt_len).astype(np.int32)
+        server.submit(Request(rid=rid, prompt=prompt, max_tokens=max_tokens))
+    done = server.run_until_drained()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return server, {r.rid: r for r in done}, time.perf_counter() - t0
+
+
+def lm_phase(card: str) -> dict:
+    """The LM main path at full width: prefills through K8, one under the
+    profiler, then the Server; returns K8's launches of the first prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = lm_model(torch.bfloat16, "cuda")
+    cfg = model.cfg
+    prefill = make_prefill_step(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
+          f"{n_params} parameters in {cfg.dtype}")
+    k8_launches = None
+    for b, t in PREFILL_SHAPES:
+        batch = {"tokens": lm_tokens(b, t, cfg.vocab, seed=t)}
+        prefill(batch)             # first use: allocations, library set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        print(f"  [{card}] prefill B={b} T={t}: {wall:.4f} s, "
+              f"{b * t / wall:.1f} prefill tokens/s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"launches: " + ", ".join(f"{n.split()[0]} {c}"
+                                        for n, c in launches.items() if c))
+        check(tuple(logits.shape) == (b, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"prefill B={b} T={t}: logits {tuple(logits.shape)}, or not "
+              f"finite")
+        for name, count in launches.items():
+            want = cfg.n_layers if name == "K8 flash_attention" else 0
+            check(count == want, f"prefill B={b} T={t}: {name} launched "
+                                 f"{count} times ({want} expected)")
+        if k8_launches is None:
+            k8_launches = launches["K8 flash_attention"]
+        del logits
+
+    b, t = PREFILL_SHAPES[0]
+    batch = {"tokens": lm_tokens(b, t, cfg.vocab, seed=t)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        prefill(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev)
+    flash = sum(e.self_device_time_total for e in dev if "flash" in e.key)
+    print(f"  [{card}] prefill B={b} T={t} profiled: {wall:.4f} s, device "
+          f"busy {busy / 1e3:.3f} ms = {100 * busy / 1e6 / wall:.1f}% of wall "
+          f"(idle {100 - 100 * busy / 1e6 / wall:.1f}%); K8 "
+          f"{flash / 1e3:.3f} ms = {100 * flash / max(busy, 1e-9):.1f}% of "
+          f"the device time")
+    for e in dev[:8]:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    check(busy > 0 and flash > 0, "the profiler saw no device time in K8")
+
+    serve_lm(model, 2, 8, 2, 2, 32)          # first use of the decode path
+    reset_launches()
+    server, done, wall = serve_lm(
+        model, SERVE["requests"], SERVE["prompt_len"], SERVE["max_tokens"],
+        SERVE["max_batch"], SERVE["max_len"])
+    launches = read_launches()
+    n_tok = sum(len(r.out_tokens) for r in done.values())
+    lat = np.asarray([r.finish_t - r.submit_t for r in done.values()])
+    print(f"  [{card}] Server {SERVE}: {len(done)} requests, {n_tok} tokens "
+          f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), {server.steps} "
+          f"steps ({1e3 * wall / server.steps:.2f} ms a step); request "
+          f"latency p50 {np.median(lat):.3f} s, p99 "
+          f"{np.percentile(lat, 99):.3f} s; K8 launches "
+          f"{launches['K8 flash_attention']} (decode attention is the plain "
+          f"einsum in both packages, so 0)")
+    check(len(done) == SERVE["requests"]
+          and n_tok == SERVE["requests"] * SERVE["max_tokens"],
+          f"the Server answered {len(done)} requests with {n_tok} tokens")
+    check(all(0 <= x < cfg.padded_vocab for r in done.values()
+              for x in r.out_tokens), "a token out of range")
+    check(all(n == 0 for n in launches.values()),
+          f"the Server launched {launches}: decode runs no kernel")
+
+    # where a decode step's time goes: one wave of 8 short requests
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        server, _, wall = serve_lm(model, SERVE["max_batch"], 4, 4,
+                                   SERVE["max_batch"], SERVE["max_len"])
+    events = prof.key_averages()
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev)
+    n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    print(f"  [{card}] Server decode profiled: {server.steps} steps in "
+          f"{wall:.3f} s, device busy {busy / 1e3:.3f} ms = "
+          f"{100 * busy / 1e6 / wall:.1f}% of wall (idle "
+          f"{100 - 100 * busy / 1e6 / wall:.1f}%); cudaLaunchKernel "
+          f"{n_launch / server.steps:.0f} a step")
+    for e in dev[:5]:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:5]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    check(busy > 0, "the profiler saw no device time in the decode steps")
+    return {"K8 flash_attention": k8_launches}
+
+
+def lm_agreement_phase() -> None:
+    """The LM at full width on the card and on the CPU, same parameters: a
+    prefill of B=2, T=256 and the Server on 4 requests; checked in fp32,
+    printed in bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        models = {d: lm_model(dtype, d) for d in ("cuda", "cpu")}
+        toks = {"tokens": lm_tokens(2, 256, models["cpu"].cfg.vocab, seed=1)}
+        logits = {d: make_prefill_step(m)(toks).float().cpu()
+                  for d, m in models.items()}
+        rel = float((logits["cuda"] - logits["cpu"]).abs().max()
+                    / logits["cpu"].abs().max())
+        same = bool((logits["cuda"].argmax(-1)
+                     == logits["cpu"].argmax(-1)).all())
+        tokens = {d: serve_lm(m, 4, 32, 16, 4, 256)[1]
+                  for d, m in models.items()}
+        pairs = [(a, b) for rid in tokens["cpu"]
+                 for a, b in zip(tokens["cuda"][rid].out_tokens,
+                                 tokens["cpu"][rid].out_tokens)]
+        agree = sum(a == b for a, b in pairs) / len(pairs)
+        print(f"  {dtype}: prefill B=2 T=256 max |dlogits| / max |logits| "
+              f"{rel:.3e}, argmax equal {same}; Server 4 requests: "
+              f"{agree:.4f} of {len(pairs)} greedy tokens equal"
+              + ("" if dtype == torch.float32 else " (printed, not checked)"))
+        if dtype == torch.float32:
+            check(rel <= LM_REL and same, f"card vs CPU prefill: {rel}, "
+                                          f"argmax equal {same}")
+            check(agree >= LM_AGREE, f"card vs CPU tokens agree on {agree}")
+        del models
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(f"[1] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
@@ -1022,6 +1359,7 @@ def main() -> int:
     records.update(training_kernel_records(
         DFRModel.create(cfg, generator=torch.Generator().manual_seed(0)),
         data[0]))
+    records.update(k8_records(dev))
     print("[4] main paths: StreamServer on ARAB at full width")
     launches = {}
     for path in PATHS:
@@ -1038,6 +1376,11 @@ def main() -> int:
     launches.update(training_phase(card, cfg, data))
     print("[7] training path agreement, card vs CPU")
     training_agreement_phase(cfg, data)
+    print(f"[8] the LM main path at full width: {LM_ARCH}, "
+          f"attn_impl='pallas', bf16")
+    launches.update(lm_phase(card))
+    print("[9] the LM at full width, card vs CPU")
+    lm_agreement_phase()
 
     for name, count in launches.items():
         records[name]["launches"] = count

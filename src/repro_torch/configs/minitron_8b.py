@@ -1,0 +1,20 @@
+"""Minitron-8B: width-pruned Nemotron-4 [arXiv:2407.14679; hf].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab=256000,
+    act="silu",
+    skip_shapes=("long_500k",),
+    grad_accum={"train_4k": 4, "prefill_32k": 1},
+)

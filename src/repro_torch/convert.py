@@ -16,16 +16,24 @@ its dtype, so an armed int8 state (``quant_Wq`` codes and scales) and a live
 incremental factor (``ridge_Lt``, ``ridge_factor_beta``) cross unchanged.
 Nothing here imports the JAX package: a caller on that side builds its own
 state from the same dict.
+
+``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry an LM's parameters
+as the reference's ``Transformer.init`` values tree of numpy arrays (the
+layers stacked on a leading axis).  The reference's bf16 leaves are
+``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses: they go
+through float32, exact for bf16, and are cast to the parameter's dtype.
+``lm_params_to_numpy`` returns float32 arrays.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.online import OnlineState
 from repro_torch.core.types import DFRParams, QuantParams, RidgeState
+from repro_torch.models.transformer import ParamTree
 
 # flat leaf name -> attribute path, in OnlineState field order
 LEAF_PATHS = (
@@ -108,3 +116,63 @@ def state_from_leaves(leaves: Dict[str, np.ndarray],
         loss_fast=t["loss_fast"],
         loss_slow=t["loss_slow"],
     )
+
+
+def _load_tree(node: ParamTree, tree: Mapping[str, Any], index=None) -> None:
+    """Copy ``tree`` into ``node`` (``index``: the layer of a stacked
+    tree); the names must match both ways."""
+    if sorted(tree) != sorted(node.keys()):
+        raise KeyError(f"parameter names differ: tree {sorted(tree)}, "
+                       f"model {sorted(node.keys())}")
+    for name, val in tree.items():
+        dst = node[name]
+        if name == "layers":
+            for i, layer in enumerate(dst):
+                _load_tree(layer, val, i)
+        elif isinstance(val, Mapping):
+            _load_tree(dst, val, index)
+        else:
+            arr = np.array(val if index is None else val[index],
+                             dtype=np.float32)
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {arr.shape}, model "
+                                 f"{tuple(dst.shape)}")
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(arr).to(dst.dtype))
+
+
+def lm_params_from_numpy(model: ParamTree, tree: Mapping[str, Any]
+                         ) -> ParamTree:
+    """Load the reference's ``Transformer.init`` values tree (numpy arrays,
+    or anything ``np.asarray`` reads) into the port's ``Transformer``, in
+    place; returns the model."""
+    if len(tree["layers"]["ln_attn_w"]) != len(model["layers"]):
+        raise ValueError("the tree and the model have different depths")
+    _load_tree(model, tree)
+    return model
+
+
+def lm_params_to_numpy(model: ParamTree) -> Dict[str, Any]:
+    """The port's LM parameters as the reference's values tree: float32
+    numpy arrays, the layers stacked on a leading axis."""
+
+    def walk(node: ParamTree) -> Dict[str, Any]:
+        out = {}
+        for name in node.keys():
+            val = node[name]
+            if name == "layers":
+                layers = [walk(layer) for layer in val]
+                out[name] = _stack(layers)
+            elif isinstance(val, ParamTree):
+                out[name] = walk(val)
+            else:
+                out[name] = val.detach().to(torch.float32).cpu().numpy()
+        return out
+
+    return walk(model)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

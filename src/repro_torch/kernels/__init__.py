@@ -1,1 +1,1 @@
-"""Hand-written CUDA kernels (K1-K7), their plain versions and dispatch."""
+"""Hand-written CUDA kernels (K1-K8), their plain versions and dispatch."""

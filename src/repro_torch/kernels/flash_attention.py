@@ -1,0 +1,92 @@
+"""K8 on Hopper: flash attention forward (online softmax, causal / sliding
+window, GQA).
+
+The port of ``repro.kernels.flash_attention._flash_kernel``.  The kernel
+(``csrc/flash_attention.cu``) runs one block per (batch, head, query tile)
+with the KV loop inside the block, K/V tiles staged in shared memory and
+fp32 FMAs on the CUDA cores; key tiles above the causal diagonal or outside
+the window are skipped by their index.  It reads q, k and v through their
+strides, so the model's (B, T, H, D) activations enter as transposed views,
+and it writes the output into a (B, T, H, D) buffer returned as its
+(B, H, T, D) view: the model's transpose back is then contiguous.  The
+reference's tile sizes (``block_q``, ``block_k``) do not reach the kernel,
+which chooses its own.  Its plain version is ``kernels.ref.
+flash_attention_ref``; ``kernels.ops.flash_attention`` chooses between them
+by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.types import Tensor
+from repro_torch.kernels._build import CudaKernel, stream_handle
+
+_P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+KERNEL = CudaKernel(
+    "flash_attention", "dfr_flash_attention",
+    [_P] * 4 + [_L] * 12 + [_I] * 9 + [_F, _I, _P],
+)
+HEAD_DIMS = (32, 64, 128)   # one row's part is 32 or 64 floats a lane
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_YZ = 65535         # heads and batch are the grid's y and z
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor) -> tuple:
+    """Validate K8's operands; returns (B, H, KV, Tq, Tk, D)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel needs CUDA tensors, got {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"K8 takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, got {t.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous")
+    b, h, tq, d = q.shape
+    kv, tk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, kv, tk, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be (B, KV, Tk, D) = ({b}, KV, Tk, "
+                         f"{d}), got {tuple(k.shape)} and {tuple(v.shape)}")
+    if min(b, h, kv, tq, tk) < 1 or h % kv:
+        raise ValueError(f"need B, H, KV, Tq, Tk >= 1 and KV | H, got "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"K8 takes head_dim in {HEAD_DIMS}, got {d}")
+    if max(b, h) > MAX_GRID_YZ:
+        raise ValueError(f"K8 takes B, H <= {MAX_GRID_YZ}, got {b}, {h}")
+    return b, h, kv, tq, tk, d
+
+
+def flash_attention_cuda(
+    q: Tensor,   # (B, H, Tq, D)
+    k: Tensor,   # (B, KV, Tk, D)
+    v: Tensor,   # (B, KV, Tk, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> Tensor:
+    """Launch K8 once.  Returns out (B, H, Tq, D) in q's dtype, a view of a
+    contiguous (B, Tq, H, D) buffer."""
+    b, h, kv, tq, tk, d = _check(q, k, v)
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        b, h, kv, tq, tk, d, DTYPES[q.dtype], int(bool(causal)), int(window),
+        float(scale),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        stream_handle(dev),
+    )
+    return out

@@ -11,8 +11,9 @@ Backend per call:
 The wrappers take the reference's logical shapes (``repro.kernels.ops``) and
 own the flattening to the kernels' (N, T, Nx) operands.  The reference's
 TPU padding (``n_pad``, ``ny_pad``, the mirrored ring lane) and its tiling
-knobs (``block_b``, ``chunk_t``, ``block_t``) have no counterpart here: the
-kernels work on the true Nx and Ny.  ``block`` stays on the ridge solve and
+knobs (``block_b``, ``chunk_t``, ``block_t``, and flash attention's
+``block_q``, ``block_k``) have no counterpart here: the kernels work on the
+true Nx and Ny and choose their own tiles.  ``block`` stays on the ridge solve and
 the Cholesky: it is the tile size of K4a and K4b.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.kernels import ridge_solve as kridge
 from repro_torch.kernels._build import resolve_backend
 from repro_torch.kernels.cholupdate import cholupdate_window_t_cuda
 from repro_torch.kernels.dprr import dprr_features_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.reservoir import reservoir_states_cuda
 from repro_torch.kernels.streaming import streaming_logits_cuda
 from repro_torch.kernels.streaming_q8 import streaming_logits_q8_cuda
@@ -359,3 +361,24 @@ def cholupdate_window(
     ``ops.cholupdate_window`` layout: the same kernel on ``L.mT``."""
     Lt = L.transpose(-1, -2).contiguous()
     return cholupdate_window_t(Lt, X, sign, backend=backend).transpose(-1, -2)
+
+
+def flash_attention(
+    q: Tensor,   # (B, H, Tq, D)
+    k: Tensor,   # (B, KV, Tk, D)
+    v: Tensor,   # (B, KV, Tk, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    block_q: int = 512,
+    block_k: int = 1024,
+    backend: Optional[str] = None,
+) -> Tensor:
+    """Causal / sliding-window GQA attention (K8) in the reference's
+    (B, H, T, D) layout, scaled by D^-1/2.  'cuda' launches K8, which
+    chooses its own tiles: ``block_q`` and ``block_k`` (the TPU kernel's
+    tiles) are accepted and ignored; 'torch' is the plain version
+    ``ref.flash_attention_ref``."""
+    be = resolve_backend(backend, q)
+    fn = flash_attention_cuda if be == "cuda" else kref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window)

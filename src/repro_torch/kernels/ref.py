@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function computes exactly what its kernel computes, on the same flat
-operands, with a Python loop over time (or over columns): the CPU path of
-``kernels.ops`` and the yardstick the kernels are held against on the card.
+operands, with a Python loop over time (or over columns; K8's is a dense
+masked softmax): the CPU path of ``kernels.ops`` and the yardstick the
+kernels are held against on the card.
 (K3's plain version, the factor fold, is ``core.ridge.cholupdate_window_t``.)
 ``chol_ref`` and ``ridge_solve_ref`` are no kernel's plain version: they are
 the unblocked library solves that ``ops.cholesky`` and ``ops.ridge_solve``
@@ -25,7 +26,8 @@ K5 takes codes and scales in place of p, q and W:
     Wq       (S, Ny, Nr) int8  readout codes (scale sw), DPRR layout
 
 K6 (``reservoir_ref``) writes every state X (N, T, Nx); K7 (``dprr_ref``)
-reads a stored X (N, T, Nx) with its lengths (N,).
+reads a stored X (N, T, Nx) with its lengths (N,).  K8
+(``flash_attention_ref``) takes q (B, H, Tq, D) and k, v (B, KV, Tk, D).
 
 A sample's state freezes once k >= length; a dead step adds nothing to the
 DPRR accumulator.  The truncation boundary (x(T-1), j(T)) is latched before
@@ -33,7 +35,7 @@ the state update at k = length-1, so x(T-1) = 0 when length == 1.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -246,3 +248,37 @@ def ridge_solve_ref(A: Tensor, B: Tensor) -> Tensor:
     C = chol_ref(B)
     D = torch.linalg.solve_triangular(C, A.mT, upper=False)
     return torch.linalg.solve_triangular(C.mT, D, upper=True).mT
+
+
+def flash_attention_ref(
+    q: Tensor,   # (B, H, Tq, D)
+    k: Tensor,   # (B, KV, Tk, D)
+    v: Tensor,   # (B, KV, Tk, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> Tensor:
+    """Plain K8: the dense masked softmax of the reference's
+    ``ref.flash_attention_ref``, in fp32, returned in q's dtype.  A key is
+    live if k_pos <= q_pos (causal) and k_pos > q_pos - window (window >
+    0).  A row with no live key gives 0, as the kernels do (the reference's
+    dense oracle averages such a row's values instead)."""
+    b, h, tq, d = q.shape
+    _, kv, tk, _ = k.shape
+    g = h // kv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qg = q.reshape(b, kv, g, tq, d).to(torch.float32)
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.to(torch.float32)) * scale
+    q_pos = torch.arange(tq, device=q.device)[:, None]
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    out = torch.einsum("bkgts,bksd->bkgtd", p, v.to(torch.float32))
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, h, tq, d).to(q.dtype)

@@ -1,0 +1,107 @@
+"""Shared model layers: inits, norms, RoPE, embeddings.
+
+The port of ``repro.models.layers``.  The inits draw the reference's
+distributions from an explicit ``torch.Generator`` (the same laws, not the
+same numbers: ``convert.lm_params_from_numpy`` carries the reference's own
+values over).  They draw on the CPU in fp32 and cast, so a seed gives the
+same parameters on every device.  The reference's ``PV`` leaves and
+``split_tree`` carry logical sharding axes; they wait for the multi-device
+item, and ``apply_m_rope`` for the VLM family (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.types import Tensor
+
+
+def dense_init(
+    generator: torch.Generator,
+    shape: Tuple[int, ...],
+    dtype=torch.bfloat16,
+    scale: Optional[float] = None,
+    fan_in: Optional[int] = None,
+) -> Tensor:
+    """Normal weights with std ``fan_in ** -0.5`` (fan_in = shape[0])."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=generator, dtype=torch.float32) * scale
+    return w.to(dtype)
+
+
+def zeros_init(shape, dtype=torch.bfloat16) -> Tensor:
+    return torch.zeros(shape, dtype=dtype)
+
+
+def ones_init(shape, dtype=torch.bfloat16) -> Tensor:
+    return torch.ones(shape, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms (f32 accumulation)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-5) -> Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x: Tensor, weight: Tensor, bias: Tensor,
+               eps: float = 1e-5) -> Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4) -> Tensor:
+    """x: (B, T, H, D); positions: (B, T) int."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_init(generator: torch.Generator, vocab: int, d_model: int,
+               dtype=torch.bfloat16) -> Tensor:
+    w = torch.randn((vocab, d_model), generator=generator,
+                    dtype=torch.float32) * (d_model ** -0.5)
+    return w.to(dtype)
+
+
+def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    return table[ids]
+
+
+def unembed(x: Tensor, table: Tensor) -> Tensor:
+    """Logits in f32 (stable CE)."""
+    return torch.einsum("btd,vd->btv", x.to(torch.float32),
+                        table.to(torch.float32))

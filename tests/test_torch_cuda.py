@@ -24,25 +24,40 @@ Tolerances:
     product is taken in another order, and each column's error feeds the
     next;
   * the blocked ridge solve at s = 931: max |dW| <= 1e-3 max |W| against the
-    unblocked library solve at a well-conditioned beta.
+    unblocked library solve at a well-conditioned beta;
+  * K8 in fp32: rtol 1e-4 / atol 1e-4 (the same f32 scores, softmax and
+    products, summed in another order, with the fast exponential); in bf16:
+    rtol 2^-7 / atol 1e-4, compared in f32 - both sides round to bf16 from
+    f32 values that differ in their last bits, so they are one bf16 step
+    apart at most, and a step is at most 2^-7 of the value; the limit is
+    relative because the outputs are small (a causal row of randn inputs
+    averages about T/e keys);
+  * the reduced LM on the card against the CPU in fp32: logits within 1e-3
+    of the largest, greedy tokens equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
 from repro_torch.core.dfr import DFRModel
 from repro_torch.core.online import OnlineDFR
 from repro_torch.core.types import DFRConfig, Nonlinearity, TimeSeriesBatch
 from repro_torch.kernels import cholesky as k_cholesky
 from repro_torch.kernels import cholupdate as k_cholupdate
 from repro_torch.kernels import dprr as k_dprr
+from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import ops
 from repro_torch.kernels import reservoir as k_reservoir
 from repro_torch.kernels import ridge_solve as k_ridge
 from repro_torch.kernels import streaming as k_streaming
 from repro_torch.kernels import streaming_q8 as k_streaming_q8
 from repro_torch.kernels import train as k_train
-from repro_torch.runtime import StreamRequest, StreamServer
+from repro_torch.models.attention import blockwise_attention
+from repro_torch.models.transformer import Transformer
+from repro_torch.runtime import Request, Server, StreamRequest, StreamServer
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -443,3 +458,144 @@ def test_k4_k6_k7_reject_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         k_dprr.dprr_features_cuda(torch.zeros(2, 4, 3, device=dev),
                                   torch.ones(2, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K8: flash attention, and the LM that runs it
+# ---------------------------------------------------------------------------
+
+K8_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4)}
+# (causal, window, Tq, Tk): causal across two ragged query tiles, causal
+# with a sliding window, non-causal cross attention with Tq != Tk, and a
+# ragged causal length that is no multiple of any tile
+K8_CASES = {"causal": (True, 0, 256, 256), "window": (True, 50, 200, 200),
+            "noncausal": (False, 0, 100, 300), "ragged": (True, 0, 77, 77)}
+
+
+def _qkv_operands(dev, b, h, kv, tq, tk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(dev, dtype)
+                 for shape in ((b, h, tq, d), (b, kv, tk, d), (b, kv, tk, d)))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kv", [(9, 3), (32, 8)])
+@pytest.mark.parametrize("case", sorted(K8_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8_kernel_matches_plain(dev, d, h, kv, case, dtype):
+    causal, window, tq, tk = K8_CASES[case]
+    q, k, v = _qkv_operands(dev, 2, h, kv, tq, tk, d, dtype, seed=d + tq)
+    before = k_flash.KERNEL.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              backend="cuda")
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               backend="torch")
+    torch.cuda.synchronize()
+    assert k_flash.KERNEL.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **K8_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8_fully_masked_rows_are_zero(dev, dtype):
+    """Non-causal with a window of 16 over 32 keys: query rows 48.. see no
+    key (k_pos > q_pos - 16 >= 32), and come out 0, not NaN."""
+    q, k, v = _qkv_operands(dev, 1, 4, 2, 96, 32, 64, dtype, seed=3)
+    got = ops.flash_attention(q, k, v, causal=False, window=16)
+    want = ops.flash_attention(q, k, v, causal=False, window=16,
+                               backend="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, :, 48:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **K8_TOL[dtype])
+
+
+def test_k8_reads_strided_views(dev):
+    """The model's (B, T, H, D) activations enter as transposed views; the
+    output is a (B, H, T, D) view of a (B, T, H, D) buffer."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 130, n, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16) for n in (9, 3, 3))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    want = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(),
+                               backend="torch")
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K8_TOL[torch.bfloat16])
+
+
+def test_k8_long_causal_rows_match_blockwise(dev):
+    """Nearly the prefill_32k length (32668, no multiple of a tile) in the
+    model's layout: the longest causal rows and a ragged last key tile at
+    full length, against blockwise_attention (the dense plain version's
+    scores would take 38 GB at this length)."""
+    rng = np.random.default_rng(5)
+    t = 32768 - 100
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, t, n, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16) for n in (9, 3, 3))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    want = blockwise_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.transpose(1, 2).float(), want.float(),
+                               **K8_TOL[torch.bfloat16])
+
+
+def test_k8_rejects_what_it_does_not_take(dev):
+    q, k, v = _qkv_operands(dev, 1, 4, 2, 8, 8, 64, torch.float32, seed=5)
+    with pytest.raises(ValueError, match="head_dim"):
+        k_flash.flash_attention_cuda(q[..., :48].contiguous(),
+                                     k[..., :48].contiguous(),
+                                     v[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        k_flash.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        k_flash.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="KV"):
+        k_flash.flash_attention_cuda(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="device|on"):
+        k_flash.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_flash.flash_attention_cuda(q.mT, k.mT, v.mT)
+
+
+def _lm_pair(dev):
+    cfg = dataclasses.replace(get_reduced("smollm-135m"), dtype=torch.float32,
+                              attn_impl="pallas")
+    return tuple(Transformer(cfg, device=d,
+                             generator=torch.Generator().manual_seed(0))
+                 for d in (dev, "cpu"))
+
+
+def test_lm_prefill_on_card_runs_k8_and_agrees_with_cpu(dev):
+    card, cpu = _lm_pair(dev)
+    toks = np.random.default_rng(6).integers(0, 512, (2, 150)).astype(np.int32)
+    before = k_flash.KERNEL.launches
+    got = card.prefill(toks)
+    torch.cuda.synchronize()
+    assert k_flash.KERNEL.launches == before + card.cfg.n_layers
+    want = cpu.prefill(toks)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-3
+    assert bool((got.argmax(-1).cpu() == want.argmax(-1)).all())
+
+
+def test_lm_server_on_card_agrees_with_cpu(dev):
+    models = _lm_pair(dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (5, 9, 3, 7)]
+    out = []
+    for model in models:
+        server = Server(model, max_batch=2, max_len=64)
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=p, max_tokens=6))
+        before = k_flash.KERNEL.launches
+        out.append({r.rid: r.out_tokens for r in server.run_until_drained()})
+        assert k_flash.KERNEL.launches == before   # decode attention is plain
+    assert out[0] == out[1]
