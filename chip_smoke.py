@@ -11,7 +11,10 @@ Phases, each fatal on failure:
      fp32), and bf16 matmuls with fp32 reductions only; print the card's
      name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-     one process per source, all at once.
+     one process per source, all at once, printing ptxas's registers and
+     spills (K8 must spill none); count HGMMA (wgmma) and UTMALDG (TMA
+     load) instructions in K8's library with cuobjdump, and fail if either
+     is 0.
   3. Each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with times: K1 (training forward), K2
      (streaming logits) and K5 (int8 streaming logits, int32 accumulators
@@ -72,10 +75,13 @@ Phase 3 also holds K8 (flash attention) against its plain version at the
 prefill's two shapes (B=4, H=9, KV=3, T=4096 and B=1, T=32768, D=64,
 causal, bf16) on transposed views of (B, T, H, D) buffers as the model
 passes them (and at T=4096 also contiguous), Minitron's head layout (B=1,
-H=32, KV=8, T=2048, D=128), a windowed and a ragged non-causal case, and
-two fp32 cases (causal, and windowed), each beside the time of
+H=32, KV=8, T=2048, D=128), a windowed and a ragged non-causal case, all
+on K8's bf16 route (wgmma on the tensor cores, K/V tiles by TMA), and two
+fp32 cases (causal, and windowed) on its SIMT route, each with its
+effective TFLOP/s beside the bound's and the time of
 torch.nn.functional.scaled_dot_product_attention on the same inputs (timed
-here only; the port never calls it).
+here only; the port never calls it).  K8's JSON record also names both
+routes.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
@@ -173,6 +179,12 @@ K8_DENSE_MAX_BYTES = 8 << 30   # larger dense f32 scores: blockwise plain
 # the same f32 arithmetic in another order, with the fast exponential.
 K8_TOL = {torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4),
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+# K8's two routes in csrc/flash_attention.cu, chosen by dtype
+K8_ROUTES = {torch.bfloat16: "wgmma tensor cores, K/V by TMA",
+             torch.float32: "SIMT fp32 FMAs"}
+# SASS instructions that phase 2 requires in K8's library: the tensor-core
+# products (wgmma) and the TMA tile loads of the bf16 route
+K8_SASS = ("HGMMA", "UTMALDG")
 # the LM main path: smollm-135m, prefill shapes (B, T) - the second is the
 # prefill_32k cell's sequence length - and launch/serve.py's defaults
 LM_ARCH = "smollm-135m"
@@ -1135,16 +1147,21 @@ def k8_records(dev) -> dict:
         t_ops = 4 * b * h * d * pairs / peak
         bnd = (max(t_bytes, t_ops) * 1e3,
                "bytes" if t_bytes >= t_ops else "operations")
+        flop = 4 * b * h * d * pairs
         print(f"  K8 {label} B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d} "
-              f"causal={causal} window={window}: kernel {ms:.4f} ms, plain "
-              f"{plain:.3f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-              f"bound {bnd[0]:.5f} ms ({bnd[1]}; {4 * b * h * d * pairs:.3e} "
-              f"flop)")
+              f"causal={causal} window={window}, {K8_ROUTES[dtype]}: kernel "
+              f"{ms:.4f} ms = {flop / ms / 1e9:.1f} TFLOP/s, plain "
+              f"{plain:.3f} ms, scaled_dot_product_attention {lib:.4f} ms = "
+              f"{flop / lib / 1e9:.1f} TFLOP/s, bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}; {flop:.3e} flop, {flop / bnd[0] / 1e9:.1f} "
+              f"TFLOP/s)")
         if rec is None:
             rec = record("K8 flash_attention",
                          "src/repro_torch/kernels/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:27", 0.0, ms,
                          plain, bnd, lib)
+            rec["routes"] = "; ".join(f"{str(t).split('.')[-1]}: {r}"
+                                      for t, r in K8_ROUTES.items())
         del q, k, v, bufs
     rec["max_abs_err"] = err_bf16
     return {rec["name"]: rec}
@@ -1350,6 +1367,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if "flash_attention" in logs:
+        spills = [line.strip() for line in logs["flash_attention"].splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in line]
+        check(not spills, f"K8 spills registers: {spills}")
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {op: sass.count(op) for op in K8_SASS}
+    print("  flash_attention SASS: " + ", ".join(
+        f"{op} {n}" for op, n in counts.items()))
+    check(all(counts.values()), f"K8's library lacks {counts}: the bf16 "
+                                f"route must run wgmma on TMA-loaded tiles")
 
     t0 = time.perf_counter()
     cfg, arrays, data = load_arab()
@@ -1388,8 +1419,9 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(card_line())
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in records.values()]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("routes",) if "routes" in r else ())}
+        for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

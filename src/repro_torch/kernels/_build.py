@@ -28,12 +28,13 @@ MAX_NODES = 32  # one warp per sample: lane n holds node n
 BACKENDS = ("cuda", "torch")
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and Path(cand).exists():
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build from source "
-                       "and need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels build from "
+                       f"source and need the CUDA toolkit")
 
 
 def _sources(name: str) -> List[Path]:
@@ -55,7 +56,7 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
     todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in todo:

@@ -3,14 +3,18 @@ window, GQA).
 
 The port of ``repro.kernels.flash_attention._flash_kernel``.  The kernel
 (``csrc/flash_attention.cu``) runs one block per (batch, head, query tile)
-with the KV loop inside the block, K/V tiles staged in shared memory and
-fp32 FMAs on the CUDA cores; key tiles above the causal diagonal or outside
-the window are skipped by their index.  It reads q, k and v through their
-strides, so the model's (B, T, H, D) activations enter as transposed views,
-and it writes the output into a (B, T, H, D) buffer returned as its
-(B, H, T, D) view: the model's transpose back is then contiguous.  The
-reference's tile sizes (``block_q``, ``block_k``) do not reach the kernel,
-which chooses its own.  Its plain version is ``kernels.ref.
+with the KV loop inside the block, and key tiles above the causal diagonal
+or outside the window skipped by their index.  bf16 inputs take the tensor
+cores: a producer warp loads Q once and K/V tiles into a ring of shared
+memory by TMA, and two consumer warpgroups run both products as ``wgmma``
+(P split into two bf16 halves so that it is not rounded once).  fp32 inputs
+take a SIMT kernel with fp32 FMAs on the CUDA cores.  Both read q, k and v
+through their strides, so the model's (B, T, H, D) activations enter as
+transposed views, and write the output into a (B, T, H, D) buffer returned
+as its (B, H, T, D) view: the model's transpose back is then contiguous.
+The TMA unit needs each operand's base address 16-byte aligned and its
+strides multiples of 16 bytes; a bf16 call that breaks this raises and
+never drops to the SIMT kernel.  Its plain version is ``kernels.ref.
 flash_attention_ref``; ``kernels.ops.flash_attention`` chooses between them
 by the tensors' device.
 """
@@ -30,7 +34,8 @@ KERNEL = CudaKernel(
     "flash_attention", "dfr_flash_attention",
     [_P] * 4 + [_L] * 12 + [_I] * 9 + [_F, _I, _P],
 )
-HEAD_DIMS = (32, 64, 128)   # one row's part is 32 or 64 floats a lane
+HEAD_DIMS = (32, 64, 128)   # the tiles' widths on both routes
+TMA_ALIGN = 16              # bytes: TMA base addresses and strides
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535         # heads and batch are the grid's y and z
 
@@ -63,7 +68,25 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> tuple:
         raise ValueError(f"K8 takes head_dim in {HEAD_DIMS}, got {d}")
     if max(b, h) > MAX_GRID_YZ:
         raise ValueError(f"K8 takes B, H <= {MAX_GRID_YZ}, got {b}, {h}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     return b, h, kv, tq, tk, d
+
+
+def _check_tma(name: str, t: Tensor) -> None:
+    """Raise unless the TMA unit can read ``t``: a 16-byte aligned base and
+    (B, H, T) strides that are multiples of 16 bytes (a dimension of extent
+    1 is never stepped, so its stride does not matter)."""
+    es = t.element_size()
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"{name}'s base address is not {TMA_ALIGN}-byte "
+                         f"aligned (K8's bf16 route loads it by TMA)")
+    for n, s in zip(t.shape[:3], t.stride()[:3]):
+        if n > 1 and (s * es) % TMA_ALIGN:
+            raise ValueError(f"{name}'s strides {tuple(t.stride())} are not "
+                             f"multiples of {TMA_ALIGN} bytes (K8's bf16 "
+                             f"route loads it by TMA)")
 
 
 def flash_attention_cuda(

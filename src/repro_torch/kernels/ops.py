@@ -370,14 +370,11 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-    block_q: int = 512,
-    block_k: int = 1024,
     backend: Optional[str] = None,
 ) -> Tensor:
     """Causal / sliding-window GQA attention (K8) in the reference's
     (B, H, T, D) layout, scaled by D^-1/2.  'cuda' launches K8, which
-    chooses its own tiles: ``block_q`` and ``block_k`` (the TPU kernel's
-    tiles) are accepted and ignored; 'torch' is the plain version
+    chooses its own tiles; 'torch' is the plain version
     ``ref.flash_attention_ref``."""
     be = resolve_backend(backend, q)
     fn = flash_attention_cuda if be == "cuda" else kref.flash_attention_ref

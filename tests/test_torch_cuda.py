@@ -565,6 +565,79 @@ def test_k8_rejects_what_it_does_not_take(dev):
         k_flash.flash_attention_cuda(q.mT, k.mT, v.mT)
 
 
+# The bf16 route's edges: a block holds 128 query rows in two warpgroups of
+# 64, and K/V arrive by TMA in tiles of 128 keys, zero-filled past Tk.
+K8_EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 300]
+
+
+def _k8_bf16_check(dev, b, h, kv, tq, tk, d, causal, window, seed):
+    q, k, v = _qkv_operands(dev, b, h, kv, tq, tk, d, torch.bfloat16, seed)
+    before = k_flash.KERNEL.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              backend="cuda")
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               backend="torch")
+    torch.cuda.synchronize()
+    assert k_flash.KERNEL.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K8_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tk", K8_EDGE_LENGTHS)
+@pytest.mark.parametrize("tq", K8_EDGE_LENGTHS)
+def test_k8_bf16_ragged_lengths(dev, tq, tk, causal):
+    """Tq and Tk on both sides of the warpgroup's 64 rows and the 128-key
+    tile; causal with Tq > Tk leaves the rows past Tk all their keys."""
+    _k8_bf16_check(dev, 2, 4, 2, tq, tk, 64, causal, 0, seed=tq * 1000 + tk)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_k8_bf16_head_dims_and_groups(dev, d, g):
+    """Every head_dim the route takes (one or two 64-column swizzle blocks,
+    or one of 32 in the 64-byte swizzle), with H / KV = 1, 3 and 4."""
+    _k8_bf16_check(dev, 2, 2 * g, 2, 300, 300, d, True, 0, seed=d + g)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 100, 200])
+def test_k8_bf16_window_edge_inside_a_key_tile(dev, causal, window):
+    """Windows whose edge falls inside a 128-key tile, so that a tile is
+    masked on its left for some rows and skipped for others."""
+    _k8_bf16_check(dev, 1, 6, 3, 517, 517, 64, causal, window, seed=window)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(256, 385, False),
+                                          (385, 385, True),
+                                          (130, 641, False)])
+def test_k8_bf16_last_key_tile_mostly_out_of_bounds(dev, tq, tk, causal):
+    """Tk one key past a tile (or one after 5 tiles): the last tile's other
+    127 keys are the TMA unit's zero fill and must score nothing."""
+    _k8_bf16_check(dev, 2, 9, 3, tq, tk, 64, causal, 0, seed=tk)
+
+
+def test_k8_bf16_rejects_what_tma_cannot_read(dev):
+    """A bf16 operand the TMA unit cannot address raises before any launch:
+    no fallback to the SIMT kernel."""
+    q, k, v = _qkv_operands(dev, 1, 4, 2, 64, 64, 64, torch.bfloat16, seed=7)
+    before = k_flash.KERNEL.launches
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)              # base 2 bytes off
+    with pytest.raises(ValueError, match="^q's base address"):
+        k_flash.flash_attention_cuda(shifted, k, v)
+    padded = torch.zeros(1, 2, 64, 65, dtype=torch.bfloat16,
+                         device=dev)[..., :64]    # rows 130 bytes apart
+    with pytest.raises(ValueError, match="^v's strides"):
+        k_flash.flash_attention_cuda(q, k, padded)
+    with pytest.raises(ValueError, match="head_dim"):
+        k_flash.flash_attention_cuda(q[..., :48].contiguous(),
+                                     k[..., :48].contiguous(),
+                                     v[..., :48].contiguous())
+    assert k_flash.KERNEL.launches == before
+
+
 def _lm_pair(dev):
     cfg = dataclasses.replace(get_reduced("smollm-135m"), dtype=torch.float32,
                               attn_impl="pallas")

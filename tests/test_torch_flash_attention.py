@@ -11,6 +11,9 @@
 * ``blockwise_attention``, ``flash_attention`` (the model's flash route,
   blockwise on the CPU), ``decode_attention`` and ``KVCache`` against the
   reference's at 1e-5 in fp32.
+* The rule by which K8's bf16 route accepts an operand (the TMA unit's 16-
+  byte alignment of the base and of every stride that is stepped), which
+  the wrapper checks before any launch.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import torch
 from repro.kernels import ref as rref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import attention as ratt
+from repro_torch.kernels import flash_attention as pflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 from repro_torch.models import attention as patt
@@ -160,3 +164,30 @@ def test_kv_cache_append_matches_reference():
     pc = pc.append(torch.from_numpy(chunk), torch.from_numpy(-chunk))
     for got, want in ((pc.k, rc.k), (pc.v, rc.v), (pc.length, rc.length)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd", "b1_odd_stride"])
+def test_tma_operand_rule_accepts_the_model_layouts(layout):
+    """Contiguous (B, H, T, D) tensors, the model's transposed (B, T, H, D)
+    views, and a batch of 1 whose batch stride is never stepped."""
+    if layout == "bhtd":
+        t = torch.zeros(2, 9, 70, 64, dtype=torch.bfloat16)
+    elif layout == "bthd":
+        t = torch.zeros(2, 70, 9, 64, dtype=torch.bfloat16).transpose(1, 2)
+    else:
+        t = torch.zeros(1, 3, 70, 64, dtype=torch.bfloat16).as_strided(
+            (1, 3, 70, 64), (1, 70 * 64, 64, 1))
+    pflash._check_tma("q", t)
+
+
+def test_tma_operand_rule_rejects_what_tma_cannot_read():
+    flat = torch.zeros(2 * 9 * 70 * 64 + 8, dtype=torch.bfloat16)
+    base = flat[(-flat.data_ptr() // 2) % 8:]      # a 16-byte aligned start
+    pflash._check_tma("k", base[:2 * 9 * 70 * 64].view(2, 9, 70, 64))
+    with pytest.raises(ValueError, match="^k's base address"):
+        pflash._check_tma("k", base[1:1 + 2 * 9 * 70 * 64].view(2, 9, 70, 64))
+    rows = torch.zeros(2, 9, 70, 72, dtype=torch.bfloat16)[..., :64]
+    pflash._check_tma("v", rows)                   # rows 144 bytes apart
+    with pytest.raises(ValueError, match="^v's strides"):
+        pflash._check_tma("v", torch.zeros(2, 9, 70, 68,
+                                           dtype=torch.bfloat16)[..., :64])
