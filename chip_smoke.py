@@ -12,9 +12,9 @@ Phases, each fatal on failure:
      name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, printing ptxas's registers and
-     spills (K8 must spill none); count HGMMA (wgmma) and UTMALDG (TMA
-     load) instructions in K8's library with cuobjdump, and fail if either
-     is 0.
+     spills (K8, K4a and K4b must spill none); count HGMMA (wgmma) and
+     UTMALDG (TMA load) instructions in K8's library with cuobjdump, and
+     fail if either is 0.
   3. Each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with times: K1 (training forward), K2
      (streaming logits) and K5 (int8 streaming logits, int32 accumulators
@@ -23,11 +23,14 @@ Phases, each fatal on failure:
      factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
      one guard-skipped rotation; K6 (reservoir states) and K7 (DPRR) on the
      ARAB training split, a chunk of 256 samples and all 6600; K4a (tile
-     Cholesky) on the blocked solve's diagonal tiles and K4b (tile
-     triangular solves) on its 896-row panel and its Ny-row solves, at
-     s=931 with tiles of 128; the blocked ridge solve at s=931 against the
-     unblocked library solve over the beta sweep, with tiles of 128 and
-     256.
+     Cholesky) on the blocked solve's diagonal tiles (at s=931 with tiles
+     of 128), timed on one tile of 128 and one of 256 beside
+     torch.linalg.cholesky_ex; K4b (tile triangular solves) on every solve
+     of that blocked solve, timed on its 896-row panel and its 16-row
+     (Ny padded to 8) right-hand side, each forward and backward, beside
+     torch.linalg.solve_triangular; the blocked ridge solve at s=931
+     against the unblocked library solve over the beta sweep, with tiles
+     of 128 and 256.
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
@@ -67,10 +70,10 @@ Phases, each fatal on failure:
      since decode attention is plain in both packages.  One wave of 8 short
      requests under torch.profiler: the device's busy share of the decode
      steps, their launches a step, the top kernels and host ops.
-  9. Card against CPU for the LM at full width in fp32: a prefill of B=2,
-     T=256 (|dlogits| <= 1e-3 max |logits|, argmax equal) and the Server on
-     4 requests (greedy tokens equal on >= 0.98 of them); the same figures
-     in bf16, printed without a check.
+  9. Card against CPU for the LM at full width: a prefill of B=2, T=256
+     (|dlogits| <= 1e-3 max |logits| in fp32, 2e-2 in bf16, argmax equal
+     in both) and the Server on 4 requests (greedy tokens equal on >= 0.98
+     of them in fp32; printed without a check in bf16).
 Phase 3 also holds K8 (flash attention) against its plain version at the
 prefill's two shapes (B=4, H=9, KV=3, T=4096 and B=1, T=32768, D=64,
 causal, bf16) on transposed views of (B, T, H, D) buffers as the model
@@ -192,6 +195,9 @@ PREFILL_SHAPES = ((4, 4096), (1, 32768))
 SERVE = dict(requests=16, prompt_len=32, max_tokens=16, max_batch=8,
              max_len=256)
 LM_REL = 1e-3        # card vs CPU prefill logits in fp32, of max |logits|
+# card vs CPU prefill logits in bf16, of max |logits|: the limit the CPU
+# tests hold the bf16 port to against the reference (tests/test_torch_lm.py)
+LM_BF16_REL = 2e-2
 LM_AGREE = 0.98      # card vs CPU greedy tokens in fp32
 
 KERNELS = {"K1 train_forward": k_train.KERNEL,
@@ -317,11 +323,11 @@ def kernel_phase(dev) -> dict:
     nr = nx * (nx + 1)
 
     def k2(backend):
-        return ops.streaming_logits_slots(j, lens, p, q, Wr, b, f,
+        return ops.streaming_logits_slots(j, lens, p, q, Wr, b, nx, f=f,
                                           backend=backend)
 
     def k1(backend):
-        return ops.train_forward(j, lens, p, q, f, backend=backend)
+        return ops.train_forward(j, lens, p, q, nx, f=f, backend=backend)
 
     records = []
     for name, fn, src, replaces, extra_bytes, extra_flops in (
@@ -376,8 +382,8 @@ def k5_record(j, lens, p, q, b, f, lengths) -> dict:
 
     def k5(backend, acc=False):
         return ops.streaming_logits_slots_q8(
-            j, lens, p, q, Wq, w_scale, x_scale, b, f, backend=backend,
-            return_acc=acc)
+            j, lens, p, q, Wq, w_scale, x_scale, b, nx, f=f,
+            backend=backend, return_acc=acc)
 
     (got, got_acc), (want, want_acc) = k5("cuda", True), k5("torch", True)
     torch.cuda.synchronize()
@@ -567,17 +573,29 @@ def training_kernel_records(model: DFRModel, train) -> dict:
     e4a = check_rel(f"K4a on the blocked solve's {diag.shape[0]} diagonal "
                     f"tiles",
                     got, want, K4A_REL)
-    tile = diag[:1].contiguous()
-    ms4a = device_ms(lambda: k_cholesky.chol_tile_cuda(tile))
-    plain4a = wall_ms(lambda: ref.chol_tile_ref(tile), reps=3)
-    lib4a = device_ms(lambda: torch.linalg.cholesky_ex(tile))
-    b4a = bound_ms(2 * TILE * TILE * 4, TILE ** 3 // 3)
-    print(f"  K4a one {TILE}x{TILE} tile: kernel {ms4a:.4f} ms, plain "
-          f"{plain4a:.3f} ms, torch.linalg.cholesky_ex {lib4a:.4f} ms, bound "
-          f"{b4a[0]:.6f} ms ({b4a[1]})")
-    records["K4a chol_tile"] = record(
-        "K4a chol_tile", "src/repro_torch/kernels/csrc/cholesky.cu",
-        "src/repro/kernels/cholesky.py:37", e4a, ms4a, plain4a, b4a, lib4a)
+    print(f"  K4a equal to its plain version bit for bit: "
+          f"{bool(torch.equal(got, want))}")
+    # one tile at the blocked solve's 128 and at ops' default of 256: the
+    # leading diagonal tile of the regularized system
+    Breg = ridge.regularize(B, 1e-2)
+    for bs in (TILE, 2 * TILE):
+        tile = Breg[None, :bs, :bs].contiguous()
+        got = k_cholesky.chol_tile_cuda(tile)
+        want = ref.chol_tile_ref(tile)
+        torch.cuda.synchronize()
+        err = check_rel(f"K4a one {bs}x{bs} tile", got, want, K4A_REL)
+        ms = device_ms(lambda: k_cholesky.chol_tile_cuda(tile))
+        plain = wall_ms(lambda: ref.chol_tile_ref(tile), reps=3)
+        lib = device_ms(lambda: torch.linalg.cholesky_ex(tile))
+        bnd = bound_ms(2 * bs * bs * 4, bs ** 3 // 3)
+        print(f"  K4a one {bs}x{bs} tile: kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, torch.linalg.cholesky_ex {lib:.4f} ms, "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+        if bs == TILE:
+            records["K4a chol_tile"] = record(
+                "K4a chol_tile", "src/repro_torch/kernels/csrc/cholesky.cu",
+                "src/repro/kernels/cholesky.py:37", max(e4a, err), ms, plain,
+                bnd, lib)
 
     e4b = 0.0
     timed = {}
@@ -595,28 +613,32 @@ def training_kernel_records(model: DFRModel, train) -> dict:
     print(f"  K4b: {sum(len(tiles[k]) for k in tiles if 'trsm' in k)} "
           f"solves of the blocked solve within {K4B_REL} of the plain "
           f"version (max abs err {e4b:.3e})")
+    # the factorization's largest panel (m = 896) and the substitutions'
+    # right-hand side (Ny padded to 8: m = 16), each in both directions
+    # (the panel's operands also solved backward)
     panel = max(m for _, m in timed)
-    rows = min(m for _, m in timed)   # Ny padded to 8
-    for (key, m), (rhs, L) in sorted(timed.items(), key=lambda kv: -kv[0][1]):
-        if m not in (panel, rows):
-            continue
-        back = key == "trsm_lower_batched"
-        rhs, L = rhs.contiguous(), L.contiguous()
-        ms = device_ms(lambda: k_cholesky.trsm_tile_cuda(rhs, L, back))
-        plain_fn = ref.trsm_lower_ref if back else ref.trsm_lower_t_ref
-        plain = wall_ms(lambda: plain_fn(rhs, L), reps=3)
-        # X L = D is solve_triangular(L, left=False); X L^T = A with L^T
-        lib = device_ms(lambda: torch.linalg.solve_triangular(
-            L if back else L.mT, rhs, upper=not back, left=False))
-        bnd = bound_ms((2 * m * TILE + TILE * TILE) * 4, m * TILE * TILE)
-        print(f"  K4b {key} m={m} bs={TILE}: kernel {ms:.4f} ms, plain "
-              f"{plain:.3f} ms, solve_triangular {lib:.4f} ms, bound "
-              f"{bnd[0]:.6f} ms ({bnd[1]})")
-        if "K4b trsm_tile" not in records:   # the largest: the panel
-            records["K4b trsm_tile"] = record(
-                "K4b trsm_tile", "src/repro_torch/kernels/csrc/cholesky.cu",
-                "src/repro/kernels/cholesky.py:101", e4b, ms, plain, bnd,
-                lib)
+    rows = min(m for _, m in timed)
+    for m in (panel, rows):
+        key = next(k for k, mm in timed if mm == m)
+        rhs, L = (t.contiguous() for t in timed[(key, m)])
+        for back in (False, True):
+            ms = device_ms(lambda: k_cholesky.trsm_tile_cuda(rhs, L, back))
+            plain_fn = ref.trsm_lower_ref if back else ref.trsm_lower_t_ref
+            plain = wall_ms(lambda: plain_fn(rhs, L), reps=3)
+            # X L = D is solve_triangular(L, left=False); X L^T = A with L^T
+            lib = device_ms(lambda: torch.linalg.solve_triangular(
+                L if back else L.mT, rhs, upper=not back, left=False))
+            bnd = bound_ms((2 * m * TILE + TILE * TILE) * 4, m * TILE * TILE)
+            print(f"  K4b {'backward' if back else 'forward'} m={m} "
+                  f"bs={TILE}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+                  f"solve_triangular {lib:.4f} ms, bound {bnd[0]:.6f} ms "
+                  f"({bnd[1]})")
+            if "K4b trsm_tile" not in records:   # the forward panel
+                records["K4b trsm_tile"] = record(
+                    "K4b trsm_tile",
+                    "src/repro_torch/kernels/csrc/cholesky.cu",
+                    "src/repro/kernels/cholesky.py:101", e4b, ms, plain,
+                    bnd, lib)
     ridge_solve_check(A, B, cfg.betas)
     return records
 
@@ -1315,8 +1337,8 @@ def lm_phase(card: str) -> dict:
 
 def lm_agreement_phase() -> None:
     """The LM at full width on the card and on the CPU, same parameters: a
-    prefill of B=2, T=256 and the Server on 4 requests; checked in fp32,
-    printed in bf16."""
+    prefill of B=2, T=256, checked in fp32 and bf16, and the Server on 4
+    requests, checked in fp32 and printed in bf16."""
     for dtype in (torch.float32, torch.bfloat16):
         models = {d: lm_model(dtype, d) for d in ("cuda", "cpu")}
         toks = {"tokens": lm_tokens(2, 256, models["cpu"].cfg.vocab, seed=1)}
@@ -1332,13 +1354,15 @@ def lm_agreement_phase() -> None:
                  for a, b in zip(tokens["cuda"][rid].out_tokens,
                                  tokens["cpu"][rid].out_tokens)]
         agree = sum(a == b for a, b in pairs) / len(pairs)
+        fp32 = dtype == torch.float32
+        limit = LM_REL if fp32 else LM_BF16_REL
         print(f"  {dtype}: prefill B=2 T=256 max |dlogits| / max |logits| "
-              f"{rel:.3e}, argmax equal {same}; Server 4 requests: "
-              f"{agree:.4f} of {len(pairs)} greedy tokens equal"
-              + ("" if dtype == torch.float32 else " (printed, not checked)"))
-        if dtype == torch.float32:
-            check(rel <= LM_REL and same, f"card vs CPU prefill: {rel}, "
-                                          f"argmax equal {same}")
+              f"{rel:.3e} (limit {limit}), argmax equal {same}; Server 4 "
+              f"requests: {agree:.4f} of {len(pairs)} greedy tokens equal"
+              + ("" if fp32 else " (tokens printed, not checked)"))
+        check(rel <= limit and same, f"card vs CPU prefill in {dtype}: "
+                                     f"{rel}, argmax equal {same}")
+        if fp32:
             check(agree >= LM_AGREE, f"card vs CPU tokens agree on {agree}")
         del models
 
@@ -1367,11 +1391,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    if "flash_attention" in logs:
-        spills = [line.strip() for line in logs["flash_attention"].splitlines()
+    for lib, kernels in (("flash_attention", "K8"), ("cholesky", "K4a/K4b")):
+        spills = [line.strip() for line in logs.get(lib, "").splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in line]
-        check(not spills, f"K8 spills registers: {spills}")
+        check(not spills, f"{kernels} spill registers: {spills}")
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass",
          str(_build.library_path("flash_attention"))],

@@ -230,7 +230,7 @@ class _FusedFeatures(torch.autograd.Function):
         from repro_torch.kernels import ops as kops
 
         r, x_last, x_prev, j_last = kops.train_forward(
-            j_seq, lengths, p, q, f, backend=backend)
+            j_seq, lengths, p, q, j_seq.shape[-1], f=f, backend=backend)
         ctx.f = f
         ctx.save_for_backward(q, x_last, x_prev, j_last)
         ctx.mark_non_differentiable(x_last, x_prev, j_last)

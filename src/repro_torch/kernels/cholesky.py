@@ -4,9 +4,11 @@ The port of ``repro.kernels.cholesky``: ``_chol_tile`` (K4a) and
 ``_trsm_lower_t_tile`` / ``_trsm_lower_tile`` (K4b), the tiles that
 ``kernels.ridge_solve`` composes into the blocked factorization and the two
 block substitutions.  Both kernels live in ``csrc/cholesky.cu``: K4a runs
-one thread block per tile, K4b a grid over (row blocks, K) with one thread
-per right-hand-side row.  Their plain versions are ``kernels.ref.
-chol_tile_ref``, ``trsm_lower_t_ref`` and ``trsm_lower_ref``.
+one thread block per tile, blocked in panels of 32 columns with the same
+rounded operations in the same order as its plain version; K4b a grid over
+(row blocks, K) with one warp per right-hand-side row.  Their plain
+versions are ``kernels.ref.chol_tile_ref``, ``trsm_lower_t_ref`` and
+``trsm_lower_ref``.
 
 The public tile functions keep the reference's names and shapes, single
 tile and ``_batched`` over a leading K axis, and choose the kernel or the
@@ -28,7 +30,7 @@ from repro_torch.kernels._build import (CudaKernel, check_operand,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-MAX_TILE = 1024  # csrc/cholesky.cu: K4b's 32 rows of the tile in 200 KB
+MAX_TILE = 1024  # csrc/cholesky.cu: K4b's lane holds at most 32 columns
 
 CHOL_KERNEL = CudaKernel("cholesky", "dfr_chol_tile", [_P, _P, _I, _I, _I, _P])
 TRSM_KERNEL = CudaKernel(

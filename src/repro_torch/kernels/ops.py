@@ -13,7 +13,10 @@ own the flattening to the kernels' (N, T, Nx) operands.  The reference's
 TPU padding (``n_pad``, ``ny_pad``, the mirrored ring lane) and its tiling
 knobs (``block_b``, ``chunk_t``, ``block_t``, and flash attention's
 ``block_q``, ``block_k``) have no counterpart here: the kernels work on the
-true Nx and Ny and choose their own tiles.  ``block`` stays on the ridge solve and
+true Nx and Ny and choose their own tiles.  The wrappers keep the
+reference's order, ``(..., n_nodes, *, f, chunk_t, backend)``, take
+``chunk_t`` only so that a reference-style call runs, and check
+``n_nodes`` against the node axis.  ``block`` stays on the ridge solve and
 the Cholesky: it is the tile size of K4a and K4b.
 """
 from __future__ import annotations
@@ -155,16 +158,21 @@ def train_forward(
     lengths: Optional[Tensor],     # (*P, B) int, or None = full length
     p: Tensor,                     # (*P) per-system gains
     q: Tensor,                     # (*P)
-    f: Nonlinearity = Nonlinearity(),
+    n_nodes: int,
     *,
+    f: Nonlinearity = Nonlinearity(),
+    chunk_t: Optional[int] = None,
     backend: Optional[str] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Fused training forward: ``(r, x_last, x_prev, j_last)`` shaped
     (*P, B, Nr) and (*P, B, Nx) x3, with X never materialized (K1).
     ``p``/``q`` carry one value per system of the leading dims *P, so one
-    call (one launch) covers every slot of a server step."""
+    call (one launch) covers every slot of a server step.  ``chunk_t`` is
+    the reference's time tiling, taken for its call signature and unused
+    (the kernel chooses its own tiles)."""
     be = resolve_backend(backend, j_seq)
     *lead, b, t_len, nx = j_seq.shape
+    _check_nodes(nx, n_nodes)
     n_sys = int(torch.Size(lead).numel())
     if lengths is None:
         lengths = torch.full((*lead, b), t_len, dtype=torch.int32,
@@ -189,14 +197,18 @@ def streaming_logits_slots(
     q: Tensor,         # (S,)
     W: Tensor,         # (S, Ny, Nr) per-slot readout weights
     b: Tensor,         # (S, Ny)
-    f: Nonlinearity = Nonlinearity(),
+    n_nodes: int,
     *,
+    f: Nonlinearity = Nonlinearity(),
+    chunk_t: Optional[int] = None,
     backend: Optional[str] = None,
 ) -> Tensor:
     """Readout logits (S, B, Ny) of every slot in one kernel launch (K2):
-    the stream server's infer-before-update."""
+    the stream server's infer-before-update.  ``chunk_t`` is the
+    reference's time tiling, taken for its call signature and unused."""
     be = resolve_backend(backend, j_seq)
     n_sys, bsz, t_len, nx = j_seq.shape
+    _check_nodes(nx, n_nodes)
     ny = W.shape[-2]
     args = (_flat(j_seq, (n_sys * bsz, t_len, nx), torch.float32),
             _flat(lengths, (n_sys * bsz,), torch.int32),
@@ -215,14 +227,17 @@ def streaming_logits(
     q: Tensor,         # scalar
     W: Tensor,         # (Ny, Nr)
     b: Tensor,         # (Ny,)
-    f: Nonlinearity = Nonlinearity(),
+    n_nodes: int,
     *,
+    f: Nonlinearity = Nonlinearity(),
+    chunk_t: Optional[int] = None,
     backend: Optional[str] = None,
 ) -> Tensor:
     """Readout logits (B, Ny) of one system in one kernel launch (K2)."""
     return streaming_logits_slots(
         j_seq[None], lengths[None], torch.as_tensor(p)[None],
-        torch.as_tensor(q)[None], W[None], b[None], f, backend=backend,
+        torch.as_tensor(q)[None], W[None], b[None], n_nodes, f=f,
+        backend=backend,
     )[0]
 
 
@@ -235,8 +250,10 @@ def streaming_logits_slots_q8(
     w_scale: Tensor,   # (S,) f32 readout scale (0 = unarmed)
     x_scale: Tensor,   # (S,) f32 reservoir-state scale (0 = unarmed)
     b: Tensor,         # (S, Ny) fp readout bias (stays fp)
-    f: Nonlinearity = Nonlinearity(),
+    n_nodes: int,
     *,
+    f: Nonlinearity = Nonlinearity(),
+    chunk_t: Optional[int] = None,
     backend: Optional[str] = None,
     return_acc: bool = False,
 ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
@@ -248,10 +265,12 @@ def streaming_logits_slots_q8(
     in fp32 (``core.reservoir``), ring codes with sL = max|L| / 127, and the
     unarmed scales (0) replaced by 1.0 so the program stays NaN-free (the
     caller discards unarmed slots' logits).  ``return_acc`` also returns the
-    int32 DPRR code accumulators (S, B, Nx, Nx+1).
+    int32 DPRR code accumulators (S, B, Nx, Nx+1).  ``chunk_t`` is the
+    reference's time tiling, taken for its call signature and unused.
     """
     be = resolve_backend(backend, j_seq)
     n_sys, bsz, t_len, nx = j_seq.shape
+    _check_nodes(nx, n_nodes)
     args = streaming_q8_operands(j_seq, lengths, p, q, Wq, w_scale, x_scale,
                                  b, f)
     if be == "cuda":
@@ -299,8 +318,10 @@ def streaming_logits_q8(
     w_scale: Tensor,   # scalar
     x_scale: Tensor,   # scalar
     b: Tensor,         # (Ny,)
-    f: Nonlinearity = Nonlinearity(),
+    n_nodes: int,
     *,
+    f: Nonlinearity = Nonlinearity(),
+    chunk_t: Optional[int] = None,
     backend: Optional[str] = None,
 ) -> Tensor:
     """Int8 readout logits (B, Ny) of one system in one kernel launch (K5)."""
@@ -309,7 +330,7 @@ def streaming_logits_q8(
 
     return streaming_logits_slots_q8(
         j_seq[None], lengths[None], one(p), one(q), Wq[None], one(w_scale),
-        one(x_scale), b[None], f, backend=backend,
+        one(x_scale), b[None], n_nodes, f=f, backend=backend,
     )[0]
 
 

@@ -139,14 +139,14 @@ def _step_core(
     if fused_infer:
         logits = ops.streaming_logits_slots(
             j_seq, length, states.params.p, states.params.q,
-            states.params.W, states.params.b, f,
+            states.params.W, states.params.b, cfg.n_nodes, f=f,
         )
     armed = None
     if quantize == "int8":
         qt = states.quant
         q_logits = ops.streaming_logits_slots_q8(
             j_seq, length, states.params.p, states.params.q, qt.Wq,
-            qt.w_scale, qt.x_scale, states.params.b, f,
+            qt.w_scale, qt.x_scale, states.params.b, cfg.n_nodes, f=f,
         )
         armed = qt.w_scale > 0
         logits = torch.where(armed[:, None, None], q_logits.to(logits.dtype),

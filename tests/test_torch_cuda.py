@@ -18,11 +18,13 @@ Tolerances:
     order, each divided by c and d.
   * K6 and K7: rtol 1e-4 / atol 1e-4, as K1 (the ring matvec and the DPRR
     sums in another order);
-  * K4a: max |dL| <= 1e-5 x max |L| - the same column loop with the same
-    rounded operations (no FMA) as its plain version;
-  * K4b: max |dX| <= 1e-4 x max |X| on well-conditioned factors - each dot
-    product is taken in another order, and each column's error feeds the
-    next;
+  * K4a: max |dL| <= 1e-5 x max |L| - the same column updates in the same
+    order with the same rounded operations (no FMA) as its plain version,
+    so on its packed route (bs <= 256) it is also equal bit for bit;
+  * K4b: max |dX| <= 1e-4 x max |X| on well-conditioned factors - each
+    row's sums run right-looking (in another order than the plain version's
+    dot products), with FMA and a reciprocal multiply, and each column's
+    error feeds the next;
   * the blocked ridge solve at s = 931: max |dW| <= 1e-3 max |W| against the
     unblocked library solve at a well-conditioned beta;
   * K8 in fp32: rtol 1e-4 / atol 1e-4 (the same f32 scores, softmax and
@@ -99,8 +101,8 @@ SHAPES = [(1, 3, 7, 1, 2), (3, 4, 20, 5, 3), (2, 8, 93, 30, 10),
 def test_k1_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
     j, lens, p, q, _, _ = _operands(dev, n_sys, b, t, nx, ny, seed=nx + t)
     f = Nonlinearity(f_name, 0.8)
-    got = ops.train_forward(j, lens, p, q, f, backend="cuda")
-    want = ops.train_forward(j, lens, p, q, f, backend="torch")
+    got = ops.train_forward(j, lens, p, q, nx, f=f, backend="cuda")
+    want = ops.train_forward(j, lens, p, q, nx, f=f, backend="torch")
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("r", "x_last", "x_prev", "j_last")):
         torch.testing.assert_close(g, w, msg=name, **TOL)
@@ -111,9 +113,9 @@ def test_k1_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
 def test_k2_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
     j, lens, p, q, W, bias = _operands(dev, n_sys, b, t, nx, ny, seed=t)
     f = Nonlinearity(f_name, 0.8)
-    got = ops.streaming_logits_slots(j, lens, p, q, W, bias, f,
+    got = ops.streaming_logits_slots(j, lens, p, q, W, bias, nx, f=f,
                                      backend="cuda")
-    want = ops.streaming_logits_slots(j, lens, p, q, W, bias, f,
+    want = ops.streaming_logits_slots(j, lens, p, q, W, bias, nx, f=f,
                                       backend="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
@@ -122,9 +124,9 @@ def test_k2_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
 def test_launch_counts_and_default_dispatch(dev):
     j, lens, p, q, W, bias = _operands(dev, 2, 3, 9, 6, 3, seed=0)
     k1, k2 = k_train.KERNEL.launches, k_streaming.KERNEL.launches
-    ops.train_forward(j, lens, p, q)                  # backend from device
-    ops.streaming_logits_slots(j, lens, p, q, W, bias)
-    ops.train_forward(j, lens, p, q, backend="torch")  # the plain version
+    ops.train_forward(j, lens, p, q, 6)               # backend from device
+    ops.streaming_logits_slots(j, lens, p, q, W, bias, 6)
+    ops.train_forward(j, lens, p, q, 6, backend="torch")  # the plain version
     assert k_train.KERNEL.launches == k1 + 1
     assert k_streaming.KERNEL.launches == k2 + 1
 
@@ -132,7 +134,7 @@ def test_launch_counts_and_default_dispatch(dev):
 def test_kernels_reject_what_they_do_not_take(dev):
     j, lens, p, q, W, bias = _operands(dev, 1, 2, 5, 33, 2, seed=1)
     with pytest.raises(ValueError, match="Nx"):
-        ops.train_forward(j, lens, p, q)
+        ops.train_forward(j, lens, p, q, 33)
     j, lens, p, q, W, bias = _operands(dev, 1, 2, 5, 4, 2, seed=1)
     with pytest.raises(ValueError, match="device|on"):
         k_train.train_forward_cuda(j[0], lens[0], p.cpu(), q)
@@ -191,10 +193,10 @@ def _q8_operands(dev, n_sys, b, t, nx, ny, seed):
 def test_k5_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
     args = _q8_operands(dev, n_sys, b, t, nx, ny, seed=2 * t + nx)
     f = Nonlinearity(f_name, 0.8)
-    got, got_acc = ops.streaming_logits_slots_q8(*args, f, backend="cuda",
-                                                 return_acc=True)
-    want, want_acc = ops.streaming_logits_slots_q8(*args, f, backend="torch",
-                                                   return_acc=True)
+    got, got_acc = ops.streaming_logits_slots_q8(
+        *args, nx, f=f, backend="cuda", return_acc=True)
+    want, want_acc = ops.streaming_logits_slots_q8(
+        *args, nx, f=f, backend="torch", return_acc=True)
     torch.cuda.synchronize()
     if f_name == "linear":
         assert torch.equal(got_acc, want_acc)
@@ -240,7 +242,7 @@ def test_k5_k3_launch_counts_and_rejections(dev):
     args = _q8_operands(dev, 2, 3, 9, 6, 3, seed=0)
     Lt, X = _k3_operands(dev, 2, 3, 10, seed=0)
     k5, k3 = k_streaming_q8.KERNEL.launches, k_cholupdate.KERNEL.launches
-    ops.streaming_logits_slots_q8(*args)                 # backend from device
+    ops.streaming_logits_slots_q8(*args, 6)              # backend from device
     ops.cholupdate_window_t(Lt, X)
     ops.cholupdate_window_t(Lt, X, backend="torch")      # the plain version
     assert k_streaming_q8.KERNEL.launches == k5 + 1
@@ -361,6 +363,77 @@ def test_k4b_kernels_match_plain(dev, k, m, bs):
         got = fn(rhs, L, backend="cuda")
         want = fn(rhs, L, backend="torch")
         torch.cuda.synchronize()
+        assert _rel(got, want) <= K4B_REL, fn.__name__
+
+
+# K4a's two routes: bs <= 256 runs the blocked kernel on the packed tile in
+# shared memory (ragged bs pads to a multiple of 32), bs > 256 the column
+# loop on the tile in device memory
+K4A_SIZES = [1, 17, 31, 32, 33, 100, 128, 129, 200, 256, 300, 1024]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("bs", K4A_SIZES)
+def test_k4a_tile_sizes_match_plain(dev, k, bs):
+    a = _spd_tiles(dev, k, bs, seed=bs + k)
+    got = k_cholesky.chol_block_batched(a, backend="cuda")
+    want = k_cholesky.chol_block_batched(a, backend="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool((torch.triu(got, 1) == 0).all())
+    assert _rel(got, want) <= K4A_REL
+
+
+@pytest.mark.parametrize("k,bs", [(1, 128), (3, 128), (1, 256), (2, 100)])
+def test_k4a_equals_plain_bit_for_bit(dev, k, bs):
+    """The blocked kernel applies each element's column updates in the
+    plain version's order with the same rounded operations."""
+    a = _spd_tiles(dev, k, bs, seed=7 * bs + k)
+    got = k_cholesky.chol_block_batched(a, backend="cuda")
+    want = k_cholesky.chol_block_batched(a, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bs,bad", [(17, 3), (128, 70), (256, 200),
+                                    (300, 150)])
+def test_k4a_non_spd_tile_nan_where_plain(dev, bs, bad):
+    """A pivot that goes negative in a later panel (packed route) or past
+    bs = 256 (device-memory route): NaN exactly where the plain version has
+    it, and the other tile untouched."""
+    a = _spd_tiles(dev, 2, bs, seed=bs)
+    a[1, bad, bad] = -a[1, bad, bad]
+    got = k_cholesky.chol_block_batched(a, backend="cuda")
+    want = k_cholesky.chol_block_batched(a, backend="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool(torch.isnan(got[1]).any())
+    assert bool((torch.isnan(got) == torch.isnan(want)).all())
+    assert bool(torch.isfinite(got[1, :bad, :bad]).all())
+
+
+@pytest.mark.parametrize("bs", [32, 100, 128, 256])
+@pytest.mark.parametrize("m", [1, 16, 31, 33, 896, 1000])
+def test_k4b_rows_and_tiles_match_plain(dev, m, bs):
+    _check_k4b(dev, 2, m, bs)
+
+
+@pytest.mark.parametrize("m,bs", [(40, 300), (33, 700), (16, 1024)])
+def test_k4b_large_tiles_match_plain(dev, m, bs):
+    """Double-buffered panels of L up to bs = 512, one buffer above."""
+    _check_k4b(dev, 1, m, bs)
+
+
+def _check_k4b(dev, k, m, bs):
+    L = torch.linalg.cholesky(_spd_tiles(dev, k, bs, seed=m + bs))
+    g = torch.Generator().manual_seed(m * bs)
+    rhs = torch.randn(k, m, bs, generator=g).to(dev)
+    for fn in (k_cholesky.trsm_lower_t_batched,
+               k_cholesky.trsm_lower_batched):
+        got = fn(rhs, L, backend="cuda")
+        want = fn(rhs, L, backend="torch")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), fn.__name__
         assert _rel(got, want) <= K4B_REL, fn.__name__
 
 

@@ -1,4 +1,6 @@
-"""The port's kernel wrappers (K1, K2) against the JAX package's kernels.
+"""The port's kernel wrappers (K1, K2) against the JAX package's kernels,
+and the five serving and training wrappers called as the reference calls
+them (``n_nodes`` positional).
 
 On the CPU the wrappers run their plain PyTorch versions (``kernels.ref``),
 so these tests hold the plain versions, on the port's logical shapes,
@@ -13,6 +15,8 @@ at a time), so values agree to fp32 rounding of sums over up to T terms:
 rtol 1e-4 / atol 1e-4, the bound the reference's own interpret-vs-XLA test
 uses (tests/test_kernels.py).
 """
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -71,7 +75,7 @@ def test_streaming_plain_matches_reference(b, t, nx, ny, chunk, f_name, q,
     want_xla = rops.streaming_logits(*args, f=f_ref, backend="xla")
     got = ops.streaming_logits(
         _t(j), _t(lens), torch.tensor(p), torch.tensor(q), _t(W), _t(bias),
-        Nonlinearity(f_name), backend="torch")
+        nx, f=Nonlinearity(f_name), backend="torch")
     np.testing.assert_allclose(got.numpy(), np.asarray(want_interp), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_xla), **TOL)
 
@@ -90,7 +94,8 @@ def test_streaming_slots_per_slot_params_match_reference():
                                               backend="interpret")
     want_xla = rops.streaming_logits_slots(*args, nx, f=f_ref, backend="xla")
     got = ops.streaming_logits_slots(
-        *(_t(a) for a in (j, lens, p, q, W, bias)), Nonlinearity("tanh"))
+        *(_t(a) for a in (j, lens, p, q, W, bias)), nx,
+        f=Nonlinearity("tanh"))
     assert got.shape == (n_sys, b, ny)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_interp), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_xla), **TOL)
@@ -120,7 +125,7 @@ def test_train_forward_plain_matches_reference_kernel(b, t, nx, f_name, q,
         nx, f=cached_nonlinearity(f_name, 1.0), backend="interpret",
         chunk_t=8, block_b=2)
     got = ops.train_forward(_t(j), _t(lens), torch.tensor(p),
-                            torch.tensor(q), Nonlinearity(f_name))
+                            torch.tensor(q), nx, f=Nonlinearity(f_name))
     for g, w, name in zip(got, want, ("r", "x_last", "x_prev", "j_last")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
                                    **TOL)
@@ -137,7 +142,8 @@ def test_train_forward_slots_match_reference_per_slot():
     lens[0, 0] = 1
     p = np.asarray([0.1, 0.3, 0.02], np.float32)
     q = np.asarray([0.2, -0.4, 0.5], np.float32)
-    got = ops.train_forward(_t(j), _t(lens), _t(p), _t(q), Nonlinearity())
+    got = ops.train_forward(_t(j), _t(lens), _t(p), _t(q), nx,
+                            f=Nonlinearity())
     for s in range(n_sys):
         want = rops.train_forward(
             jnp.asarray(j[s]), jnp.asarray(lens[s]), jnp.float32(p[s]),
@@ -156,11 +162,139 @@ def test_cuda_backend_on_cpu_tensor_raises():
     j, lens, W, bias = _inputs(2, 5, 4, 3, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
         ops.train_forward(_t(j), _t(lens), torch.tensor(0.1),
-                          torch.tensor(0.1), backend="cuda")
+                          torch.tensor(0.1), 4, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ops.streaming_logits(_t(j), _t(lens), torch.tensor(0.1),
-                             torch.tensor(0.1), _t(W), _t(bias),
+                             torch.tensor(0.1), _t(W), _t(bias), 4,
                              backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         ops.train_forward(_t(j), _t(lens), torch.tensor(0.1),
-                          torch.tensor(0.1), backend="xla")
+                          torch.tensor(0.1), 4, backend="xla")
+
+
+# ---------------------------------------------------------------------------
+# reference-style calls: n_nodes positional, as repro.kernels.ops takes it
+# (the reference's autotuner and planner call the wrappers this way)
+# ---------------------------------------------------------------------------
+
+RB, RT, RNX, RNY, RS = 2, 5, 4, 3, 2
+
+
+def _ref_style(seed, lead=()):
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(*lead, RB, RT, RNX)).astype(np.float32)
+    lens = rng.integers(1, RT + 1, (*lead, RB)).astype(np.int32)
+    W = (0.05 * rng.normal(size=(*lead, RNY, RNX * (RNX + 1)))).astype(
+        np.float32)
+    bias = rng.normal(size=(*lead, RNY)).astype(np.float32)
+    Wq = rng.integers(-127, 128, (*lead, RNY, RNX * (RNX + 1))).astype(
+        np.int8)
+    return j, lens, W, bias, Wq
+
+
+def _tt(a):
+    """numpy -> torch keeping 0-d scalars 0-d."""
+    return torch.from_numpy(np.array(a))
+
+
+def _gains(lead, seed):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.1, 0.5, lead).astype(np.float32)
+    q = rng.uniform(-0.6, 0.6, lead).astype(np.float32)
+    return p, q
+
+
+def _assert_q8_close(got, want):
+    """K5's rule in tests/test_torch_quant.py for linear f: the same argmax,
+    and every sample within rtol 1e-5 / atol 1e-5 but at most one a call,
+    which is within 0.5% of the largest logit (a state code on the other
+    side of a rounding tie)."""
+    got = np.asarray(got).reshape(-1, RNY)
+    want = np.asarray(want).reshape(-1, RNY)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    exact = np.all(np.isclose(got, want, rtol=1e-5, atol=1e-5), axis=-1)
+    assert np.sum(~exact) <= 1
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=0.005 * np.abs(want).max())
+
+
+def test_train_forward_takes_n_nodes_like_the_reference():
+    j, lens, _, _, _ = _ref_style(21)
+    p, q = _gains((), 21)
+    want = rops.train_forward(jnp.asarray(j), jnp.asarray(lens),
+                              jnp.float32(p), jnp.float32(q), RNX,
+                              f=cached_nonlinearity("tanh", 1.0),
+                              backend="xla")
+    got = ops.train_forward(_tt(j), _tt(lens), _tt(p), _tt(q), RNX,
+                            f=Nonlinearity("tanh"), chunk_t=8)
+    for g, w, name in zip(got, want, ("r", "x_last", "x_prev", "j_last")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
+def test_streaming_logits_takes_n_nodes_like_the_reference():
+    j, lens, W, bias, _ = _ref_style(22)
+    p, q = _gains((), 22)
+    args = (j, lens, p, q, W, bias)
+    want = rops.streaming_logits(*(jnp.asarray(a) for a in args), RNX,
+                                 backend="xla")
+    got = ops.streaming_logits(*(_tt(a) for a in args), RNX)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_streaming_logits_slots_takes_n_nodes_like_the_reference():
+    """Also as the reference's planner binds it: n_nodes and chunk_t by
+    keyword, the operands positional."""
+    j, lens, W, bias, _ = _ref_style(23, (RS,))
+    p, q = _gains((RS,), 23)
+    args = (j, lens, p, q, W, bias)
+    want = rops.streaming_logits_slots(*(jnp.asarray(a) for a in args), RNX,
+                                       backend="xla")
+    got = ops.streaming_logits_slots(*(_tt(a) for a in args), RNX)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    bound = functools.partial(ops.streaming_logits_slots, n_nodes=RNX,
+                              chunk_t=8)
+    np.testing.assert_allclose(bound(*(_tt(a) for a in args)).numpy(),
+                               np.asarray(want), **TOL)
+
+
+def test_streaming_logits_q8_takes_n_nodes_like_the_reference():
+    j, lens, _, bias, Wq = _ref_style(24)
+    p, q = _gains((), 24)
+    args = (j, lens, p, q, Wq, np.float32(1e-3), np.float32(0.02), bias)
+    want = rops.streaming_logits_q8(*(jnp.asarray(a) for a in args), RNX,
+                                    backend="xla")
+    got = ops.streaming_logits_q8(*(_tt(a) for a in args), RNX)
+    _assert_q8_close(got.numpy(), want)
+
+
+def test_streaming_logits_slots_q8_takes_n_nodes_like_the_reference():
+    j, lens, _, bias, Wq = _ref_style(25, (RS,))
+    p, q = _gains((RS,), 25)
+    scales = np.asarray([1e-3, 2e-3], np.float32)
+    args = (j, lens, p, q, Wq, scales, np.asarray([0.02, 0.03], np.float32),
+            bias)
+    want = rops.streaming_logits_slots_q8(*(jnp.asarray(a) for a in args),
+                                          RNX, backend="xla")
+    got = ops.streaming_logits_slots_q8(*(_tt(a) for a in args), RNX)
+    _assert_q8_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("wrapper", ["train_forward", "streaming_logits",
+                                     "streaming_logits_slots",
+                                     "streaming_logits_q8",
+                                     "streaming_logits_slots_q8"])
+def test_wrong_n_nodes_raises(wrapper):
+    slots = wrapper.endswith("slots") or "slots_q8" in wrapper
+    lead = (RS,) if slots else ()
+    j, lens, W, bias, Wq = _ref_style(26, lead)
+    p, q = _gains(lead, 26)
+    scale = np.full(lead, 1e-2, np.float32)
+    args = {"train_forward": (j, lens, p, q),
+            "streaming_logits": (j, lens, p, q, W, bias),
+            "streaming_logits_slots": (j, lens, p, q, W, bias),
+            "streaming_logits_q8": (j, lens, p, q, Wq, scale, scale, bias),
+            "streaming_logits_slots_q8": (j, lens, p, q, Wq, scale, scale,
+                                          bias)}[wrapper]
+    with pytest.raises(ValueError, match="n_nodes"):
+        getattr(ops, wrapper)(*(_tt(a) for a in args), RNX + 1)

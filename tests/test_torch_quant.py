@@ -128,8 +128,8 @@ def test_streaming_q8_plain_matches_reference(backend, f_name, q):
         jnp.asarray(b), nx, f=rf, backend=backend))
     got = ops.streaming_logits_q8(
         _t(j), _t(lengths), torch.tensor(p), torch.tensor(q, dtype=torch.float32),
-        _t(Wq), torch.tensor(w_scale), torch.tensor(x_scale), _t(b),
-        Nonlinearity(f_name))
+        _t(Wq), torch.tensor(w_scale), torch.tensor(x_scale), _t(b), nx,
+        f=Nonlinearity(f_name))
     assert got.dtype == torch.float32
     _assert_q8_close(got.numpy(), want, f_name)
 
@@ -149,7 +149,7 @@ def test_streaming_q8_slots_per_slot_scales_match_reference():
         *(jnp.asarray(a) for a in (j, lengths, p, q, Wq, w_scale, x_scale,
                                    b)), nx, backend="xla"))
     got = ops.streaming_logits_slots_q8(
-        *(_t(a) for a in (j, lengths, p, q, Wq, w_scale, x_scale, b)))
+        *(_t(a) for a in (j, lengths, p, q, Wq, w_scale, x_scale, b)), nx)
     _assert_q8_close(got.numpy(), want)
 
 
@@ -182,7 +182,7 @@ def test_streaming_q8_accumulators_are_exact():
     logits, acc = ops.streaming_logits_slots_q8(
         _t(j)[None], _t(lengths)[None], torch.tensor([p]), torch.tensor([q]),
         _t(Wq)[None], torch.tensor([w_scale]), torch.tensor([sx]),
-        _t(b)[None], return_acc=True)
+        _t(b)[None], nx, return_acc=True)
     assert acc.dtype == torch.int32 and acc.shape == (1, 5, nx, nx + 1)
     L = ops.core_res.ring_matrix(torch.tensor(q), nx)
     sL = ops.symmetric_scale(L.abs().max())
@@ -208,7 +208,7 @@ def test_streaming_q8_zero_window_gives_the_bias():
             torch.zeros(2, 3, 5, nx), torch.full((2, 3), 5, dtype=torch.int32),
             torch.tensor([0.4, 0.2]), torch.tensor([0.5, -0.5]),
             torch.zeros(2, ny, nx * (nx + 1), dtype=torch.int8),
-            torch.full((2,), scale), torch.full((2,), scale), b,
+            torch.full((2,), scale), torch.full((2,), scale), b, nx,
             return_acc=True)
         assert torch.all(acc == 0)
         torch.testing.assert_close(logits, b[:, None, :].expand(2, 3, ny))
@@ -220,7 +220,7 @@ def test_streaming_q8_rejects_too_long_windows():
             torch.zeros(1, 1, ops.MAX_Q8_STEPS + 1, 2),
             torch.ones(1, 1, dtype=torch.int32), torch.ones(1),
             torch.ones(1), torch.zeros(1, 1, 6, dtype=torch.int8),
-            torch.ones(1), torch.ones(1), torch.zeros(1, 1))
+            torch.ones(1), torch.ones(1), torch.zeros(1, 1), 2)
 
 
 # ---------------------------------------------------------------------------
