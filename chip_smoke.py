@@ -12,17 +12,21 @@ Phases, each fatal on failure:
      name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, printing ptxas's registers and
-     spills (K8, K4a and K4b must spill none); count HGMMA (wgmma) and
-     UTMALDG (TMA load) instructions in K8's library with cuobjdump, and
-     fail if either is 0.
+     spills (K8, K4a, K4b, K3 and K7 must spill none); count HGMMA (wgmma)
+     and UTMALDG (TMA load) instructions in K8's library with cuobjdump,
+     and fail if either is 0.
   3. Each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with times: K1 (training forward), K2
      (streaming logits) and K5 (int8 streaming logits, int32 accumulators
      equal bit for bit) at 32 slots x a window of 4 = 128 samples, T=93,
      Nx=30, Ny=10, ragged lengths down to 1; K3 (factor fold) at 32
      factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
-     one guard-skipped rotation; K6 (reservoir states) and K7 (DPRR) on the
-     ARAB training split, a chunk of 256 samples and all 6600; K4a (tile
+     one guard-skipped rotation, whether it equals its plain version bit for
+     bit, timed beside its byte bound and its chain bound; K6 (reservoir
+     states) and K7 (DPRR) on the ARAB training split, at fit_sgd's
+     minibatch of 4 (the shape of nearly all their launches in a fit), a
+     fit_ridge chunk of 256 samples and all 6600, each timed beside its byte
+     bound and K7 beside one torch.bmm; K4a (tile
      Cholesky) on the blocked solve's diagonal tiles (at s=931 with tiles
      of 128), timed on one tile of 128 and one of 256 beside
      torch.linalg.cholesky_ex; K4b (tile triangular solves) on every solve
@@ -135,11 +139,18 @@ K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
 # K5; factors, rows per window, s = Nx^2 + Nx + 1 for K3
 STREAM_SHAPE = (32, 4, 93, 30, 10)
 K3_SHAPE = (32, 4, 931)
+# K3's chain bound: s x W dependent rotations, each along the diagonal at
+# least 6 dependent instructions of its fast path (FMUL d*d, FADD of the
+# radicand, MUFU.RSQ, FMUL, FFMA, FFMA of the refined square root) at 4
+# cycles, the fp32 pipe's dependent-issue latency (MUFU's is longer), at
+# the card's maximum SM clock
+K3_ROTATION_CYCLES = 6 * 4
 # the training path: ridge tiles (the DFRModel path's block), the chunk of
 # fit_ridge, the sizes of the card-vs-CPU fit, and the epochs of the
 # full-width fit (the paper's 25)
 TILE = 128
 CHUNK = 256
+FIT_MINIBATCH = 4   # fit_sgd's minibatch in phase 6
 AGREE_SAMPLES, AGREE_EPOCHS = 512, 2
 FIT_EPOCHS = 25
 ONLINE_LR = 0.01  # OnlineDFR's SGD rate at ARAB's width
@@ -235,6 +246,14 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def device_ms(fn, reps: int = 50, setup=None) -> float:
@@ -448,7 +467,8 @@ def k3_records(dev) -> list:
         e = float((got - want).abs().max())
         rel = e / float(want.abs().max())
         print(f"  {name} sign {sign:+.0f}: max abs err {e:.3e}, relative to "
-              f"max |Lt| {rel:.3e} (tolerance {K3_REL})")
+              f"max |Lt| {rel:.3e} (tolerance {K3_REL}); equal to its plain "
+              f"version bit for bit: {bool(torch.equal(got, want))}")
         check(rel <= K3_REL, f"{name}: kernel disagrees with its plain "
                              f"version (sign {sign:+.0f})")
         err = max(err, e)
@@ -466,9 +486,12 @@ def k3_records(dev) -> list:
     # right of the diagonal per row
     bnd, by = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4,
                        6 * K * W * s * (s - 1) // 2)
+    chain_ms = s * W * K3_ROTATION_CYCLES / max_sm_clock_hz() * 1e3
     print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50), plain "
-          f"{plain_ms:.1f} ms (back to back), bound {bnd:.5f} ms ({by}) at "
-          f"K={K} W={W} s={s}")
+          f"{plain_ms:.1f} ms (back to back), bound {bnd:.5f} ms ({by}); "
+          f"chain bound {chain_ms:.4f} ms ({s * W} dependent rotations x "
+          f"{K3_ROTATION_CYCLES} cycles at the maximum SM clock) at K={K} "
+          f"W={W} s={s}")
     return [dict(name=name, route="cuda",
                  source="src/repro_torch/kernels/csrc/cholupdate.cu",
                  replaces="src/repro/kernels/cholupdate.py:53",
@@ -516,7 +539,7 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         return ops.dprr_features(x, ln, nx, backend=backend)
 
     stats = {}
-    for n in (CHUNK, train.batch):
+    for n in (FIT_MINIBATCH, CHUNK, train.batch):
         j, ln = j_all[:n], lens[:n]
         t_len = j.shape[1]
         live = int(ln.sum())
@@ -945,7 +968,7 @@ def training_phase(card: str, cfg, data) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    params = model.fit(train, minibatch=4)
+    params = model.fit(train, minibatch=FIT_MINIBATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1391,7 +1414,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for lib, kernels in (("flash_attention", "K8"), ("cholesky", "K4a/K4b")):
+    for lib, kernels in (("flash_attention", "K8"), ("cholesky", "K4a/K4b"),
+                         ("cholupdate", "K3"), ("dprr", "K7")):
         spills = [line.strip() for line in logs.get(lib, "").splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in line]

@@ -3,7 +3,9 @@
 The port of ``repro.kernels.cholupdate._cholupd_tile``: W sample rows
 rotated, in stream order, into each of K transposed Cholesky factors
 (``sign=+1`` update, ``sign=-1`` guarded hyperbolic downdate).  The kernel
-(``csrc/cholupdate.cu``) runs one block per factor and folds in place.
+(``csrc/cholupdate.cu``) runs one block per factor and folds in place:
+one warp runs the chain of rotations down the diagonal, the other seven
+apply each step to the rest of its row one step behind.
 Its plain version is ``core.ridge.cholupdate_window_t``;
 ``kernels.ops.cholupdate_window_t`` chooses between them by the tensors'
 device.
@@ -20,7 +22,7 @@ from repro_torch.kernels._build import (CudaKernel, check_operand,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-MAX_FACTOR = 4096  # csrc/cholupdate.cu: 1024 threads x 4 row elements
+MAX_FACTOR = 4096  # csrc/cholupdate.cu: passes of 5 rows in shared memory
 
 KERNEL = CudaKernel(
     "cholupdate", "dfr_cholupdate_window_t",

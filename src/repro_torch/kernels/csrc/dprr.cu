@@ -8,60 +8,114 @@
 // The length mask sits on the x(k) side, as in the TPU kernel, so the rows
 // past a length (the frozen state) never count; x(k-1) is read unmasked.
 //
-// What bounds it on an H100: the bytes.  X is read once (73.7 MB for the
-// 6600 ARAB samples, T = 93, Nx = 30) and r written once (24.6 MB): about
-// 0.029 ms at 3.35 TB/s, against Nx(Nx+1) multiply-adds per live step.  The
-// design reads each row of X once and never stores a shifted copy: one warp
-// per sample, lane n holds x(k)_n and its row of Nx+1 accumulators in
-// registers, and x(k-1) reaches the lanes by __shfl_sync from the lane that
-// held it one step earlier.  The loop ends at the sample's length, so the
-// frozen rows are not even read.  The outer block leaves through shared
-// memory so that the warp's stores are contiguous.
-#include "dfr_step.cuh"
+// What bounds it on an H100: the bytes.  The live rows of X are read once
+// (38.8 MB of the 6600 ARAB training samples, T = 93, Nx = 30) and r is
+// written once (24.6 MB): about 0.019 ms at 3.35 TB/s.  The Nx (Nx + 1)
+// multiply-adds of a live step come to a little over half of that at the
+// card's fp32 rate on the CUDA cores, so neither tensor cores nor TF32
+// (which would break rtol 1e-4) are needed.
+//
+// Design: one warp per sample, two samples a block.  The warp stages its
+// sample's live rows in a 64-row ring in shared memory, each row padded to
+// 32 floats (128 B), by cp.async in chunks of 16 rows, two chunks in
+// flight ahead of the one in use, so a sample's loads overlap its
+// arithmetic and the frozen rows are never read.  Lane (g, h) = (lane / 8,
+// lane % 8) keeps the 8 x 4 register tile of the padded 32 x 32 output at
+// rows 8g.., columns 4h..: per live step it reads x(k)'s 8 values and
+// x(k-1)'s 4 as three float4 loads (each a single bank wavefront, the
+// addresses shared across the warp) and does 32 fmaf, summing over k in
+// order.  No shuffles.  Lane n also sums x(k)_n, the ones column of
+// [x(k-1), 1], from one more load a step.  The tile leaves through shared
+// memory in r's layout, so the stores are contiguous.
+#include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int kNodes = dfr::kMaxNodes;
+constexpr int kCols = 32;        // a padded row: Nx <= 32
+constexpr int kWarps = 2;        // samples a block
+constexpr int kChunkRows = 16;   // rows a cp.async group
+constexpr int kRingRows = 64;    // four chunks: in use, before it, 2 ahead
+constexpr int kAhead = kRingRows / kChunkRows - 2;  // chunks ahead of use
 
-__global__ void __launch_bounds__(dfr::kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarps * 32)
 dprr_kernel(const float* __restrict__ X, const int* __restrict__ lengths,
             int n_samples, int T, int nx, float* __restrict__ r) {
-  __shared__ float stage[dfr::kWarpsPerBlock][kNodes * kNodes];
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * dfr::kWarpsPerBlock + warp;
-  if (b >= n_samples) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const bool node = lane < nx;
-
-  float acc[kNodes];
-#pragma unroll
-  for (int i = 0; i < kNodes; ++i) acc[i] = 0.0f;
-  float acc_sum = 0.0f;
-
-  const float* xb = X + static_cast<size_t>(b) * T * nx;
+  __shared__ __align__(16) float ring[kWarps][kRingRows * kCols];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= n_samples) return;  // warp-uniform; no block barrier follows
+  float* const xs = ring[warp];
+  const float* const xb = X + static_cast<size_t>(b) * T * nx;
   const int len = min(max(lengths[b], 0), T);
-  float xp = 0.0f;  // x(k-1)_lane; x(-1) = 0
-  float x_next = (node && len > 0) ? __ldg(xb + lane) : 0.0f;
-  for (int k = 0; k < len; ++k) {
-    const float xk = x_next;
-    if (node && k + 1 < len) x_next = __ldg(xb + (k + 1) * nx + lane);
-#pragma unroll
-    for (int i = 0; i < kNodes; ++i)
-      acc[i] = fmaf(xk, __shfl_sync(dfr::kFullMask, xp, i), acc[i]);
-    acc_sum += xk;
-    xp = xk;
-  }
+  const int chunks = (len + kChunkRows - 1) / kChunkRows;
 
-  float* st = stage[warp];
-  if (node) {
+  // x(-1) = 0 in the ring's last row (the last chunk slot is filled only
+  // after chunk 0 is done)
+  if (lane < nx) xs[(kRingRows - 1) * kCols + lane] = 0.0f;
+
+  // chunk c: rows 16c .. 16c + 15 (< len), lane n copying column n
+  auto issue = [&](int c) {
+    if (c < chunks && lane < nx) {
+      const int k0 = c * kChunkRows, k1 = min(k0 + kChunkRows, len);
+      float* dst = xs + (k0 & (kRingRows - 1)) * kCols + lane;
+      const float* src = xb + k0 * nx + lane;
+      for (int k = k0; k < k1; ++k, dst += kCols, src += nx)
+        cp_async4(dst, src);
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+  for (int c = 0; c <= kAhead; ++c) issue(c);
+
+  const int g = lane >> 3, h = lane & 7;
+  float acc[8][4], sum = 0.0f;  // sum: of x(k)_lane
 #pragma unroll
-    for (int i = 0; i < kNodes; ++i)
-      if (i < nx) st[lane * nx + i] = acc[i];
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kAhead>();  // chunk c has landed (this lane's copies)
+    __syncwarp();        // ... and every lane's
+    const int k1 = min((c + 1) * kChunkRows, len);
+#pragma unroll 4
+    for (int k = c * kChunkRows; k < k1; ++k) {
+      const float* const xk = xs + (k & (kRingRows - 1)) * kCols;
+      const float* const xp = xs + ((k - 1) & (kRingRows - 1)) * kCols;
+      const float4 a0 = *reinterpret_cast<const float4*>(xk + 8 * g);
+      const float4 a1 = *reinterpret_cast<const float4*>(xk + 8 * g + 4);
+      const float4 p4 = *reinterpret_cast<const float4*>(xp + 4 * h);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+      sum += xk[lane];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], p[v], acc[u][v]);
+    }
+    __syncwarp();        // chunk c - 1's slot is free
+    issue(c + kAhead + 1);
   }
+  cp_async_wait_all();
   __syncwarp();
-  float* rb = r + static_cast<size_t>(b) * nx * (nx + 1);
-  for (int idx = lane; idx < nx * nx; idx += 32) rb[idx] = st[idx];
-  if (node) rb[nx * nx + lane] = acc_sum;
+
+  // the tile into the ring in r's layout, then contiguous stores
+  const int nr = nx * nx;
+  float* const out = xs;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int n = 8 * g + u;
+    if (n >= nx) continue;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int i = 4 * h + v;
+      if (i < nx) out[n * nx + i] = acc[u][v];
+    }
+  }
+  if (lane < nx) out[nr + lane] = sum;
+  __syncwarp();
+  float* const rb = r + static_cast<size_t>(b) * (nr + nx);
+  for (int i = lane; i < nr + nx; i += 32) rb[i] = out[i];
 }
 
 }  // namespace
@@ -71,11 +125,9 @@ extern "C" int dfr_dprr_features(const float* X, const int* lengths,
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks =
-      (n_samples + dfr::kWarpsPerBlock - 1) / dfr::kWarpsPerBlock;
-  dprr_kernel<<<blocks, dfr::kWarpsPerBlock * 32, 0,
-                static_cast<cudaStream_t>(stream)>>>(X, lengths, n_samples, T,
-                                                     nx, r);
+  const int blocks = (n_samples + kWarps - 1) / kWarps;
+  dprr_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      X, lengths, n_samples, T, nx, r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,10 @@
 
 The port of ``repro.kernels.dprr._dprr_kernel``.  The kernel
 (``csrc/dprr.cu``) runs one warp per sample over its stored states X
-(N, T, Nx), masks the x(k) side by the sample's length, and writes r
-(N, Nx*(Nx+1)): the outer products row-major, then the sums.  Its plain
+(N, T, Nx): the sample's live rows stream through a ring in shared memory,
+each lane sums an 8 x 4 tile of the outer products in registers, and r
+(N, Nx*(Nx+1)) gets the outer products row-major, then the sums.  The
+x(k) side is masked by the sample's length.  Its plain
 version is ``kernels.ref.dprr_ref``; ``kernels.ops.dprr_features`` chooses
 between them by the tensors' device.
 """

@@ -218,8 +218,12 @@ def _assert_factor_close(got, want):
     assert err <= K3_REL * float(want.abs().max()), err
 
 
+# W of 1, 4, 9 and 17 (one pass of up to 8 rows, or several); s from 1 to
+# 4096, where shared memory takes passes of 5 rows
 @pytest.mark.parametrize("k,w,s", [(1, 1, 5), (3, 4, 73), (2, 11, 200),
-                                   (4, 4, 931)])
+                                   (4, 4, 931), (2, 1, 1), (2, 9, 2),
+                                   (3, 17, 31), (2, 4, 33), (1, 9, 931),
+                                   (1, 4, 2048), (1, 9, 4096)])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
 def test_k3_kernel_matches_plain(dev, k, w, s, sign):
     Lt, X = _k3_operands(dev, k, w, s, seed=s + w)
@@ -236,6 +240,27 @@ def test_k3_kernel_matches_plain(dev, k, w, s, sign):
     ops.cholupdate_window_t(inplace, X, sign, out=inplace, backend="cuda")
     torch.cuda.synchronize()
     _assert_factor_close(inplace, want)
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e18])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_k3_out_of_range_operands_fold_exactly(dev, scale, sign):
+    """Factors and rows scaled so that diagonals, radicands and numerators
+    leave the range where the kernel's fast divide and square root are
+    exact (2^-60 .. 2^60; at 1e-20 the squared diagonals are subnormal,
+    where the approximate reciprocal square root flushes to zero): the
+    kernel must fold them again with the correctly rounded intrinsics."""
+    Lt, X = _k3_operands(dev, 2, 4, 64, seed=7)
+    Lt, X = Lt * scale, X * scale
+    X[:, 1] = 0.0
+    if sign < 0:
+        Lt = ops.cholupdate_window_t(Lt, X, 1.0, backend="torch")
+        X[0, -1] = 0.0
+        X[0, -1, 32] = 3.0 * Lt[0, 32, 32]             # guard-skipped
+    want = ops.cholupdate_window_t(Lt, X, sign, backend="torch")
+    got = ops.cholupdate_window_t(Lt, X, sign, backend="cuda")
+    torch.cuda.synchronize()
+    _assert_factor_close(got, want)
 
 
 def test_k5_k3_launch_counts_and_rejections(dev):
@@ -293,26 +318,29 @@ def test_int8_incremental_server_on_card_agrees_with_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("nx", [8, 17, 30])
+# B = 4 is fit_sgd's minibatch and 6600 ARAB's training split (T = 93)
+@pytest.mark.parametrize("nx", [1, 8, 17, 30, 32])
+@pytest.mark.parametrize("b", [1, 4, 7, 37, 6600])
 @pytest.mark.parametrize("f_name", ["linear", "tanh"])
-def test_k6_k7_kernels_match_plain(dev, nx, f_name):
-    j, lens, p, q, _, _ = _operands(dev, 1, 37, 93, nx, 1, seed=nx)
+def test_k6_k7_kernels_match_plain(dev, nx, b, f_name):
+    j, lens, p, q, _, _ = _operands(dev, 1, b, 93, nx, 1, seed=nx + b)
     j, lens = j[0], lens[0]
-    lens[2] = 0                                    # an empty sample
+    special = (93, 0, 1)[:b]                       # full, empty, one step
+    lens[:len(special)] = torch.tensor(special, dtype=lens.dtype)
     f = Nonlinearity(f_name, 0.8)
     got = ops.reservoir_states(j, lens, p[0], q[0], nx, f=f, backend="cuda")
     want = ops.reservoir_states(j, lens, p[0], q[0], nx, f=f,
                                 backend="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
-    for i, n in enumerate(lens.tolist()):          # the frozen rows
-        if 0 < n < 93:
-            assert bool((got[i, n:] == got[i, n - 1]).all())
-    assert bool((got[2] == 0).all())
+    live = torch.arange(93, device=dev) < lens[:, None]
+    last = got[torch.arange(b, device=dev), (lens - 1).clamp(min=0).long()]
+    frozen = ~live & (lens > 0)[:, None]           # the frozen rows
+    assert bool((got == last[:, None])[frozen].all())
+    if b > 1:
+        assert bool((got[1] == 0).all())           # the empty sample
     # K7 on the kernel's states; rows past a length must not count
-    noisy = got.clone()
-    for i, n in enumerate(lens.tolist()):
-        noisy[i, n:] = 1e3
+    noisy = torch.where(live[..., None], got, 1e3)
     r = ops.dprr_features(noisy, lens, nx, backend="cuda")
     r_plain = ops.dprr_features(got, lens, nx, backend="torch")
     torch.cuda.synchronize()
