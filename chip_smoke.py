@@ -12,21 +12,26 @@ Phases, each fatal on failure:
      name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, printing ptxas's registers and
-     spills (K8, K4a, K4b, K3 and K7 must spill none); count HGMMA (wgmma)
-     and UTMALDG (TMA load) instructions in K8's library with cuobjdump,
-     and fail if either is 0.
+     spills (K8, K4a, K4b, K3, K7, K6 and K5 must spill none); count HGMMA
+     (wgmma) and UTMALDG (TMA load) instructions in K8's library and IMMA
+     (mma.sync on int8) in K5's with cuobjdump, and fail if any is 0.
+     Measure the dependent-chain cycles of one warp on the card
+     (launch/chain_latency.py) for phase 3's chain bounds.
   3. Each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with times: K1 (training forward), K2
      (streaming logits) and K5 (int8 streaming logits, int32 accumulators
      equal bit for bit) at 32 slots x a window of 4 = 128 samples, T=93,
-     Nx=30, Ny=10, ragged lengths down to 1; K3 (factor fold) at 32
+     Nx=30, Ny=10, ragged lengths down to 1, each beside its chain bound
+     (the longest live length times one step's dependent chain at the
+     maximum SM clock); K3 (factor fold) at 32
      factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
      one guard-skipped rotation, whether it equals its plain version bit for
      bit, timed beside its byte bound and its chain bound; K6 (reservoir
      states) and K7 (DPRR) on the ARAB training split, at fit_sgd's
      minibatch of 4 (the shape of nearly all their launches in a fit), a
      fit_ridge chunk of 256 samples and all 6600, each timed beside its byte
-     bound and K7 beside one torch.bmm; K4a (tile
+     bound, K6 beside its chain bound and with its frozen rows equal to the
+     last live state, and K7 beside one torch.bmm; K4a (tile
      Cholesky) on the blocked solve's diagonal tiles (at s=931 with tiles
      of 128), timed on one tile of 128 and one of 256 beside
      torch.linalg.cholesky_ex; K4b (tile triangular solves) on every solve
@@ -123,6 +128,7 @@ from repro_torch.kernels import ridge_solve as k_ridge  # noqa: E402
 from repro_torch.kernels import streaming as k_streaming  # noqa: E402
 from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
+from repro_torch.launch import chain_latency  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.models.lm import make_prefill_step  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -145,6 +151,14 @@ K3_SHAPE = (32, 4, 931)
 # cycles, the fp32 pipe's dependent-issue latency (MUFU's is longer), at
 # the card's maximum SM clock
 K3_ROTATION_CYCLES = 6 * 4
+# K5's dependent chain a live step, read from its code (csrc/streaming_q8.cu,
+# fast path, linear f): 17 fp32 FMA-class operations (FADD, FMUL, FFMA, and
+# the integer add of the ring dot's two halves), 4 fp32 min/max, 4 IDP4A and
+# one shared-memory round trip (the activation codes' row).  K6's step
+# (scan_step) and K1's and K2's (ring_step) are measured whole.
+K5_CHAIN_OPS = {"fp32 FMA": 17, "fp32 min/max": 4, "IDP4A": 4,
+                "shared store, __syncwarp, load": 1}
+CHAIN = {}  # chain_latency.measure() and the SM clock, set in phase 2
 # the training path: ridge tiles (the DFRModel path's block), the chunk of
 # fit_ridge, the sizes of the card-vs-CPU fit, and the epochs of the
 # full-width fit (the paper's 25)
@@ -307,6 +321,14 @@ def bound(live_steps: int, n: int, nx: int, extra_bytes: int,
                     live_steps * (3 * nx * nx + 7 * nx) + extra_flops)
 
 
+def chain_bound(steps: int, cycles: float, what: str) -> str:
+    """The least time of `steps` dependent steps of `cycles` each, at the
+    card's maximum SM clock, as a printable phrase."""
+    ms = steps * cycles / CHAIN["clock_hz"] * 1e3
+    return (f"chain bound {ms:.5f} ms ({steps} steps x {cycles:.1f} cycles "
+            f"of {what} at {CHAIN['clock_hz'] / 1e6:.0f} MHz)")
+
+
 def compare(name: str, got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
@@ -370,7 +392,10 @@ def kernel_phase(dev) -> dict:
         print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50), "
               f"plain {plain_ms:.3f} ms (back to back), bound "
               f"{bound_ms:.5f} ms ({bound_by}) at B={n} T={T} Nx={nx} "
-              f"Ny={ny}, {live_steps} live steps")
+              f"Ny={ny}, {live_steps} live steps; "
+              + chain_bound(int(lengths.max()),
+                            CHAIN["step_cycles"]["K1/K2 ring_step"],
+                            "ring_step"))
         records.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -429,10 +454,14 @@ def k5_record(j, lens, p, q, b, f, lengths) -> dict:
                                            + 4 * ny) + 4 * n * ny)
     bnd, by = bound_ms(nbytes, live * 12 * nx + n * ny * (4 * nr + 1),
                        live * 2 * (nx * nx + nx * (nx + 1)))
+    k5_cycles = sum(CHAIN["op_cycles"][op] * k
+                    for op, k in K5_CHAIN_OPS.items())
     print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50; the "
           f"wrapper's code and scale prep {prep_ms:.4f} ms more), plain "
           f"{plain_ms:.3f} ms (back to back), bound {bnd:.5f} ms ({by}) at "
-          f"B={n} T={T} Nx={nx} Ny={ny}, {live} live steps")
+          f"B={n} T={T} Nx={nx} Ny={ny}, {live} live steps; "
+          + chain_bound(int(lengths.max()), k5_cycles,
+                        "K5's step, summed from its operations"))
     return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/streaming_q8.cu",
                 replaces="src/repro/kernels/streaming.py:106",
@@ -547,6 +576,14 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         x_plain = k6(j, ln, "torch")
         torch.cuda.synchronize()
         e6 = compare(f"K6 at B={n}", (x,), (x_plain,))
+        step = torch.arange(t_len, device=dev)
+        last = x[torch.arange(n, device=dev), (ln.long() - 1).clamp(min=0)]
+        frozen = (step[None, :] >= ln[:, None]) & (ln > 0)[:, None]
+        same = bool((x == last[:, None])[frozen].all())
+        print(f"  K6 at B={n}: {int(frozen.sum())} frozen rows, each equal "
+              f"to the last live state: {same}")
+        check(same, f"K6 at B={n}: a frozen row differs from the last live "
+                    f"state")
         r = k7(x_plain, ln, "cuda")
         r_plain = k7(x_plain, ln, "torch")
         torch.cuda.synchronize()
@@ -572,7 +609,9 @@ def training_kernel_records(model: DFRModel, train) -> dict:
                       live * 2 * nx * (nx + 1))
         print(f"  K6 at B={n} T={t_len} Nx={nx} ({live} live steps): kernel "
               f"{ms6:.4f} ms, plain {plain6:.3f} ms, bound {b6[0]:.5f} ms "
-              f"({b6[1]})")
+              f"({b6[1]}); "
+              + chain_bound(int(ln.max()), CHAIN["step_cycles"]["K6 scan_step"],
+                            "scan_step"))
         print(f"  K7 at B={n}: kernel {ms7:.4f} ms, plain {plain7:.3f} ms, "
               f"one bmm {lib7:.4f} ms, bound {b7[0]:.5f} ms ({b7[1]})")
         stats[n] = (e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7)
@@ -1415,7 +1454,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     for lib, kernels in (("flash_attention", "K8"), ("cholesky", "K4a/K4b"),
-                         ("cholupdate", "K3"), ("dprr", "K7")):
+                         ("cholupdate", "K3"), ("dprr", "K7"),
+                         ("reservoir", "K6"), ("streaming_q8", "K5")):
         spills = [line.strip() for line in logs.get(lib, "").splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in line]
@@ -1429,6 +1469,18 @@ def main() -> int:
         f"{op} {n}" for op, n in counts.items()))
     check(all(counts.values()), f"K8's library lacks {counts}: the bf16 "
                                 f"route must run wgmma on TMA-loaded tiles")
+    imma = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path("streaming_q8"))],
+        capture_output=True, text=True, check=True,
+        timeout=300).stdout.count("IMMA")
+    print(f"  streaming_q8 SASS: IMMA {imma}")
+    check(imma > 0, "K5's library has no IMMA: its DPRR product must run "
+                    "mma.sync on int8")
+    CHAIN.update(chain_latency.measure(), clock_hz=max_sm_clock_hz())
+    print("  dependent-chain cycles of one warp (launch/chain_latency.py): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      {**CHAIN["op_cycles"], **CHAIN["step_cycles"]}.items()))
 
     t0 = time.perf_counter()
     cfg, arrays, data = load_arab()

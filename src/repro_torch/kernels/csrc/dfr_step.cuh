@@ -1,5 +1,10 @@
-// Shared reservoir step and time loop of the DFR kernels (train.cu: K1,
-// streaming.cu: K2, reservoir.cu: K6).
+// Shared reservoir steps of the DFR kernels: ring_step and the time loop
+// run_sample for K1 (train.cu) and K2 (streaming.cu), scan_step for K6
+// (reservoir.cu).  K5 (streaming_q8.cu) runs its own integer step.
+//
+// What bounds K1 and K2: the chain of ring_step, a step's 33 shuffles and
+// 32 dependent FMAs, with each step's input loaded one step ahead from
+// device memory.  K6's scan_step shortens the chain to 6 shuffles (below).
 //
 // One warp runs one sample.  Lane n holds node n's state x_n (Nx <= 32; the
 // lanes n >= Nx hold zeros) and row n of the (Nx, Nx+1) DPRR accumulator in
@@ -68,6 +73,60 @@ __device__ __forceinline__ float ring_step(const Ring& ring, float jk,
   for (int i = 0; i < kMaxNodes; ++i)
     s = fmaf(ring.l_row[i], __shfl_sync(kFullMask, a, i), s);
   return node ? fmaf(wrap, ring.qpow, s) : 0.0f;
+}
+
+// K6's step: the x(k) of ring_step, with the ring mix taken as the linear
+// scan it is.  The closed form above is the delay line's recurrence
+//   x(k)_n = q x(k)_{n-1} + a_n,   x(k)_{-1} = x(k-1)_{Nx-1},
+// so a Kogge-Stone scan of a over the lanes gives sum_{i<=n} q^(n-i) a_i in
+// 5 rounds of __shfl_up_sync and fmaf, with q^(2^s) in registers, and the
+// wrap enters at the end as q^(n+1) x(k-1)_{Nx-1}, its shuffle off the
+// chain: 6 shuffles and a 7-deep dependent chain a step in place of
+// ring_step's 33 shuffles and 32-deep FMA chain, and no row of L(q).  The
+// sum is the same up to fp32 reassociation, and so is a for linear f,
+// taken as (p alpha) j + (p alpha) x(k-1) so that one FMA is on the chain.
+// Lanes n >= Nx (given j = 0) carry the ring on past the last node; only
+// lanes above them read their values, so the caller stores lanes n < Nx
+// only.
+struct RingScan {
+  float qd[5];   // q^(2^s) on lanes >= 2^s, 0 below
+  float qpow;    // q^(lane+1), the wrap's power
+};
+
+__device__ __forceinline__ void make_scan(float q, RingScan& scan) {
+  const int lane = threadIdx.x & 31;
+  float qs = q;
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    scan.qd[s] = lane >= (1 << s) ? qs : 0.0f;
+    qs *= qs;
+  }
+  float v = lane == 0 ? q : 0.0f;  // the scan of (q, 0, ..., 0)
+#pragma unroll
+  for (int d = 0; d < 5; ++d)
+    v = fmaf(scan.qd[d], __shfl_up_sync(kFullMask, v, 1 << d), v);
+  scan.qpow = v;
+}
+
+// scan_step's input term: p alpha j(k) for linear f (off the chain), else
+// j(k).
+__device__ __forceinline__ float scan_input(float jk, float p, int code,
+                                            float alpha) {
+  return code == 0 ? (p * alpha) * jk : jk;
+}
+
+// One live step from pj = scan_input(j(k)) and x(k-1).  Every lane of the
+// warp must call it.
+__device__ __forceinline__ float scan_step(const RingScan& scan, float pj,
+                                           float xp, int nx, float p,
+                                           int code, float alpha) {
+  const float wrap = __shfl_sync(kFullMask, xp, nx - 1);
+  float s = code == 0 ? fmaf(p * alpha, xp, pj)
+                      : p * nonlin(pj + xp, code, alpha);
+#pragma unroll
+  for (int d = 0; d < 5; ++d)
+    s = fmaf(scan.qd[d], __shfl_up_sync(kFullMask, s, 1 << d), s);
+  return fmaf(scan.qpow, wrap, s);
 }
 
 struct SampleResult {

@@ -1,5 +1,5 @@
-"""Time the DFR training path's kernels and fit_ridge in several source
-trees, alternating between them in one run, on one CUDA device.
+"""Time the DFR kernels and fit_ridge in several source trees, alternating
+between them in one run, on one CUDA device.
 
     python src/repro_torch/launch/ab_time.py TREE [TREE ...] [--rounds 4]
 
@@ -16,12 +16,18 @@ A process prints one JSON line, in the run's order:
   (Nx = 30, s = 931, chunks of 256, the blocked solve over the beta
   sweep), synchronized, after one warm-up call; ``fit_ridge_device_ms``:
   the device's busy time in one more call, from torch.profiler;
+- ``k6_ms``: K6's device time (the median of 50) at fit_sgd's minibatch of
+  4, a chunk of 256 and all 6600 samples;
 - ``k7_ms``: K7's device time (the median of 50) at fit_sgd's minibatch of
   4, a chunk of 256 and all 6600 samples, ``bmm_ms`` one ``torch.bmm`` of
   the same DPRR beside each;
 - ``k3_ms``: K3's device time (the median of 50) on chip_smoke.py's fold
   at (32, 4, 931), and ``k3_equal``, whether it equals its plain version
-  bit for bit there.
+  bit for bit there;
+- ``k5_ms``: K5's device time (the median of 50) on chip_smoke.py's operands
+  (32 slots x a window of 4, T = 93, Nx = 30, Ny = 10, the kernel alone on
+  the codes and scales its wrapper builds), and ``k5_equal``, whether its
+  int32 accumulators equal its plain version's there.
 
 It calls only APIs that the package has had since DFRModel was ported, so
 it also runs on older trees.
@@ -100,11 +106,16 @@ def measure(label: str, calls: int) -> dict:
     dev, nx = model.device, cfg.n_nodes
     j_all = masking.apply_mask(model.mask, train.u.to(dev))
     lens = train.length.to(dev)
-    out["k7_ms"], out["bmm_ms"] = {}, {}
+    out["k6_ms"], out["k7_ms"], out["bmm_ms"] = {}, {}, {}
     for n in (4, 256, train.batch):
         j, ln = j_all[:n], lens[:n]
-        x = ops.reservoir_states(j, ln, params.p, params.q, nx, f=cfg.f(),
-                                 backend="cuda")
+
+        def k6():
+            return ops.reservoir_states(j, ln, params.p, params.q, nx,
+                                        f=cfg.f(), backend="cuda")
+
+        x = k6()
+        out["k6_ms"][n] = device_ms(k6)
         out["k7_ms"][n] = device_ms(
             lambda: ops.dprr_features(x, ln, nx, backend="cuda"))
         step = torch.arange(x.shape[1], device=dev)
@@ -126,7 +137,44 @@ def measure(label: str, calls: int) -> dict:
     out["k3_ms"] = device_ms(
         lambda dst: ops.cholupdate_window_t(dst, X, out=dst, backend="cuda"),
         setup=Lt.clone)
+    out["k5_equal"], out["k5_ms"] = k5_timing(dev)
     return out
+
+
+def k5_timing(dev) -> tuple:
+    """K5 on chip_smoke.py's operands: whether its accumulators equal the
+    plain version's, and its device time on the prepared codes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import DFRConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import streaming_q8 as k_q8
+
+    S, W, T, nx, ny = 32, 4, 93, 30, 10
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, T + 1, S * W)
+    lengths[:3] = (1, T, 2)
+    j = torch.from_numpy(rng.normal(size=(S, W, T, nx)).astype(np.float32))
+    lens = torch.from_numpy(lengths.reshape(S, W).astype(np.int32))
+    p = torch.from_numpy(rng.uniform(0.01, 0.5, S).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(-0.5, 0.5, S).astype(np.float32))
+    rng.normal(size=(S, ny, nx * (nx + 1)))  # chip_smoke.py's K2 weights
+    b = torch.from_numpy(rng.normal(size=(S, ny)).astype(np.float32))
+    rng = np.random.default_rng(1)
+    Wq = torch.from_numpy(rng.integers(-127, 128, (S, ny, nx * (nx + 1)))
+                          .astype(np.int8))
+    w_scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, S).astype(np.float32))
+    x_scale = torch.from_numpy(rng.uniform(0.01, 0.05, S).astype(np.float32))
+    w_scale[-1] = x_scale[-1] = 0.0
+    args = [t.to(dev) for t in (j, lens, p, q, Wq, w_scale, x_scale, b)]
+    f = DFRConfig(n_in=1, n_classes=ny, n_nodes=nx).f()
+    accs = [ops.streaming_logits_slots_q8(*args, nx, f=f, backend=be,
+                                          return_acc=True)[1]
+            for be in ("cuda", "torch")]
+    flat = ops.streaming_q8_operands(*args, f)
+    return (bool(torch.equal(*accs)),
+            device_ms(lambda: k_q8.streaming_logits_q8_cuda(*flat)))
 
 
 def main(argv=None) -> int:

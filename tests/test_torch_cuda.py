@@ -51,7 +51,7 @@ from repro_torch.kernels import cholesky as k_cholesky
 from repro_torch.kernels import cholupdate as k_cholupdate
 from repro_torch.kernels import dprr as k_dprr
 from repro_torch.kernels import flash_attention as k_flash
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import reservoir as k_reservoir
 from repro_torch.kernels import ridge_solve as k_ridge
 from repro_torch.kernels import streaming as k_streaming
@@ -345,6 +345,83 @@ def test_k6_k7_kernels_match_plain(dev, nx, b, f_name):
     r_plain = ops.dprr_features(got, lens, nx, backend="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(r, r_plain, **TOL)
+
+
+# K6 at one warp a block: lone samples and the grid's edges around the 132
+# SMs, one system or several, and lengths 0, 1, T - 1 and T.  The gains are
+# drawn where the reservoir is stable (p alpha / (1 - |q|) < 1, the echo
+# state the model trains in): past it the states grow like the gain to the
+# power of the step, and so do the rounding differences of any two fp32
+# orders of the sums, the plain version's own distance to a float64 run
+# among them.
+@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
+def test_k6_sample_counts_systems_and_lengths(dev, nx, n):
+    t = 93
+    rng = np.random.default_rng(1000 * nx + n)
+    j = torch.from_numpy(rng.normal(size=(n, t, nx)).astype(np.float32))
+    lengths = rng.integers(0, t + 1, n)
+    lengths[:4] = (0, 1, t, t - 1)[:n]
+    lens = torch.from_numpy(lengths.astype(np.int32))
+    j, lens = j.to(dev), lens.to(dev)
+    step = torch.arange(t, device=dev)
+    for n_sys in sorted({1, n} | ({n // 2} if n % 2 == 0 else set())):
+        p = torch.from_numpy(rng.uniform(0.01, 0.4, n_sys).astype(
+            np.float32)).to(dev)
+        q = torch.from_numpy(rng.uniform(-0.5, 0.5, n_sys).astype(
+            np.float32)).to(dev)
+        for f in (Nonlinearity("linear", 0.8), Nonlinearity("tanh", 0.8),
+                  Nonlinearity("mackey_glass", 1.0)):
+            got = k_reservoir.reservoir_states_cuda(j, lens, p, q, f)
+            want = ref.reservoir_ref(j, lens, p, q, f)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            last = got[torch.arange(n, device=dev),
+                       (lens.long() - 1).clamp(min=0)]
+            frozen = (step[None, :] >= lens[:, None]) & (lens > 0)[:, None]
+            assert bool((got == last[:, None])[frozen].all())
+            assert bool((got[lens == 0] == 0).all())
+
+
+# K5 at every node count it takes and at lengths around its chunks of 16
+# steps and its integer products of 32 and 128 steps
+@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("t", [1, 31, 33, 93, 129, 257])
+def test_k5_node_counts_and_lengths(dev, nx, t):
+    args = _q8_operands(dev, 3, 4, t, nx, 3, seed=7 * t + nx)
+    for f in (Nonlinearity("linear", 0.8), Nonlinearity("tanh", 0.8),
+              Nonlinearity("mackey_glass", 1.0)):
+        got, got_acc = ops.streaming_logits_slots_q8(
+            *args, nx, f=f, backend="cuda", return_acc=True)
+        want, want_acc = ops.streaming_logits_slots_q8(
+            *args, nx, f=f, backend="torch", return_acc=True)
+        torch.cuda.synchronize()
+        if f.code == 0:
+            assert torch.equal(got_acc, want_acc)
+        torch.testing.assert_close(got, want, **TOL)
+
+
+# K5's divide: an x_scale below its fast quotient's range runs the exact
+# divide from the start; an input too large for it makes the warp run its
+# sample again with the exact divide.  The codes must not change.
+@pytest.mark.parametrize("case", ["small x_scale", "huge input"])
+def test_k5_exact_divide_gives_equal_codes(dev, case):
+    j, lens, p, q, Wq, w_scale, x_scale, b = _q8_operands(
+        dev, 3, 4, 93, 30, 10, seed=5)
+    if case == "small x_scale":
+        x_scale = x_scale * 1e-28
+    else:
+        j = j.clone()
+        j[0, 1] *= 1e25
+    args = (j, lens, p, q, Wq, w_scale, x_scale, b)
+    f = Nonlinearity("linear", 0.8)
+    got, got_acc = ops.streaming_logits_slots_q8(
+        *args, 30, f=f, backend="cuda", return_acc=True)
+    want, want_acc = ops.streaming_logits_slots_q8(
+        *args, 30, f=f, backend="torch", return_acc=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got_acc, want_acc)
+    torch.testing.assert_close(got, want, **TOL)
 
 
 def _spd_tiles(dev, k, n, seed):

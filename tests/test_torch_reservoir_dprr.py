@@ -118,3 +118,38 @@ def test_ops_reject_what_they_do_not_take():
         ops.reservoir_states(x, lens, 0.1, 0.1, 3)
     with pytest.raises(ValueError):
         ops.reservoir_states(x, lens, 0.1, 0.1, 4, backend="cuda")
+
+
+def _lane_scan(v, q):
+    """Five rounds of the kernel's scan over 32 lanes (scan_step in
+    kernels/csrc/dfr_step.cuh): lane n adds q^(2^s) times lane n - 2^s."""
+    qs = np.float32(q)
+    for d in (1, 2, 4, 8, 16):
+        up = np.zeros_like(v)
+        up[..., d:] = v[..., :-d]
+        v = (qs * up + v).astype(np.float32)
+        qs = np.float32(qs * qs)
+    return v
+
+
+@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("q", [0.3, -0.6, 0.01])
+def test_ring_mix_as_a_lane_scan_matches_reference_ring_matrix(nx, q):
+    """K6's ring mix: the delay line's recurrence x_n = q x_{n-1} + a_n
+    taken as a 5-round scan over the lanes, with the wrap added as
+    q^(n+1) x(k-1)_{Nx-1} and q^(n+1) itself the scan of (q, 0, ..., 0),
+    equals the reference's closed form L(q) a + q^(1..Nx) x(k-1)_{Nx-1}
+    (repro.core.reservoir.ring_matrix, ring_powers) in fp32, within
+    rtol 1e-5 / atol 1e-6 (the sums reassociated)."""
+    from repro.core.reservoir import ring_matrix, ring_powers
+    rng = np.random.default_rng(nx)
+    a = np.zeros((6, 32), np.float32)
+    a[:, :nx] = rng.normal(size=(6, nx))
+    wrap = rng.normal(size=(6, 1)).astype(np.float32)
+    unit = np.zeros(32, np.float32)
+    unit[0] = q
+    qpow = _lane_scan(unit, q)
+    got = _lane_scan(a, q) + qpow * wrap
+    L = np.asarray(ring_matrix(jnp.float32(q), nx))
+    want = a[:, :nx] @ L.T + wrap * np.asarray(ring_powers(jnp.float32(q), nx))
+    np.testing.assert_allclose(got[:, :nx], want, rtol=1e-5, atol=1e-6)
