@@ -12,7 +12,7 @@ Phases, each fatal on failure:
      name and power limit.
   2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, printing ptxas's registers and
-     spills (K8, K4a, K4b, K3, K7, K6 and K5 must spill none); count HGMMA
+     spills (none of the kernels may spill); count HGMMA
      (wgmma) and UTMALDG (TMA load) instructions in K8's library and IMMA
      (mma.sync on int8) in K5's with cuobjdump, and fail if any is 0.
      Measure the dependent-chain cycles of one warp on the card
@@ -21,7 +21,8 @@ Phases, each fatal on failure:
      shapes its path gives it, with times: K1 (training forward), K2
      (streaming logits) and K5 (int8 streaming logits, int32 accumulators
      equal bit for bit) at 32 slots x a window of 4 = 128 samples, T=93,
-     Nx=30, Ny=10, ragged lengths down to 1, each beside its chain bound
+     Nx=30, Ny=10, ragged lengths with 0, 1, 2, 16, 17 and T among them
+     (around the kernels' chunks of 16 steps), each beside its chain bound
      (the longest live length times one step's dependent chain at the
      maximum SM clock); K3 (factor fold) at 32
      factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
@@ -144,6 +145,9 @@ K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
 # phase 3 at the server's shapes: slots, window, T, Nx, Ny for K1, K2 and
 # K5; factors, rows per window, s = Nx^2 + Nx + 1 for K3
 STREAM_SHAPE = (32, 4, 93, 30, 10)
+# the first lengths of phase 3's samples (the rest random in [1, T]): one
+# step, all T, two, none, and a chunk of 16 steps exactly and one past it
+STREAM_LENGTHS = (1, 93, 2, 0, 16, 17)
 K3_SHAPE = (32, 4, 931)
 # K3's chain bound: s x W dependent rotations, each along the diagonal at
 # least 6 dependent instructions of its fast path (FMUL d*d, FADD of the
@@ -154,8 +158,8 @@ K3_ROTATION_CYCLES = 6 * 4
 # K5's dependent chain a live step, read from its code (csrc/streaming_q8.cu,
 # fast path, linear f): 17 fp32 FMA-class operations (FADD, FMUL, FFMA, and
 # the integer add of the ring dot's two halves), 4 fp32 min/max, 4 IDP4A and
-# one shared-memory round trip (the activation codes' row).  K6's step
-# (scan_step) and K1's and K2's (ring_step) are measured whole.
+# one shared-memory round trip (the activation codes' row).  The step of K1,
+# K2 and K6 (scan_step) is measured whole.
 K5_CHAIN_OPS = {"fp32 FMA": 17, "fp32 min/max": 4, "IDP4A": 4,
                 "shared store, __syncwarp, load": 1}
 CHAIN = {}  # chain_latency.measure() and the SM clock, set in phase 2
@@ -350,7 +354,7 @@ def kernel_phase(dev) -> dict:
     n = S * W
     rng = np.random.default_rng(0)
     lengths = rng.integers(1, T + 1, n)
-    lengths[:3] = (1, T, 2)
+    lengths[:6] = STREAM_LENGTHS
     j = torch.from_numpy(rng.normal(size=(S, W, T, nx)).astype(np.float32))
     lens = torch.from_numpy(lengths.reshape(S, W).astype(np.int32))
     p = torch.from_numpy(rng.uniform(0.01, 0.5, S).astype(np.float32))
@@ -394,8 +398,8 @@ def kernel_phase(dev) -> dict:
               f"{bound_ms:.5f} ms ({bound_by}) at B={n} T={T} Nx={nx} "
               f"Ny={ny}, {live_steps} live steps; "
               + chain_bound(int(lengths.max()),
-                            CHAIN["step_cycles"]["K1/K2 ring_step"],
-                            "ring_step"))
+                            CHAIN["step_cycles"]["K1/K2/K6 scan_step"],
+                            "scan_step"))
         records.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -610,7 +614,8 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         print(f"  K6 at B={n} T={t_len} Nx={nx} ({live} live steps): kernel "
               f"{ms6:.4f} ms, plain {plain6:.3f} ms, bound {b6[0]:.5f} ms "
               f"({b6[1]}); "
-              + chain_bound(int(ln.max()), CHAIN["step_cycles"]["K6 scan_step"],
+              + chain_bound(int(ln.max()),
+                            CHAIN["step_cycles"]["K1/K2/K6 scan_step"],
                             "scan_step"))
         print(f"  K7 at B={n}: kernel {ms7:.4f} ms, plain {plain7:.3f} ms, "
               f"one bmm {lib7:.4f} ms, bound {b7[0]:.5f} ms ({b7[1]})")
@@ -1453,13 +1458,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for lib, kernels in (("flash_attention", "K8"), ("cholesky", "K4a/K4b"),
-                         ("cholupdate", "K3"), ("dprr", "K7"),
-                         ("reservoir", "K6"), ("streaming_q8", "K5")):
-        spills = [line.strip() for line in logs.get(lib, "").splitlines()
+    for lib, log in sorted(logs.items()):
+        spills = [line.strip() for line in log.splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in line]
-        check(not spills, f"{kernels} spill registers: {spills}")
+        check(not spills, f"{lib}.cu spills registers: {spills}")
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass",
          str(_build.library_path("flash_attention"))],

@@ -1,8 +1,8 @@
 // Asynchronous 4-byte copies from device memory to shared memory
 // (cp.async), grouped and waited for by the issuing thread (K4a, K4b, K7,
-// and through stage_rows.cuh K5 and K6).  A thread sees its own copies
-// after its wait; other threads of the block see them after a barrier that
-// follows the wait.
+// and through stage_rows.cuh K1, K2, K5 and K6).  A thread sees its own
+// copies after its wait; other threads of the block see them after a
+// barrier that follows the wait.
 #pragma once
 
 #include <cuda_runtime.h>

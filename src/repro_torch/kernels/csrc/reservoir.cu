@@ -15,11 +15,10 @@
 //   * one warp a sample and one warp a block, at every N: at 4 and 256
 //     samples each warp has an SM (or half of one) to itself, and at 6600
 //     four-warp blocks were no faster;
-//   * the step is scan_step: the ring mix as a 5-round shuffle scan with the
-//     wrap's shuffle off the chain, and for linear f one FMA before it
-//     (dfr_step.cuh), where ring_step, which K1 and K2 keep, runs 33
-//     shuffles and a 32-deep FMA chain.  Its powers of q are products of q
-//     in registers, not 33 powf calls;
+//   * the step is scan_step, as in K1 and K2: the ring mix as a 5-round
+//     shuffle scan with the wrap's shuffle off the chain, and for linear f
+//     one FMA before it (dfr_step.cuh).  Its powers of q are products of q
+//     in registers;
 //   * the sample's live inputs stream through shared memory ahead of the
 //     steps (stage_rows.cuh), so no step waits on device memory;
 //   * a chunk's states go to a shared-memory buffer as the steps make them

@@ -1,5 +1,6 @@
 // A warp's sample inputs staged in shared memory ahead of its time loop
-// (K5 in streaming_q8.cu, K6 in reservoir.cu).
+// (K1 and K2 through dfr_sample.cuh, K5 in streaming_q8.cu, K6 in
+// reservoir.cu).
 //
 // A sample's live rows j(0), ..., j(len-1), Nx floats each and contiguous
 // in device memory, stream through a ring of kStageSlots chunks of

@@ -1,54 +1,105 @@
 // K2: fused streaming step, reservoir -> DPRR -> readout logits.
 //
 // Replaces the TPU kernel src/repro/kernels/streaming.py:_streaming_kernel
-// (entry streaming_step_pallas).  Per sample it runs the same time loop as
-// K1 and contracts the register-resident DPRR accumulator with its system's
-// readout W (Ny, Nx^2 + Nx) directly, one warp reduction per class, then
-// adds the bias: logits = r . W^T + b.  Neither X nor r is stored.
+// (entry streaming_step_pallas).  Per sample it runs K1's time loop
+// (dfr_sample.cuh) and contracts the DPRR vector r with its system's
+// readout W (Ny, Nx^2 + Nx), then adds the bias: logits = r . W^T + b.
+// Neither X nor r reaches device memory.
 //
-// What bounds it on an H100: the latency of the sequential time loop, as in
-// K1 (see train.cu); the readout adds Ny warp reductions at the end and
-// reads the system's W once per sample from L2.  One launch covers every
-// slot of a server step: p, q, W and b are read per system, so W needs no
-// relayout into the TPU's (ny_pad, n_pad, n_pad) tile.
-#include "dfr_step.cuh"
+// What bounds it on an H100: the latency of the sample's chain of dependent
+// steps, as in K1 (see dfr_sample.cuh for the design); one warp a sample and
+// a block, and one instantiation for each f, as K1.  The readout waits on
+// W[sys] (37.2 KB at Ny = 10):
+//   * r goes to shared memory in its layout, and lane l takes its elements
+//     l, l + 32, ..., so that each class row of W loads coalesced;
+//   * kClasses classes are summed at once, with independent accumulators
+//     and their warp reductions interleaved, and the loads of the next
+//     kClasses classes are in flight while they are summed.  Prefetching W
+//     into L1 or L2 during the time loop made the kernel slower.
+// One launch covers every slot of a server step: p, q, W and b are read per
+// system, so W needs no relayout into the TPU's (ny_pad, n_pad, n_pad)
+// tile.
+#include "dfr_sample.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dfr::kWarpsPerBlock * 32)
+constexpr int kTerms = (dfr::kMaxNodes * (dfr::kMaxNodes + 1) + 31) / 32;
+constexpr int kClasses = 2;  // classes summed at once
+
+template <int kCode>
+__global__ void __launch_bounds__(32)
 streaming_logits_kernel(const float* __restrict__ j,
                         const int* __restrict__ lengths,
                         const float* __restrict__ p,
                         const float* __restrict__ q,
                         const float* __restrict__ W,
-                        const float* __restrict__ bias, int n_samples, int T,
-                        int nx, int ny, int spp, int code, float alpha,
+                        const float* __restrict__ bias, int T, int nx,
+                        int ny, int spp, float alpha,
                         float* __restrict__ out) {
-  const int b = blockIdx.x * dfr::kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= n_samples) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
+  __shared__ dfr::SampleShared sh;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
   const int sys = b / spp;
-
-  dfr::SampleResult res;
-  dfr::run_sample(j + static_cast<size_t>(b) * T * nx, T, nx, lengths[b],
-                  p[sys], q[sys], code, alpha, res);
-
   const int nr = nx * (nx + 1);
-  const float* w_sys = W + static_cast<size_t>(sys) * ny * nr;
-  for (int y = 0; y < ny; ++y) {
-    const float* wy = w_sys + static_cast<size_t>(y) * nr;
-    float part = 0.0f;
-    if (lane < nx) {
+  const float* const w_sys = W + static_cast<size_t>(sys) * ny * nr;
+
+  dfr::SampleOut s;
+  dfr::run_sample<kCode>(
+      sh, j + static_cast<size_t>(b) * T * nx, T, nx, lengths + b, p + sys,
+      q + sys, alpha, s);
+  const float* const rs = dfr::store_r(sh, s, nx);
+  float rv[kTerms];
 #pragma unroll
-      for (int i = 0; i < dfr::kMaxNodes; ++i)
-        if (i < nx) part = fmaf(res.acc[i], __ldg(wy + lane * nx + i), part);
-      part = fmaf(res.acc_sum, __ldg(wy + nx * nx + lane), part);
+  for (int m = 0; m < kTerms; ++m) {
+    const int e = lane + 32 * m;
+    const float v = rs[e];  // inside the state ring whatever nr is
+    rv[m] = e < nr ? v : 0.0f;
+  }
+
+  // A group's loads are unconditional, at addresses clamped into W[sys],
+  // and independent, so they are all in flight together, and the next
+  // group's are issued before this group is summed; rv is 0 past r, and
+  // the sums of classes past Ny are not stored.
+  auto load = [&](int y0, float (&w)[kClasses][kTerms]) {
+#pragma unroll
+    for (int c = 0; c < kClasses; ++c) {
+      const float* const wy =
+          w_sys + static_cast<size_t>(min(y0 + c, ny - 1)) * nr;
+#pragma unroll
+      for (int m = 0; m < kTerms; ++m)
+        w[c][m] = __ldg(wy + min(lane + 32 * m, nr - 1));
+    }
+  };
+  auto emit = [&](int y0, const float (&w)[kClasses][kTerms]) {
+    float part[kClasses];
+#pragma unroll
+    for (int c = 0; c < kClasses; ++c) {
+      part[c] = 0.0f;
+#pragma unroll
+      for (int m = 0; m < kTerms; ++m)
+        part[c] = fmaf(rv[m], w[c][m], part[c]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_xor_sync(dfr::kFullMask, part, off);
-    if (lane == 0)
-      out[static_cast<size_t>(b) * ny + y] = part + bias[sys * ny + y];
+#pragma unroll
+      for (int c = 0; c < kClasses; ++c)
+        part[c] += __shfl_xor_sync(dfr::kFullMask, part[c], off);
+    float v = part[0];
+#pragma unroll
+    for (int c = 1; c < kClasses; ++c)
+      if (lane == c) v = part[c];
+    const int y = y0 + lane;
+    if (lane < kClasses && y < ny)
+      out[static_cast<size_t>(b) * ny + y] = v + bias[sys * ny + y];
+  };
+  float wa[kClasses][kTerms], wb[kClasses][kTerms];
+  load(0, wa);
+  for (int y0 = 0; y0 < ny; y0 += 2 * kClasses) {
+    load(y0 + kClasses, wb);
+    emit(y0, wa);
+    if (y0 + kClasses >= ny) break;
+    load(y0 + 2 * kClasses, wa);
+    emit(y0 + kClasses, wb);
   }
 }
 
@@ -62,12 +113,11 @@ extern "C" int dfr_streaming_logits(const float* j, const int* lengths,
                                     float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks =
-      (n_samples + dfr::kWarpsPerBlock - 1) / dfr::kWarpsPerBlock;
-  streaming_logits_kernel<<<blocks, dfr::kWarpsPerBlock * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      j, lengths, p, q, W, bias, n_samples, T, nx, ny, spp, code, alpha,
-      out);
+  auto kernel = code == 0   ? streaming_logits_kernel<0>
+                : code == 1 ? streaming_logits_kernel<1>
+                            : streaming_logits_kernel<2>;
+  kernel<<<n_samples, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      j, lengths, p, q, W, bias, T, nx, ny, spp, alpha, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,10 +24,14 @@ A process prints one JSON line, in the run's order:
 - ``k3_ms``: K3's device time (the median of 50) on chip_smoke.py's fold
   at (32, 4, 931), and ``k3_equal``, whether it equals its plain version
   bit for bit there;
-- ``k5_ms``: K5's device time (the median of 50) on chip_smoke.py's operands
-  (32 slots x a window of 4, T = 93, Nx = 30, Ny = 10, the kernel alone on
-  the codes and scales its wrapper builds), and ``k5_equal``, whether its
-  int32 accumulators equal its plain version's there.
+- ``k1_ms`` and ``k2_ms``: K1's and K2's device times (the median of 50)
+  on chip_smoke.py's phase-3 operands (32 slots x a window of 4, T = 93,
+  Nx = 30, Ny = 10, the paper's ARAB configuration), each kernel called
+  through its wrapper on the flat operands;
+- ``k5_ms``: K5's device time (the median of 50) on the same operands (the
+  kernel alone on the codes and scales its wrapper builds), and
+  ``k5_equal``, whether its int32 accumulators equal its plain version's
+  there.
 
 It calls only APIs that the package has had since DFRModel was ported, so
 it also runs on older trees.
@@ -95,7 +99,7 @@ def measure(label: str, calls: int) -> dict:
         fit_ridge()
         walls.append(1e3 * (time.perf_counter() - t0))
     out["fit_ridge_ms"] = walls
-    out["fit_ridge_median_ms"] = statistics.median(walls)
+    out["fit_ridge_median_ms"] = statistics.median(walls) if walls else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         fit_ridge()
@@ -137,30 +141,41 @@ def measure(label: str, calls: int) -> dict:
     out["k3_ms"] = device_ms(
         lambda dst: ops.cholupdate_window_t(dst, X, out=dst, backend="cuda"),
         setup=Lt.clone)
-    out["k5_equal"], out["k5_ms"] = k5_timing(dev)
+    out.update(stream_timing(dev))
     return out
 
 
-def k5_timing(dev) -> tuple:
-    """K5 on chip_smoke.py's operands: whether its accumulators equal the
-    plain version's, and its device time on the prepared codes."""
+def stream_timing(dev) -> dict:
+    """K1, K2 and K5 on chip_smoke.py's phase-3 operands: their device
+    times, and whether K5's accumulators equal the plain version's."""
     import numpy as np
     import torch
 
     from repro_torch.core.types import DFRConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels import streaming as k_streaming
     from repro_torch.kernels import streaming_q8 as k_q8
+    from repro_torch.kernels import train as k_train
 
     S, W, T, nx, ny = 32, 4, 93, 30, 10
+    n = S * W
     rng = np.random.default_rng(0)
-    lengths = rng.integers(1, T + 1, S * W)
-    lengths[:3] = (1, T, 2)
+    lengths = rng.integers(1, T + 1, n)
+    lengths[:6] = (1, T, 2, 0, 16, 17)  # chip_smoke.py's STREAM_LENGTHS
     j = torch.from_numpy(rng.normal(size=(S, W, T, nx)).astype(np.float32))
     lens = torch.from_numpy(lengths.reshape(S, W).astype(np.int32))
     p = torch.from_numpy(rng.uniform(0.01, 0.5, S).astype(np.float32))
     q = torch.from_numpy(rng.uniform(-0.5, 0.5, S).astype(np.float32))
-    rng.normal(size=(S, ny, nx * (nx + 1)))  # chip_smoke.py's K2 weights
+    Wr = torch.from_numpy(
+        (0.01 * rng.normal(size=(S, ny, nx * (nx + 1)))).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(S, ny)).astype(np.float32))
+    f = DFRConfig(n_in=1, n_classes=ny, n_nodes=nx).f()
+    jf, lf, pd, qd, Wd, bd = (t.to(dev) for t in (
+        j.reshape(n, T, nx), lens.reshape(n), p, q, Wr, b))
+    out = {"k1_ms": device_ms(
+               lambda: k_train.train_forward_cuda(jf, lf, pd, qd, f)),
+           "k2_ms": device_ms(lambda: k_streaming.streaming_logits_cuda(
+               jf, lf, pd, qd, Wd, bd, f))}
     rng = np.random.default_rng(1)
     Wq = torch.from_numpy(rng.integers(-127, 128, (S, ny, nx * (nx + 1)))
                           .astype(np.int8))
@@ -168,13 +183,13 @@ def k5_timing(dev) -> tuple:
     x_scale = torch.from_numpy(rng.uniform(0.01, 0.05, S).astype(np.float32))
     w_scale[-1] = x_scale[-1] = 0.0
     args = [t.to(dev) for t in (j, lens, p, q, Wq, w_scale, x_scale, b)]
-    f = DFRConfig(n_in=1, n_classes=ny, n_nodes=nx).f()
     accs = [ops.streaming_logits_slots_q8(*args, nx, f=f, backend=be,
                                           return_acc=True)[1]
             for be in ("cuda", "torch")]
     flat = ops.streaming_q8_operands(*args, f)
-    return (bool(torch.equal(*accs)),
-            device_ms(lambda: k_q8.streaming_logits_q8_cuda(*flat)))
+    out["k5_equal"] = bool(torch.equal(*accs))
+    out["k5_ms"] = device_ms(lambda: k_q8.streaming_logits_q8_cuda(*flat))
+    return out
 
 
 def main(argv=None) -> int:

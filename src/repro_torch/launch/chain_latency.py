@@ -6,11 +6,12 @@ The DFR kernels K1, K2, K5 and K6 run one warp a sample through a chain of
 dependent steps, so their least time is the longest live length times the
 cycles of one step's dependent chain.  This script measures those cycles on
 the card: one warp runs a long dependent loop of each operation (and of
-K6's and K1/K2's whole step from ``kernels/csrc/dfr_step.cuh``), timed with
-``clock64`` at two loop lengths so that the loop's set-up cancels.  It
-prints one JSON object: cycles per dependent operation (``op_cycles``) and
-per whole step (``step_cycles``), beside the card's name and power limit.
-``chip_smoke.py``'s chain bounds use these numbers (``CHAIN_CYCLES``).
+the whole step that K1, K2 and K6 share, ``scan_step`` in
+``kernels/csrc/dfr_step.cuh``), timed with ``clock64`` at two loop lengths
+so that the loop's set-up cancels.  It prints one JSON object: cycles per
+dependent operation (``op_cycles``) and per whole step (``step_cycles``),
+beside the card's name and power limit.
+``chip_smoke.py``'s chain bounds use these numbers (``CHAIN``).
 
 The probe source is written below and built with nvcc into
 ``build/kernels/`` at first use, as the kernels are.
@@ -36,8 +37,6 @@ __global__ void chain_kernel(int which, int n, long long* out, float* sink) {
   int xi = lane + 1;
   dfr::RingScan scan;
   dfr::make_scan(0.3f, scan);
-  dfr::Ring ring;
-  dfr::make_ring(0.3f, 30, ring);
   __syncwarp();
   const long long t0 = clock64();
   switch (which) {
@@ -70,15 +69,10 @@ __global__ void chain_kernel(int which, int n, long long* out, float* sink) {
         x = row[i & 1][(lane + 1) & 31];
       }
       break;
-    case 6:  // K6's step (scan_step, linear f)
+    case 6:  // K1's, K2's and K6's step (scan_step, linear f)
 #pragma unroll 8
       for (int i = 0; i < n; ++i)
         x = dfr::scan_step(scan, 0.01f, x, 30, 0.2f, 0, 1.0f);
-      break;
-    case 7:  // K1's and K2's step (ring_step, linear f)
-#pragma unroll 8
-      for (int i = 0; i < n; ++i)
-        x = dfr::ring_step(ring, 0.01f, x, 30, 0.2f, 0, 1.0f);
       break;
   }
   const long long t1 = clock64();
@@ -94,7 +88,7 @@ extern "C" int chain_probe(int which, int n, long long* out, float* sink) {
 """
 OPS = ("fp32 FMA", "fp32 min/max", "IDP4A", "SHFL.UP", "SHFL.IDX",
        "shared store, __syncwarp, load")
-STEPS = ("K6 scan_step", "K1/K2 ring_step")
+STEPS = ("K1/K2/K6 scan_step",)
 REPS = (1024, 2048)
 
 

@@ -383,6 +383,66 @@ def test_k6_sample_counts_systems_and_lengths(dev, nx, n):
             assert bool((got[lens == 0] == 0).all())
 
 
+# K1 and K2 at one warp a block: lone samples and the grid's edges around
+# the 132 SMs, one system or several, T from 1 to 257 (several turns of the
+# state ring), lengths around the chunks of 16 steps (0, 1, 2, 15, 16, 17,
+# 31, 32, 33, T - 1 and T, as far as n and T allow; the first is T), all
+# three f, and Ny 1, 4, 5 and 10 across K2's groups of 2 classes.  Gains
+# where the reservoir is stable, as for K6 above.
+_EDGE_T_NY = ((1, 1), (17, 4), (93, 10), (257, 5))
+_EDGE_F = (Nonlinearity("linear", 0.8), Nonlinearity("tanh", 0.8),
+           Nonlinearity("mackey_glass", 1.0))
+
+
+def _edge_cases(dev, nx, n):
+    """(T, Ny, j, lengths, p, q, W, b) at each T, for 1 and several
+    systems."""
+    for t, ny in _EDGE_T_NY:
+        rng = np.random.default_rng(1000 * nx + 10 * n + t)
+        lengths = rng.integers(0, t + 1, n)
+        edges = list(dict.fromkeys(
+            min(v, t) for v in (t, 0, 1, 2, 15, 16, 17, 31, 32, 33, t - 1)))
+        lengths[:len(edges)] = edges[:n]
+        j = torch.from_numpy(rng.normal(size=(n, t, nx)).astype(np.float32))
+        lens = torch.from_numpy(lengths.astype(np.int32))
+        for n_sys in sorted({1, n} | ({n // 2} if n % 2 == 0 else set())):
+            arrays = (rng.uniform(0.01, 0.4, n_sys).astype(np.float32),
+                      rng.uniform(-0.5, 0.5, n_sys).astype(np.float32),
+                      (0.05 * rng.normal(size=(n_sys, ny, nx * (nx + 1))))
+                      .astype(np.float32),
+                      rng.normal(size=(n_sys, ny)).astype(np.float32))
+            yield (t, ny, j.to(dev), lens.to(dev),
+                   *(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
+def test_k1_sample_counts_systems_and_lengths(dev, nx, n):
+    for t, _, j, lens, p, q, _, _ in _edge_cases(dev, nx, n):
+        for f in _EDGE_F:
+            got = k_train.train_forward_cuda(j, lens, p, q, f)
+            want = ref.train_forward_ref(j, lens, p, q, f)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want,
+                                  ("r", "x_last", "x_prev", "j_last")):
+                torch.testing.assert_close(g, w, msg=f"{name} T={t}", **TOL)
+            # the boundary rows of steps that do not exist are exactly 0
+            assert not bool(got[2][lens <= 1].any())
+            assert not any(bool(g[lens == 0].any()) for g in got)
+
+
+@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
+def test_k2_sample_counts_systems_and_lengths(dev, nx, n):
+    for t, ny, j, lens, p, q, W, bias in _edge_cases(dev, nx, n):
+        for f in _EDGE_F:
+            got = k_streaming.streaming_logits_cuda(j, lens, p, q, W, bias, f)
+            want = ref.streaming_logits_ref(j, lens, p, q, W, bias, f)
+            torch.cuda.synchronize()
+            assert got.shape == (n, ny)
+            torch.testing.assert_close(got, want, msg=f"T={t}", **TOL)
+
+
 # K5 at every node count it takes and at lengths around its chunks of 16
 # steps and its integer products of 32 and 128 steps
 @pytest.mark.parametrize("nx", [1, 7, 30, 32])

@@ -58,6 +58,9 @@ K2_CASES = [
     (4, 64, 8, 2, 64, "tanh", 0.3, None),
     (4, 20, 8, 3, 8, "linear", -0.45, [20, 1, 7, 13]),
     (3, 12, 6, 5, 8, "mackey_glass", -0.3, [1, 12, 5]),
+    # lengths 0 and around the CUDA kernels' chunks of 16 steps, T = 257
+    (5, 257, 6, 3, 64, "tanh", -0.4, [0, 15, 16, 17, 257]),
+    (5, 257, 5, 4, 32, "linear", 0.35, [257, 17, 0, 16, 15]),
 ]
 
 
@@ -132,6 +135,35 @@ def test_train_forward_plain_matches_reference_kernel(b, t, nx, f_name, q,
     # length 1: x(T-1) is the initial state, exactly zero
     one = int(np.argmin(lens))
     assert lens[one] == 1 and not got[2][one].any()
+
+
+# lengths 0, 1 and around the CUDA kernels' chunks of 16 steps, T = 257
+K1_EDGE_CASES = [
+    (6, 257, 6, "linear", 0.35, [0, 15, 16, 17, 257, 1]),
+    (6, 257, 5, "mackey_glass", -0.4, [257, 17, 1, 0, 16, 15]),
+]
+
+
+@pytest.mark.parametrize("b,t,nx,f_name,q,lengths", K1_EDGE_CASES)
+def test_train_forward_plain_matches_reference_at_length_edges(
+        b, t, nx, f_name, q, lengths):
+    """As above, at lengths 0, 1, 15, 16, 17 and T = 257: the boundary rows
+    are exactly zero where the step does not exist (x(T-1) at lengths 0
+    and 1, all three at length 0), as in the reference."""
+    j, lens, _, _ = _inputs(b, t, nx, 1, seed=t + nx, lengths=lengths)
+    p = 0.3
+    want = rops.train_forward(
+        jnp.asarray(j), jnp.asarray(lens), jnp.float32(p), jnp.float32(q),
+        nx, f=cached_nonlinearity(f_name, 1.0), backend="interpret",
+        chunk_t=8, block_b=2)
+    got = ops.train_forward(_t(j), _t(lens), torch.tensor(p),
+                            torch.tensor(q), nx, f=Nonlinearity(f_name))
+    for g, w, name in zip(got, want, ("r", "x_last", "x_prev", "j_last")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    short, empty = torch.from_numpy(lens <= 1), torch.from_numpy(lens == 0)
+    assert not got[2][short].any()
+    assert not any(g[empty].any() for g in got)
 
 
 def test_train_forward_slots_match_reference_per_slot():
