@@ -44,13 +44,27 @@ Phases, each fatal on failure:
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
-     slots and windows of 4.  Two episodes, each with every launch count
-     set to 0 before it and read after it:
+     slots and windows of 4, each round replayed from the server's CUDA
+     graphs (the default on the card).  A server serves the 64 streams
+     twice: a warm-up wave (the kernels' first loads, the graphs' capture),
+     then the measured wave, with every launch count set to 0 before it
+     and read after it:
        fp32   - recompute refresh: K1 and K2 once per round;
        int8   - quantize='int8', refresh_mode='incremental': K1, K2, K5 and
                 K3 once per round.
-  4b. One wave of each episode under torch.profiler: the device's busy
-     share and the kernels and host ops that take the time.
+     Printed: samples/s, p50/p99 of a dispatch, graph replays and eager
+     bodies a round, the server's peak memory (allocated and reserved).
+  4b. The measured wave of each path under torch.profiler, through the
+     captured round, the eager round and the pipelined, blocked round: the
+     device's busy time a round and idle share, the graph launches and the
+     kernel launches and copies outside graphs a round, and the kernels and
+     host ops that take the time.
+  4c. Each path through the captured round, the eager round (the captured
+     round's oracle, reached through the server's private attribute) and
+     the captured round at pipeline_depth=2, step_block=4, alternated
+     (captured, eager, pipelined, pipelined, eager, captured): each run's
+     numbers, and every run must serve the first captured run's
+     predictions and end with its final states bit for bit.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
      first 800 ARAB samples, same widths) served on the card and on the CPU.
   6. The training path at full width: DFRModel.fit(train, minibatch=4) on
@@ -99,6 +113,7 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
 """
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -117,7 +132,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import masking, ridge  # noqa: E402
 from repro_torch.core.dfr import DFRModel  # noqa: E402
 from repro_torch.core.online import OnlineDFR  # noqa: E402
-from repro_torch.core.types import DFRConfig, TimeSeriesBatch  # noqa: E402
+from repro_torch.core.types import (DFRConfig, TimeSeriesBatch,  # noqa: E402
+                                    map_leaves)
 from repro_torch.data import PAPER_DATASETS, load  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cholesky as k_cholesky  # noqa: E402
@@ -247,6 +263,13 @@ PATHS = {
              ("K1 train_forward", "K2 streaming_logits",
               "K5 streaming_logits_q8", "K3 cholupdate_window_t")),
 }
+# how a server of a path runs its rounds: replayed from its CUDA graphs (the
+# default on the card), through the eager round (the captured round's
+# oracle, reached through the server's private ``_graphs``), and replayed
+# at the reference benchmark's pipeline_depth=2 and step_block=4
+# (benchmarks/bench_stream.py)
+KINDS = {"captured": {}, "eager": {},
+         "pipelined": dict(pipeline_depth=2, step_block=4)}
 
 
 class SmokeFailure(RuntimeError):
@@ -809,52 +832,107 @@ def serve(cfg, streams, t_max, per_stream, max_streams, device, **kw):
     return srv, {r.rid: r for r in done}
 
 
-def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
-    """One full-width ARAB episode of ``path`` (see PATHS), with every
-    kernel's launch count set to 0 just before it and read just after."""
-    knobs, on_path = PATHS[path]
+def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
+    """One full-width ARAB server of ``path`` (see PATHS) and ``kind`` (see
+    KINDS) serving two waves of the same 64 streams on its 32 slots.  The
+    first is the warm-up: each kernel's first load, the libraries' set-up
+    and, on the captured round, the capture of each graph (a server's graphs
+    hold its own tensors, so every server captures its own).  The second is
+    measured, with every launch count set to 0 just before it and read just
+    after, under ``profile`` (a torch.profiler context) where given.  The
+    peak memory is the server's over both waves, above what the process
+    held before it: allocated, and reserved (the graphs' pool is reserved,
+    and a replay allocates nothing)."""
+    knobs = {**PATHS[path][0], **KINDS[kind]}
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 64)
-    n_total = sum(s.n_samples for s in streams)
-    # warm-up on all 32 slots through a refresh round: one-time CUDA library
-    # set-up and the first load of each kernel at the episode's batch
-    # shapes stay out of the measured episode
-    wstreams, wper = make_streams(arrays, 32, n_samples=32 * 24)
-    serve(cfg, wstreams, t_max, wper, 32, "cuda", **knobs)
-    del wstreams   # their final-state snapshots would count in the peak
+    srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
+                       phase_steps=phase_steps_for(per_stream, 4),
+                       refresh_every=5, device="cuda",
+                       pool_capacity=max(s.n_samples for s in streams),
+                       **knobs)
+    if kind == "eager":
+        srv._graphs = None   # the eager round: the captured round's oracle
     torch.cuda.synchronize()
-
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0
     t0 = time.perf_counter()
-    srv, done = serve(cfg, streams, t_max, per_stream, 32, "cuda", **knobs)
+    for s in streams:
+        srv.submit(s)
+    srv.run_until_drained(strict=True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: kernel.launches for name, kernel in KERNELS.items()}
-    rounds = srv.global_step
-    served = sum(len(r.preds) for r in done.values())
-    lat = srv.latency_percentiles_ms()
+    warm_s = time.perf_counter() - t0
+
+    streams, _ = make_streams(arrays, 64)
+    for rec in (srv.step_times_s, srv.dispatch_times_s, srv.drain_times_s):
+        rec.clear()
+    graphs = srv._graphs
+    replays0 = graphs.replays if graphs else 0
+    eager0 = graphs.eager_calls if graphs else 0
+    step0, int8_0 = srv.global_step, srv.served_int8
+    reset_launches()
+    with profile if profile is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        for s in streams:
+            srv.submit(s)
+        done = srv.run_until_drained(strict=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rounds = srv.global_step - step0
+    return dict(
+        srv=srv, done={r.rid: r for r in done[-len(streams):]}, wall=wall,
+        warm_s=warm_s, rounds=rounds, dispatches=len(srv.step_times_s),
+        launches=read_launches(), lat=srv.latency_percentiles_ms(),
+        replays=(graphs.replays - replays0) if graphs else 0,
+        eager_calls=(graphs.eager_calls - eager0) if graphs else rounds,
+        served=sum(r.n_samples for r in streams),
+        served_int8=srv.served_int8 - int8_0,
+        peak_alloc=torch.cuda.max_memory_allocated() - base_alloc,
+        peak_reserved=torch.cuda.max_memory_reserved() - base_reserved)
+
+
+def run_line(res: dict) -> str:
+    """A serving run's numbers as one printable phrase."""
+    lat, r = res["lat"], res["rounds"]
+    return (f"{res['served'] / res['wall']:.1f} samples/s ({res['served']} "
+            f"in {res['wall']:.3f} s, {r} rounds, {res['dispatches']} "
+            f"dispatches); dispatch p50 {lat['p50_ms']:.3f} ms, p99 "
+            f"{lat['p99_ms']:.3f} ms (enqueue p50 "
+            f"{lat['dispatch_p50_ms']:.3f} ms, prediction read p50 "
+            f"{lat['drain_p50_ms']:.3f} ms); {res['replays'] / r:.2f} graph "
+            f"replays and {res['eager_calls']} eager bodies over {r} rounds; "
+            f"peak memory of the server: max_memory_allocated "
+            f"{res['peak_alloc'] / 2**20:.1f} MiB, max_memory_reserved "
+            f"{res['peak_reserved'] / 2**20:.1f} MiB; warm-up wave "
+            f"{res['warm_s']:.3f} s")
+
+
+def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
+    """The main path ``path`` through the captured round (the default on
+    the card): one measured wave with every kernel's launch count set to 0
+    just before it and read just after."""
+    knobs, on_path = PATHS[path]
+    res = serving_run(cfg, arrays, path, "captured")
+    srv, done, rounds = res["srv"], res["done"], res["rounds"]
+    launches, served = res["launches"], res["served"]
     acc = float(np.mean([r.online_accuracy for r in done.values()]))
     tag = f"[{card}] {path}"
-    print(f"  {tag}: ARAB Nx={cfg.n_nodes} s={cfg.s} {knobs or 'defaults'}: "
-          f"{len(done)} streams, {rounds} rounds, {served} samples served "
-          f"in {wall:.3f} s ({served / wall:.1f} samples/s)")
-    print(f"  {tag}: step p50 {lat['p50_ms']:.3f} ms, p99 "
-          f"{lat['p99_ms']:.3f} ms (prediction read p50 "
-          f"{lat['drain_p50_ms']:.3f} ms); mean rolling online accuracy "
-          f"{acc:.4f}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"  {tag}: ARAB Nx={cfg.n_nodes} s={cfg.s} {knobs or 'defaults'}, "
+          f"captured round: {len(done)} streams, " + run_line(res))
+    print(f"  {tag}: mean rolling online accuracy {acc:.4f}")
+    check(res["replays"] > 0, "the captured round replayed no graph")
     if knobs.get("quantize") == "int8":
-        print(f"  {tag}: {srv.served_int8} of {served} predictions "
-              f"({srv.served_int8 / served:.4f}) served from armed int8 "
+        print(f"  {tag}: {res['served_int8']} of {served} predictions "
+              f"({res['served_int8'] / served:.4f}) served from armed int8 "
               f"slots")
-        check(srv.served_int8 > 0, "no prediction came from an armed slot")
+        check(res["served_int8"] > 0, "no prediction came from an armed slot")
     print(f"  {tag}: launches: " + ", ".join(
         f"{name.split()[0]} {count}" for name, count in launches.items())
         + f" over {rounds} rounds")
-    check(served == n_total, f"served {served} of {n_total} samples")
-    check(len(done) == len(streams), "not every stream completed")
+    check(sum(len(r.preds) for r in done.values()) == served,
+          f"served fewer than {served} samples")
     for name, count in launches.items():
         want = rounds if name in on_path else 0
         check(count == want, f"{path}: {name}: {count} launches over "
@@ -880,47 +958,100 @@ def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
     return {name: launches[name] for name in on_path}
 
 
-def profile_phase(card: str, cfg, arrays, path: str, top: int = 8) -> None:
-    """Where a server step's time goes: one wave of the main path ``path``
-    (32 ARAB streams on the 32 slots) under torch.profiler.  Prints the
-    device's busy share of the wall time and the kernels and host ops that
-    take the most time.  Profiling slows the host, so the main path's own
-    numbers come from phase 4, not from here."""
+def profile_phase(card: str, cfg, arrays, path: str, kind: str,
+                  top: int = 6) -> None:
+    """Where a round's time goes: the measured wave of ``serving_run``
+    under torch.profiler.  Prints the device's busy time a round and its
+    idle share of the wall time, the graph launches and the kernel launches
+    and copies issued outside graphs a round (runtime API calls the
+    profiler saw), and the kernels and host ops that take the most time.
+    Profiling slows the host, so the wave's own numbers come from phases 4
+    and 4c, not from here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t_max = arrays[0].shape[1]
-    streams, per_stream = make_streams(arrays, 32, n_samples=3300)
-    srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
-                       phase_steps=phase_steps_for(per_stream, 4),
-                       refresh_every=5, device="cuda", **PATHS[path][0])
-    for s in streams:
-        srv.submit(s)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        srv.run_until_drained(strict=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    res = serving_run(cfg, arrays, path, kind, profile=prof)
+    wall, rounds = res["wall"], res["rounds"]
     events = prof.key_averages()
     # kernel events only: an operator's device time repeats its kernels'
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in dev)
-    print(f"  [{card}] {path}: profiled {srv.global_step} rounds in "
-          f"{wall:.3f} s; "
-          f"device busy {busy_us / 1e3:.3f} ms = "
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def api_calls(*prefixes):
+        return sum(e.count for e in host if e.key.startswith(prefixes))
+
+    graph_launches = api_calls("cudaGraphLaunch")
+    launches = api_calls("cudaLaunchKernel", "cuLaunchKernel")
+    copies = api_calls("cudaMemcpy")
+    print(f"  [{card}] {path} {kind}: profiled {rounds} rounds "
+          f"({res['dispatches']} dispatches) in {wall:.3f} s; device busy "
+          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e3 / rounds:.3f} ms a round, "
           f"{100 * busy_us / 1e6 / wall:.1f}% of wall (idle "
-          f"{100 - 100 * busy_us / 1e6 / wall:.1f}%)")
+          f"{100 - 100 * busy_us / 1e6 / wall:.1f}%); a round: "
+          f"{graph_launches / rounds:.2f} graph launches, "
+          f"{launches / rounds:.1f} kernel launches and "
+          f"{copies / rounds:.2f} copies outside graphs")
     for e in dev[:top]:
         print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
-    for e in host[:top]:
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
     check(busy_us > 0, "the profiler saw no device time")
+    if kind != "eager":
+        check(graph_launches > 0, "the profiler saw no graph launch")
+
+
+def same_serving(a: dict, b: dict) -> tuple:
+    """(predictions equal, final states equal bit for bit) of two runs'
+    measured waves and servers."""
+    preds = all(a["done"][rid].preds == r.preds
+                for rid, r in b["done"].items())
+    states = [(x.final_state, y.final_state) for x, y in
+              ((a["done"][rid], r) for rid, r in b["done"].items())]
+    states.append((a["srv"].states, b["srv"].states))
+    leaves_a, leaves_b = [], []
+    for sa, sb in states:
+        map_leaves(leaves_a.append, sa)
+        map_leaves(leaves_b.append, sb)
+    return preds, all(torch.equal(x, y) for x, y in zip(leaves_a, leaves_b))
+
+
+def rounds_phase(card: str, cfg, arrays, path: str) -> None:
+    """The captured round, the eager round and the captured round at the
+    reference benchmark's pipeline_depth=2, step_block=4, each as
+    ``serving_run``'s measured wave, alternated (captured, eager,
+    pipelined, pipelined, eager, captured) because host speed varies within
+    a call.  Every run must serve the first captured run's predictions and
+    end with its final states, bit for bit."""
+    order = ("captured", "eager", "pipelined", "pipelined", "eager",
+             "captured")
+    runs = []
+    for kind in order:
+        res = serving_run(cfg, arrays, path, kind)
+        print(f"  [{card}] {path} {kind}: " + run_line(res))
+        runs.append(res)
+    first = runs[0]
+    for kind, res in zip(order[1:], runs[1:]):
+        preds, states = same_serving(res, first)
+        print(f"  {path}: {kind} against the first captured run: "
+              f"predictions {'equal' if preds else 'DIFFER'}, final states "
+              f"{'equal bit for bit' if states else 'DIFFER'}")
+        check(preds and states,
+              f"{path}: the {kind} round serves another episode")
+    for kind in KINDS:
+        sps = [r["served"] / r["wall"] for k, r in zip(order, runs)
+               if k == kind]
+        p50 = [r["lat"]["p50_ms"] for k, r in zip(order, runs) if k == kind]
+        print(f"  {path} {kind}: samples/s " + ", ".join(
+            f"{x:.1f}" for x in sps) + "; dispatch p50 " + ", ".join(
+            f"{x:.3f} ms" for x in p50))
+    check(all(r["replays"] == 0 for k, r in zip(order, runs)
+              if k == "eager"), "the eager round replayed a graph")
 
 
 def agreement_phase(cfg, arrays, path: str) -> None:
@@ -1502,7 +1633,12 @@ def main() -> int:
             launches.setdefault(name, count)
     print("[4b] where the server's time goes (torch.profiler)")
     for path in PATHS:
-        profile_phase(card, cfg, arrays, path)
+        for kind in KINDS:
+            profile_phase(card, cfg, arrays, path, kind)
+    print("[4c] captured, eager, and pipelined and blocked rounds, "
+          "alternated")
+    for path in PATHS:
+        rounds_phase(card, cfg, arrays, path)
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)

@@ -218,6 +218,7 @@ def online_serve_step(
     train: bool = True,
     track_state_absmax: bool = False,
     fused: bool = False,
+    accumulate_in_place: bool = False,
 ) -> Tuple[OnlineState, Tensor, Dict[str, Tensor]]:
     """Fused infer-before-update + train step for the serving path.
 
@@ -250,7 +251,10 @@ def online_serve_step(
 
     ``forget=None`` always: the retirement modes are not ported.  Returns
     (new state, logits (*P, B, Ny), metrics).  The input state is not
-    modified.
+    modified, except with ``accumulate_in_place``: the window's statistics
+    are then added into ``state.ridge.A`` and ``.B`` themselves (same
+    rounding), which the new state returns.  The stream server's captured
+    round updates its (S, s, s) B so, with no copy of it.
     """
     if maintain_factor not in (False, "defer"):
         raise ValueError(f"maintain_factor must be False or 'defer', got "
@@ -284,7 +288,8 @@ def online_serve_step(
     acc = accumulate.to(dt)
     live = w * acc[..., None]                      # (*P, B) accumulated rows
     rt = dprr.r_tilde(aux.r) * live[..., None]
-    A, B = ridge.accumulate_ab(state.ridge.A, state.ridge.B, rt, onehot)
+    A, B = ridge.accumulate_ab(state.ridge.A, state.ridge.B, rt, onehot,
+                               in_place=accumulate_in_place)
     moved = acc * n_w
     fb = state.ridge.factor_beta
     if maintain_factor != "defer":

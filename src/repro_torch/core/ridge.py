@@ -27,16 +27,19 @@ from repro_torch.core.types import Tensor, unported
 DOWNDATE_GUARD_REL = 1e-6
 
 
-def accumulate_ab(A: Tensor, B: Tensor, r_tilde: Tensor,
-                  onehot: Tensor) -> Tuple[Tensor, Tensor]:
+def accumulate_ab(A: Tensor, B: Tensor, r_tilde: Tensor, onehot: Tensor,
+                  in_place: bool = False) -> Tuple[Tensor, Tensor]:
     """Rank-k update of (A, B) with a batch of samples.
 
     r_tilde: (..., batch, s), onehot: (..., batch, Ny); A (..., Ny, s) and
-    B (..., s, s) carry the same leading dims.
+    B (..., s, s) carry the same leading dims.  ``in_place`` adds into A and
+    B and returns them, rounding exactly as the sum into new tensors.
     """
-    A = A + onehot.transpose(-1, -2) @ r_tilde
-    B = B + r_tilde.transpose(-1, -2) @ r_tilde
-    return A, B
+    dA = onehot.transpose(-1, -2) @ r_tilde
+    dB = r_tilde.transpose(-1, -2) @ r_tilde
+    if in_place:
+        return A.add_(dA), B.add_(dB)
+    return A + dA, B + dB
 
 
 def regularize(B: Tensor, beta) -> Tensor:
@@ -107,11 +110,13 @@ def ridge_cholesky_batched(A: Tensor, B: Tensor) -> Tensor:
     """Batched ridge solve:  A (K, Ny, s), B (K, s, s)  ->  W~ (K, Ny, s).
 
     Cholesky plus two triangular solves per member, no inverse; NaN for a
-    system that is not positive definite (``cholesky_or_nan``).
+    system that is not positive definite (``cholesky_or_nan``).  The solves
+    are the incremental refresh's (``ridge_solve_from_factor_t_batched``),
+    not ``torch.cholesky_solve``: on a CUDA batch that one runs MAGMA, whose
+    queue allocates device memory, which a CUDA graph capture forbids (the
+    stream server captures this refresh).
     """
-    C = cholesky_or_nan(B)
-    X = torch.cholesky_solve(A.transpose(-1, -2), C)
-    return X.transpose(-1, -2)
+    return ridge_solve_from_factor_t_batched(A, cholesky_or_nan(B).mT)
 
 
 def ridge_solve_batched(A: Tensor, B: Tensor,

@@ -10,13 +10,14 @@ build raises with the compiler's output.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -26,6 +27,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_NODES = 32  # one warp per sample: lane n holds node n
 BACKENDS = ("cuda", "torch")
+# launches recorded into a CUDA graph, counted here instead of in
+# ``CudaKernel.launches`` while a capture is being tallied
+_TALLY: Optional[Dict["CudaKernel", int]] = None
 
 
 def cuda_tool(name: str) -> str:
@@ -80,12 +84,30 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
     return logs
 
 
+@contextlib.contextmanager
+def tally_launches() -> Iterator[Dict["CudaKernel", int]]:
+    """Count the launches made inside the block into the yielded dict, not
+    into ``CudaKernel.launches``: a launch recorded into a CUDA graph during
+    capture has not run.  The graph adds its tally at every replay
+    (``runtime.graphs``)."""
+    global _TALLY
+    if _TALLY is not None:
+        raise RuntimeError("launch tallies do not nest")
+    _TALLY = {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = None
+
+
 class CudaKernel:
     """One kernel's C launcher in its shared library, plus its launch count.
 
-    ``launches`` counts successful launches only, and only here: nothing
-    else increments it, so a run that resets it to 0 and reads it after
-    sees exactly how often the kernel ran.
+    ``launches`` counts the kernel's runs: each successful eager launch
+    here, and each replay of a CUDA graph that holds it, added by the graph
+    (``runtime.graphs``); a launch recorded during capture counts in the
+    capture's tally instead.  Nothing else increments it, so a run that
+    resets it to 0 and reads it after sees exactly how often the kernel ran.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence):
@@ -116,7 +138,10 @@ class CudaKernel:
         if rc:
             raise RuntimeError(f"CUDA kernel '{self.name}' failed to launch: "
                                f"{self._err(rc).decode()} (error {rc})")
-        self.launches += 1
+        if _TALLY is not None:
+            _TALLY[self] = _TALLY.get(self, 0) + 1
+        else:
+            self.launches += 1
 
 
 def check_operand(name: str, t, dtype, dev, shape=None) -> None:

@@ -19,9 +19,16 @@ window's samples into the live factors.  On the CPU the step keeps the
 reference's off-TPU choices: the plain forward, and the serve step's own
 logits unless ``fused_infer=True``; K5 and K3 run their plain versions.
 
+On the card with ``staging='device'`` a round replays CUDA graphs of its
+fixed-shape bodies (``runtime.graphs``) instead of launching their kernels
+one by one from Python: the step, and the cohort refresh of a refresh
+round.  The round updates the server's state in place there, the
+counterpart of the reference's donated buffers.  The eager round
+(``_step_core``) serves on the CPU and under ``staging='host'``.
+
 The host keeps a mirror of every slot's step count, so choosing between the
 training and the frozen step never waits for the device; the one blocking
-read per step is the predictions.
+read per dispatch is the predictions, ``pipeline_depth`` dispatches later.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from repro_torch.core.online import (OnlineState, fold_quant_rows, init_state,
 from repro_torch.core.types import (DFRConfig, RequestPool, Tensor,
                                     map_leaves, resolve_device, unported)
 from repro_torch.kernels import ops
+from repro_torch.runtime.graphs import PinnedRing, RoundGraphs
 from repro_torch.runtime.scheduler import RefreshCohorts, SlotScheduler
 
 
@@ -74,11 +82,17 @@ def _bcast_to(mask1d: Tensor, leaf: Tensor) -> Tensor:
     return mask1d.reshape((-1,) + (1,) * (leaf.ndim - 1))
 
 
+def _assign(dst: OnlineState, src: OnlineState) -> None:
+    """Write every leaf of ``src`` that is not already ``dst``'s own into
+    ``dst``'s tensor, in place."""
+    map_leaves(lambda d, s: d if d is s else d.copy_(s), dst, src)
+
+
 def _step_core(
     cfg: DFRConfig,
     mask: Tensor,
     states: OnlineState,        # leading slot axis S on every leaf
-    fresh: OnlineState,         # single-system state: admission reset
+    fresh: Optional[OnlineState],  # single-system state: admission reset
     fresh_rows: Optional[Tensor],  # (K,) int64 slots admitted this step
     u: Tensor,                  # (S, W, T, n_in)
     length: Tensor,             # (S, W) int32
@@ -94,6 +108,7 @@ def _step_core(
     fused: bool = False,
     maintain_factor: bool = False,
     quantize: str = "none",
+    stats_in_place: bool = False,
 ) -> Tuple[OnlineState, Tensor, Optional[Tensor]]:
     """One server step: infer-before-update + train for every live slot.
 
@@ -114,6 +129,11 @@ def _step_core(
     fp32 logits.  ``maintain_factor`` folds the window's gated r~ rows into
     every slot's live factor through K3, once, after the liveness select;
     dead, tail and phase-1 rows are zero, hence no-ops.
+
+    ``stats_in_place`` adds the window's (A, B) statistics into
+    ``states.ridge`` itself (the captured round's in-place update).  Dead
+    slots then skip the liveness select on A and B: their rows add exact
+    zeros, and A and B never hold -0, so they keep their bits.
     """
     f = cfg.f()
     if fresh_rows is not None:
@@ -133,6 +153,7 @@ def _step_core(
         cfg, mask, states, u, length, label, lr_slot, weight, acc_slot,
         maintain_factor="defer" if maintain_factor else False, train=train,
         track_state_absmax=quantize == "int8", fused=fused,
+        accumulate_in_place=stats_in_place,
     )
     if fused_infer or quantize == "int8":
         j_seq = masking.apply_mask(mask, u)
@@ -217,28 +238,41 @@ class StreamServer:
         the predictions served from armed slots.
       * ``staging='device'`` (default): each stream's payload is uploaded
         once and windows are gathered on the device by cursor; the refresh
-        runs inside ``step``.  ``'host'`` builds and uploads each window
-        batch on the host and refreshes after the step.  Both serve the
-        same episode.
+        runs inside ``step``.  On a CUDA device the round is replayed from
+        CUDA graphs (``runtime.graphs``).  ``'host'`` builds and uploads
+        each window batch on the host and runs the eager round.  Both serve
+        the same episode.
+      * ``pipeline_depth=D``: predictions leave the device by a
+        non-blocking copy into pinned host memory and wait in a ring; a
+        dispatch reads (and books) the entries deeper than D, so the host
+        prepares the next D rounds while the device runs.  D = 0 reads each
+        round's predictions before ``step`` returns.  The slot lifecycle
+        stays cursor-driven at dispatch time, so D never changes what is
+        served.
+      * ``step_block=B``: up to B rounds in one ``step`` with one prediction
+        read.  The block is clamped so that no live slot completes inside
+        it and admissions happen only at its start, so a blocked episode
+        serves the ``step_block=1`` episode exactly.  Needs
+        ``staging='device'``, as in the reference.
       * ``fused_infer``: serve the logits through K2 (default: on a CUDA
         device).
+      * ``donate``: the reference donates the state buffers so XLA updates
+        them in place.  The captured round updates the server's state in
+        place whatever its value (the statistics with the same rounding,
+        the factor through K3's ``out=``, the rest copied back at the end
+        of each graph); the eager round replaces the state tree.
 
     Knobs with no effect in the port:
 
-      * ``donate``: JAX donates the state buffers so XLA can update them in
-        place; PyTorch has no donation, and the server replaces its state
-        tree every step while the caching allocator hands the freed
-        buffers to the next step, so there is nothing to donate.
       * ``chunk_t``: the time-chunk size of the reference's Pallas grid, a
         TPU tiling knob; the CUDA kernels run each sample's whole time loop
         in one warp and have no chunks.
 
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``retirement`` other than 'none', ``step_block > 1``,
-    ``pipeline_depth > 0``, ``devices > 1``, ``config='auto'``,
-    ``attach_autotuner`` and a non-float32 ``cfg.dtype``; the reference's
-    retirement parameters (``forget``, ``retire_window``, ``adapt_*``) come
-    with them.
+    ROADMAP item: ``retirement`` other than 'none', ``devices > 1``,
+    ``config='auto'``, ``attach_autotuner`` and a non-float32
+    ``cfg.dtype``; the reference's retirement parameters (``forget``,
+    ``retire_window``, ``adapt_*``) come with them.
     """
 
     def __init__(
@@ -284,14 +318,9 @@ class StreamServer:
         step_block = 1 if step_block is None else step_block
         if step_block < 1:
             raise ValueError(f"step_block must be >= 1, got {step_block!r}")
-        if step_block > 1:
-            raise unported("step_block > 1", "Pipelining and step blocking")
         if pipeline_depth < 0:
             raise ValueError(
                 f"pipeline_depth must be >= 0, got {pipeline_depth!r}")
-        if pipeline_depth > 0:
-            raise unported("pipeline_depth > 0",
-                           "Pipelining and step blocking")
         if devices < 1:
             raise ValueError(f"devices must be >= 1, got {devices!r}")
         if devices > 1:
@@ -304,13 +333,17 @@ class StreamServer:
             raise ValueError(
                 "quantize='int8' requires staging='device' (the scale fold "
                 "rides the refresh of the device-staged step)")
+        if step_block > 1 and staging != "device":
+            raise ValueError(
+                "step_block > 1 requires staging='device' (the blocked round "
+                "gathers every sub-step's window from the staged pool)")
         if latency_window < 1:
             raise ValueError(
                 f"latency_window must be >= 1, got {latency_window!r}")
         if chunk_t is not None and chunk_t < 1:
             raise ValueError(f"chunk_t must be None or >= 1, got {chunk_t!r}")
         self.device = resolve_device(device, "StreamServer")
-        del donate, chunk_t  # no effect in the port (see the docstring)
+        del donate, chunk_t  # see the docstring
 
         self.cfg = cfg
         self.t_max = int(t_max)
@@ -323,6 +356,8 @@ class StreamServer:
         self.refresh_mode = refresh_mode
         self.quantize = quantize
         self.staging = staging
+        self.pipeline_depth = int(pipeline_depth)
+        self.step_block = int(step_block)
         self.cohorts = RefreshCohorts(
             self.max_streams, self.refresh_every,
             1 if refresh_cohorts is None else refresh_cohorts)
@@ -360,6 +395,21 @@ class StreamServer:
             self.pool = RequestPool.zeros(
                 self.max_streams, cap, self.t_max, cfg.n_in, cfg.dtype,
                 self.device)
+        S, W, ring = self.max_streams, self.window, self.pipeline_depth + 1
+        # the captured round (None: the eager round).  Its control vector
+        # per sub-step: cursors, the live mask, then the admitted rows
+        self._graphs: Optional[RoundGraphs] = (
+            RoundGraphs() if on_card and self.staging == "device" else None)
+        self._ctl = torch.zeros((3 * S,), dtype=torch.int64,
+                                device=self.device)
+        self._ctl_host = PinnedRing(ring, (self.step_block, 3 * S),
+                                    torch.int64, self.device)
+        # predictions (S * W) then the armed flags (S) of each sub-step
+        self._out_host = PinnedRing(ring, (self.step_block, S * W + S),
+                                    torch.int64, self.device)
+        self._dispatches = 0
+        # in flight: (host predictions, copy event, sub-steps, meta)
+        self._inflight: Deque[Tuple] = deque()
         self._admitted_this_step: List[int] = []
         self._mask_cache: Dict[bytes, Tensor] = {}
         self._rows_cache: Dict[bytes, Tuple[Tensor, Tensor]] = {}
@@ -395,7 +445,8 @@ class StreamServer:
 
     def _grow_pool(self, cap: int) -> None:
         """Grow every slot row to ``cap`` samples (new longest stream), pad
-        values matching the staging defaults."""
+        values matching the staging defaults.  The graphs captured the old
+        pool's tensors, so they are captured again."""
         pad = cap - self.pool.capacity
         F = torch.nn.functional
         self.pool = RequestPool(
@@ -404,6 +455,8 @@ class StreamServer:
             label=F.pad(self.pool.label, (0, pad)),
             n=self.pool.n,
         )
+        if self._graphs is not None:
+            self._graphs.reset()
 
     def attach_autotuner(self, tuner) -> None:
         raise unported("attach_autotuner", "Autotuner")
@@ -450,22 +503,27 @@ class StreamServer:
                 mask_np.copy()).to(self.device)
         return hit
 
-    def _refresh(self, rows: np.ndarray, ok: np.ndarray,
-                 live: Tensor) -> None:
-        """Ridge refresh of slot rows ``rows`` on the post-step state (a
-        batched Cholesky, or two triangular solves against the live factor
-        in incremental mode); only live slots past phase 1 with accumulated
-        samples (and ``ok`` rows) take the new readout - solving a
-        zero-statistics system would wipe a trained W.  Under int8 the same
-        rows fold their serving scales."""
+    def _cached_rows(self, rows: np.ndarray,
+                     ok: np.ndarray) -> Tuple[Tensor, Tensor]:
+        """Device copies of a refresh cohort's rows and flags (one per
+        refresh phase), kept for the life of the server: a captured refresh
+        reads them at every replay."""
         key = rows.tobytes() + ok.tobytes()
         hit = self._rows_cache.get(key)
         if hit is None:
             hit = self._rows_cache[key] = (
                 torch.from_numpy(rows.astype(np.int64)).to(self.device),
                 torch.from_numpy(ok.copy()).to(self.device))
-        rows_t, ok_t = hit
-        st = self.states
+        return hit
+
+    def _refreshed(self, st: OnlineState, rows_t: Tensor, ok_t: Tensor,
+                   live: Tensor) -> OnlineState:
+        """Ridge refresh of slot rows ``rows_t`` on the post-step state ``st``
+        (a batched Cholesky, or two triangular solves against the live
+        factor in incremental mode); only live slots past phase 1 with
+        accumulated samples (and ``ok_t`` rows) take the new readout -
+        solving a zero-statistics system would wipe a trained W.  Under
+        int8 the same rows fold their serving scales."""
         el = (ok_t & live[rows_t] & (st.step[rows_t] >= self.phase_steps)
               & (st.ridge.count[rows_t] > 0))
         if self.refresh_mode == "incremental":
@@ -474,42 +532,107 @@ class StreamServer:
             st = refresh_output_rows(st, self.beta, rows_t, el)
         if self.quantize == "int8":
             st = fold_quant_rows(st, rows_t, el)
-        self.states = st
+        return st
 
     # -- the serving loop --------------------------------------------------
 
     def step(self) -> None:
-        """One global step: admit, advance every live slot one window,
-        refresh the due cohort, then read the predictions back (the one
-        blocking device read) and book-keep."""
+        """One dispatch: admit, advance every live slot one window (up to
+        ``step_block`` windows), refreshing the due cohort after each, then
+        book-keep at lag ``pipeline_depth``.
+
+        The predictions enter the in-flight ring; entries deeper than
+        ``pipeline_depth`` are read (the only blocking device read) and
+        booked, so depth 0 is synchronous."""
         t_start = time.perf_counter()
         self._admitted_this_step.clear()
         self.sched.admit(self._on_admit)
         S, W = self.max_streams, self.window
         live_np = np.zeros((S,), bool)
+        slots = self.sched.live()
         meta: List[Tuple] = []
-        for i, req in self.sched.live():
+        for i, req in slots:
             lo = int(self.slot_pos[i])
-            n = min(W, req.n_samples - lo)
             live_np[i] = True
-            meta.append((i, req, lo, n))
+            meta.append((0, i, req, lo, min(W, req.n_samples - lo)))
+        # step blocking: clamp the block so no live slot completes inside
+        # it; blocks then end at every retirement boundary, so admissions
+        # (the whole slot lifecycle) match the step_block=1 episode
+        n_sub = 1
+        if self.step_block > 1 and slots:
+            n_sub = min([self.step_block] + [
+                -(-(req.n_samples - lo) // W) for _, _, req, lo, _ in meta])
+            for t in range(1, n_sub):
+                for i, req in slots:
+                    lo = int(self.slot_pos[i]) + t * W
+                    meta.append((t, i, req, lo, min(W, req.n_samples - lo)))
+
+        out_host = self._out_host[self._dispatches]
+        ctl_host = self._ctl_host[self._dispatches]
+        for t in range(n_sub):
+            cursor = self.slot_pos + t * W * live_np
+            train = bool(np.any(live_np
+                                & (self._slot_steps < self.phase_steps)))
+            fresh = self._admitted_this_step if t == 0 else []
+            if self._graphs is not None:
+                self._substep_graphs(cursor, live_np, fresh, train,
+                                     ctl_host[t], out_host[t])
+            else:
+                self._substep_eager(cursor, live_np, fresh, train, meta,
+                                    out_host[t])
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+
+        # the slot lifecycle is cursor-driven, so retirement and refill
+        # never wait on the predictions; meta is sub-step-major, so a slot
+        # retires exactly at its block's end
+        for _t, i, req, lo, n in meta:
+            self.slot_pos[i] += n
+            if self.slot_pos[i] >= req.n_samples:
+                req.final_state = self._snapshot_row(i)
+                self.sched.retire(i)   # continuous batching: slot refills
+        self._inflight.append((out_host, event, n_sub, meta))
+        self._dispatches += 1
+        self.dispatch_times_s.append(time.perf_counter() - t_start)
+        while len(self._inflight) > self.pipeline_depth:
+            self._drain_one()
+        self.step_times_s.append(time.perf_counter() - t_start)
+
+    def _after_step(self, live_np: np.ndarray) -> Tuple[bool, np.ndarray,
+                                                        np.ndarray]:
+        """Advance the step counters; return the refresh due after this
+        step as fixed-shape (due, rows, ok), host staging's rows unpadded."""
+        self._slot_steps[live_np] += 1
+        self.global_step += 1
+        if self.staging == "device":
+            return self.cohorts.due_rows_fixed(self.global_step)
+        due_slots = self.cohorts.due_slots(self.global_step)
+        rows = np.asarray(due_slots or [], np.int32)
+        return due_slots is not None, rows, np.ones(rows.shape, bool)
+
+    def _substep_eager(self, cursor: np.ndarray, live_np: np.ndarray,
+                       fresh: List[int], train: bool, meta: List[Tuple],
+                       out_host: Tensor) -> None:
+        """One round through the eager ``_step_core`` (the CPU, host
+        staging, and the card's oracle for the captured round)."""
+        S, W = self.max_streams, self.window
         live = self._cached_mask(live_np)
         fresh_rows = None
-        if self._admitted_this_step:
-            fresh_rows = torch.tensor(self._admitted_this_step,
-                                      dtype=torch.int64, device=self.device)
-        train = bool(np.any(live_np & (self._slot_steps < self.phase_steps)))
-
+        if fresh:
+            fresh_rows = torch.tensor(fresh, dtype=torch.int64,
+                                      device=self.device)
         if self.staging == "device":
-            cursor = torch.from_numpy(self.slot_pos.copy()).to(self.device)
             u, length, label, weight = _gather_window(
-                self.pool, cursor, live, W, self.cfg.dtype)
+                self.pool, torch.from_numpy(cursor).to(self.device), live, W,
+                self.cfg.dtype)
         else:
             u = np.zeros((S, W, self.t_max, self.cfg.n_in), np.float32)
             length = np.ones((S, W), np.int32)  # dead samples: len 1, w 0
             label = np.zeros((S, W), np.int32)
             weight = np.zeros((S, W), np.float32)
-            for i, req, lo, n in meta:
+            for _t, i, req, lo, n in meta:
                 u[i, :n] = req.u[lo:lo + n]
                 length[i, :n] = req.length[lo:lo + n]
                 label[i, :n] = req.label[lo:lo + n]
@@ -526,56 +649,101 @@ class StreamServer:
             maintain_factor=self.refresh_mode == "incremental",
             quantize=self.quantize,
         )
-        self._slot_steps[live_np] += 1
-        self.global_step += 1
-        if self.staging == "device":
-            due, rows, ok = self.cohorts.due_rows_fixed(self.global_step)
-            if due:
-                self._refresh(rows, ok, live)
-        else:
-            due_slots = self.cohorts.due_slots(self.global_step)
-            if due_slots is not None:
-                rows = np.asarray(due_slots, np.int32)
-                self._refresh(rows, np.ones(rows.shape, bool), live)
+        out = _served(preds, armed)
+        out_host[:out.numel()].copy_(out, non_blocking=True)
+        due, rows, ok = self._after_step(live_np)
+        if due:
+            self.states = self._refreshed(
+                self.states, *self._cached_rows(rows, ok), live)
 
-        # the slot lifecycle is cursor-driven, so retirement and refill
-        # never wait on the predictions
-        for i, req, lo, n in meta:
-            self.slot_pos[i] += n
-            if self.slot_pos[i] >= req.n_samples:
-                req.final_state = self._snapshot_row(i)
-                self.sched.retire(i)   # continuous batching: slot refills
-        self.dispatch_times_s.append(time.perf_counter() - t_start)
+    def _substep_graphs(self, cursor: np.ndarray, live_np: np.ndarray,
+                        fresh: List[int], train: bool, ctl_host: Tensor,
+                        out_host: Tensor) -> None:
+        """One round from the captured graphs: the control vector up, the
+        admitted rows reset eagerly, the step graph, its predictions down,
+        then the due cohort's refresh graph."""
+        S, k = self.max_streams, len(fresh)
+        ctl = ctl_host.numpy()
+        ctl[:S] = cursor
+        ctl[S:2 * S] = live_np
+        ctl[2 * S:2 * S + k] = fresh
+        self._ctl.copy_(ctl_host, non_blocking=True)
+        if k:
+            # the admission reset writes whole (s, s) rows, so it stays out
+            # of the fixed-shape graph: a select over all S rows would read
+            # and write every slot's statistics each round
+            rows = self._ctl[2 * S:2 * S + k]
+            map_leaves(lambda leaf, row: leaf.index_copy_(
+                0, rows, row.expand(k, *row.shape)),
+                self.states, self._fresh_row)
+        all_live = bool(live_np.all())
+        out = self._graphs.run(("step", train, all_live),
+                               lambda: self._step_body(train, all_live))
+        out_host[:out.numel()].copy_(out, non_blocking=True)
+        due, rows_np, ok_np = self._after_step(live_np)
+        if due:
+            rows, ok = self._cached_rows(rows_np, ok_np)
+            self._graphs.run(("refresh", rows_np.tobytes(), ok_np.tobytes()),
+                             lambda: self._refresh_body(rows, ok))
 
+    def _step_body(self, train: bool, all_live: bool) -> Tensor:
+        """The captured step: gather, serve and train every slot in place
+        on ``self.states``; returns the served predictions (and flags)."""
+        S = self.max_streams
+        cursor, live = self._ctl[:S], self._ctl[S:2 * S] != 0
+        u, length, label, weight = _gather_window(
+            self.pool, cursor, live, self.window, self.cfg.dtype)
+        new, preds, armed = _step_core(
+            self.cfg, self.mask, self.states, None, None, u, length, label,
+            weight, live, self.lr, self.phase_steps, all_live=all_live,
+            train=train, fused_infer=self.fused_infer, fused=self.fused,
+            maintain_factor=self.refresh_mode == "incremental",
+            quantize=self.quantize, stats_in_place=True,
+        )
+        _assign(self.states, new)
+        return _served(preds, armed)
+
+    def _refresh_body(self, rows: Tensor, ok: Tensor) -> None:
+        """The captured cohort refresh, in place on ``self.states``."""
+        S = self.max_streams
+        live = self._ctl[S:2 * S] != 0
+        _assign(self.states, self._refreshed(self.states, rows, ok, live))
+
+    def _drain_one(self) -> None:
+        """Read the oldest in-flight dispatch's predictions (the only
+        blocking device read: its copy's event) and book them."""
+        out_host, event, n_sub, meta = self._inflight.popleft()
         t0 = time.perf_counter()
-        if armed is None:
-            preds_np = preds.cpu().numpy()   # blocks: the served predictions
-        else:   # the armed flags ride the same read
-            out = torch.cat([preds.reshape(-1), armed.to(preds.dtype)])
-            out = out.cpu().numpy()
-            preds_np, armed_np = out[:S * W].reshape(S, W), out[S * W:]
+        if event is not None:
+            event.synchronize()   # blocks: the served predictions
         self.drain_times_s.append(time.perf_counter() - t0)
-        for i, req, lo, n in meta:
-            if armed is not None and armed_np[i]:
+        S, W = self.max_streams, self.window
+        out = out_host[:n_sub].numpy()
+        preds, armed = out[:, :S * W].reshape(n_sub, S, W), out[:, S * W:]
+        for t, i, req, lo, n in meta:
+            if self.quantize == "int8" and armed[t, i]:
                 self.served_int8 += n
             for k in range(n):
-                pred = int(preds_np[i, k])
+                pred = int(preds[t, i, k])
                 req.preds.append(pred)
                 req.correct += int(pred == int(req.label[lo + k]))
             if lo + n >= req.n_samples:
                 req.done = True
                 req.finish_t = time.perf_counter()
-        self.step_times_s.append(time.perf_counter() - t_start)
 
     def drain(self) -> None:
-        """Predictions are read back inside ``step``; nothing is in flight
-        (``pipeline_depth`` is 0).  Kept for the reference's interface."""
+        """Flush the in-flight ring: read and book every dispatch's
+        predictions (accuracy, completion flags).  Idempotent; called by
+        ``run_until_drained``."""
+        while self._inflight:
+            self._drain_one()
 
     def run_until_drained(
         self, max_steps: int = 100000, strict: bool = False
     ) -> List[StreamRequest]:
-        """Serve until every stream completes.  A ``max_steps`` cut with
-        streams still live or queued warns (``strict=True`` raises)."""
+        """Serve until every stream completes, then flush the pipeline.  A
+        ``max_steps`` cut with streams still live or queued warns
+        (``strict=True`` raises)."""
         steps = 0
         while self.sched.active() and steps < max_steps:
             self.step()
@@ -597,10 +765,13 @@ class StreamServer:
         return self.sched.completed
 
     def latency_percentiles_ms(self) -> Dict[str, float]:
-        """p50/p99 of the per-step wall time (``p50_ms``/``p99_ms``, from
-        ``step()`` entry to the end of its bookkeeping), of its
-        non-blocking part up to the prediction read (``dispatch_*``) and of
-        that blocking read (``drain_*``).  NaN where nothing was recorded."""
+        """p50/p99 of the per-dispatch wall time (``p50_ms``/``p99_ms``, from
+        ``step()`` entry to the end of whatever reading it did), of its
+        non-blocking part up to the ring (``dispatch_*``: admission, control
+        copies, launches or replays, bookkeeping) and of each blocking
+        prediction read (``drain_*``, one record per drained dispatch, so a
+        deep pipeline cannot hide the wait).  NaN where nothing was
+        recorded."""
         out: Dict[str, float] = {}
         for prefix, rec in (("", self.step_times_s),
                             ("dispatch_", self.dispatch_times_s),
@@ -614,3 +785,11 @@ class StreamServer:
             out[f"{prefix}p50_ms"] = p50
             out[f"{prefix}p99_ms"] = p99
         return out
+
+
+def _served(preds: Tensor, armed: Optional[Tensor]) -> Tensor:
+    """A round's served predictions (S * W), then its armed flags (S) under
+    int8, as one int64 vector: one copy to the host."""
+    if armed is None:
+        return preds.reshape(-1)
+    return torch.cat([preds.reshape(-1), armed.to(preds.dtype)])

@@ -46,7 +46,8 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.core.dfr import DFRModel
 from repro_torch.core.online import OnlineDFR
-from repro_torch.core.types import DFRConfig, Nonlinearity, TimeSeriesBatch
+from repro_torch.core.types import (DFRConfig, Nonlinearity, TimeSeriesBatch,
+                                    map_leaves)
 from repro_torch.kernels import cholesky as k_cholesky
 from repro_torch.kernels import cholupdate as k_cholupdate
 from repro_torch.kernels import dprr as k_dprr
@@ -60,6 +61,7 @@ from repro_torch.kernels import train as k_train
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.transformer import Transformer
 from repro_torch.runtime import Request, Server, StreamRequest, StreamServer
+from repro_torch.runtime.graphs import RoundGraphs
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -311,6 +313,157 @@ def test_int8_incremental_server_on_card_agrees_with_cpu(dev):
     agree = sum(int(a == b) for rid, v in results["cpu"].items()
                 for a, b in zip(v, results["cuda"][rid]))
     assert agree / total >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# The captured round: the server's CUDA graphs against its eager round
+# ---------------------------------------------------------------------------
+
+GRAPH_MODES = {
+    "recompute": {},
+    "int8": {"refresh_mode": "incremental", "quantize": "int8"},
+}
+
+
+def _graph_server(mode, eager=False, sizes=(12, 6, 10, 4, 9), **kw):
+    """The small episode's server with its streams submitted; ``eager``
+    serves through the eager round (the captured round's oracle)."""
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=8)
+    rng = np.random.default_rng(0)
+    mask = np.sign(rng.normal(size=(8, 2))).astype(np.float32)
+    srv = StreamServer(cfg, t_max=16, max_streams=3, window=2,
+                       phase_steps=2, refresh_every=3, mask=mask,
+                       device="cuda", **GRAPH_MODES[mode], **kw)
+    if eager:
+        srv._graphs = None
+    for rid, n in enumerate(sizes):
+        r = np.random.default_rng(rid)
+        srv.submit(StreamRequest(
+            rid=rid, u=r.normal(size=(n, 16, 2)).astype(np.float32),
+            length=r.integers(4, 17, n).astype(np.int32),
+            label=r.integers(0, 3, n).astype(np.int32)))
+    return srv
+
+
+def _state_leaves(st):
+    out = []
+    map_leaves(out.append, st)
+    return out
+
+
+def _assert_same_serving(a, b):
+    """Predictions, retirement snapshots and final states bit for bit."""
+    done_a = {r.rid: r for r in a.completed}
+    done_b = {r.rid: r for r in b.completed}
+    assert sorted(done_a) == sorted(done_b)
+    for rid, r in done_b.items():
+        assert done_a[rid].preds == r.preds
+        for x, y in zip(_state_leaves(done_a[rid].final_state),
+                        _state_leaves(r.final_state)):
+            assert torch.equal(x, y)
+    for x, y in zip(_state_leaves(a.states), _state_leaves(b.states)):
+        assert torch.equal(x, y)
+    assert a.global_step == b.global_step
+    assert a.served_int8 == b.served_int8
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_captured_episode_serves_the_eager_episode(dev, mode):
+    eager = _graph_server(mode, eager=True)
+    eager.run_until_drained()
+    srv = _graph_server(mode)
+    srv.run_until_drained()
+    assert srv._graphs.replays > 0
+    _assert_same_serving(srv, eager)
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_pipelined_blocked_captured_episode_is_the_synchronous_one(dev,
+                                                                   mode):
+    sync = _graph_server(mode)
+    sync.run_until_drained()
+    srv = _graph_server(mode, pipeline_depth=2, step_block=4)
+    srv.run_until_drained()
+    assert len(srv.step_times_s) < srv.global_step
+    _assert_same_serving(srv, sync)
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_captured_launch_counts_equal_rounds(dev, mode):
+    """Every kernel of the path counts one launch a round, counted at
+    replay; the launches recorded during capture count nowhere."""
+    kernels = [k_train.KERNEL, k_streaming.KERNEL]
+    if mode == "int8":
+        kernels += [k_streaming_q8.KERNEL, k_cholupdate.KERNEL]
+    srv = _graph_server(mode)
+    before = [kn.launches for kn in kernels]
+    srv.run_until_drained()
+    assert srv._graphs.replays > 0
+    for kn, b in zip(kernels, before):
+        assert kn.launches - b == srv.global_step, kn.name
+
+
+def test_capture_tallies_launches_instead_of_counting_them(dev):
+    j, lens, p, q, _, _ = _operands(dev, 2, 3, 9, 6, 3, seed=0)
+    graphs = RoundGraphs()
+    before = k_train.KERNEL.launches
+    outs = []
+    for _ in range(4):   # eager, capture + replay, replay, replay
+        r = graphs.run("k1", lambda: ops.train_forward(j, lens, p, q, 6)[0])
+        outs.append(r.clone())
+        assert k_train.KERNEL.launches == before + len(outs)
+    torch.cuda.synchronize()
+    assert graphs.eager_calls == 1 and graphs.replays == 3
+    for r in outs[1:]:
+        assert torch.equal(r, outs[0])
+
+
+def test_pool_growth_captures_again(dev):
+    """A stream longer than the pool's rows, submitted mid-episode, grows
+    the pool: the graphs are dropped, captured again, and the episode still
+    serves the eager one's."""
+    runs = {}
+    for eager in (True, False):
+        srv = _graph_server("int8", eager=eager, sizes=(4, 6, 4, 8, 6))
+        for _ in range(4):
+            srv.step()
+        r = np.random.default_rng(9)
+        srv.submit(StreamRequest(
+            rid=9, u=r.normal(size=(20, 16, 2)).astype(np.float32),
+            length=r.integers(4, 17, 20).astype(np.int32),
+            label=r.integers(0, 3, 20).astype(np.int32)))
+        assert srv.pool.capacity == 20
+        if not eager:
+            assert srv._graphs.replays > 0 and not srv._graphs._graphs
+        srv.run_until_drained()
+        runs[eager] = srv
+    assert runs[False]._graphs._graphs   # captured again after the growth
+    _assert_same_serving(runs[False], runs[True])
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A body that syncs the host cannot be captured: the capture raises,
+    and the server raises rather than serving the round eagerly."""
+    graphs = RoundGraphs()
+    x = torch.ones(4, device=dev)
+    assert graphs.run("sync", lambda: float(x.sum())) == 4.0   # eager
+    with pytest.raises(RuntimeError):
+        graphs.run("sync", lambda: float(x.sum()))
+    torch.cuda.synchronize()
+
+    from repro_torch.runtime import stream_server
+
+    gather = stream_server._gather_window
+
+    def syncing_gather(pool, cursor, live, window, dtype):
+        int(cursor.sum())
+        return gather(pool, cursor, live, window, dtype)
+
+    monkeypatch.setattr(stream_server, "_gather_window", syncing_gather)
+    srv = _graph_server("recompute")
+    with pytest.raises(RuntimeError):
+        srv.run_until_drained()
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

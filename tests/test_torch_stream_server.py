@@ -151,8 +151,6 @@ def test_default_device_is_cuda_and_raises_without_it():
     {"retirement": "forget"},
     {"retirement": "window"},
     {"retirement": "adaptive"},
-    {"step_block": 2},
-    {"pipeline_depth": 1},
     {"devices": 2},
     {"config": "auto"},
 ])
