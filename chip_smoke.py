@@ -27,7 +27,11 @@ Phases, each fatal on failure:
      maximum SM clock); K3 (factor fold) at 32
      factors of 931 x 931 and windows of 4 rows, sign +1, and sign -1 with
      one guard-skipped rotation, whether it equals its plain version bit for
-     bit, timed beside its byte bound and its chain bound; K6 (reservoir
+     bit, timed beside its byte bound and its chain bound, then with the
+     retirement modes' operands: the forget scale sqrt(0.95) on live rows
+     and a flagged downdate that the guard skips in 3 of the 32 factors,
+     each required equal to its plain version bit for bit (flags too) and
+     timed beside the unscaled fold and its bound; K6 (reservoir
      states) and K7 (DPRR) on the ARAB training split, at fit_sgd's
      minibatch of 4 (the shape of nearly all their launches in a fit), a
      fit_ridge chunk of 256 samples and all 6600, each timed beside its byte
@@ -65,8 +69,27 @@ Phases, each fatal on failure:
      (captured, eager, pipelined, pipelined, eager, captured): each run's
      numbers, and every run must serve the first captured run's
      predictions and end with its final states bit for bit.
+  4d. The retirement modes at ARAB's full width, each with the incremental
+     refresh on the same 64 streams (benchmarks/bench_stream.py's
+     settings): forget at lambda 0.95, a window of half a stream (52 rows),
+     adaptive on its defaults, and adaptive with quantize='int8'.  For each,
+     the captured, eager and pipelined (depth 2, blocks of 4) rounds
+     alternate as in phase 4c and must serve the same predictions and end
+     with the same states and window rings bit for bit; every kernel of
+     the path launches its count a round (K3 twice under window: the fold
+     and the flagged downdate) and no other; each live factor still
+     factors its statistics.  Printed: each run's samples/s and dispatch
+     p50/p99, and from one profiled captured wave the device's busy time
+     and K3's time a round.
+  4e. The reference's drift cells (S4/N160/W4 at Nx 8 and 16, phase_steps
+     3, refresh_every 2, incremental, lambda 0.95, a window of 40) through
+     the captured round: the pre/at/post-drift accuracy of baseline,
+     forget, window and adaptive (and adaptive's plain, blocked and int8
+     rows) beside BENCH_stream_drift.json's columns; each retirement
+     policy's post-drift accuracy must beat the baseline's by 0.3.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
-     first 800 ARAB samples, same widths) served on the card and on the CPU.
+     first 800 ARAB samples, same widths) served on the card and on the CPU;
+     each retirement path on the first 400.
   6. The training path at full width: DFRModel.fit(train, minibatch=4) on
      the whole ARAB training split (6600 samples, Nx=30, s=931, FIT_EPOCHS
      epochs, the paper's recipe with select='val'), with every launch count
@@ -129,12 +152,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.dfr_paper import paper_dfr_config  # noqa: E402
 from repro_torch.core import masking, ridge  # noqa: E402
 from repro_torch.core.dfr import DFRModel  # noqa: E402
 from repro_torch.core.online import OnlineDFR  # noqa: E402
 from repro_torch.core.types import (DFRConfig, TimeSeriesBatch,  # noqa: E402
                                     map_leaves)
-from repro_torch.data import PAPER_DATASETS, load  # noqa: E402
+from repro_torch.data import (drift_segment_bounds, load,  # noqa: E402
+                               make_drift_label_streams)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cholesky as k_cholesky  # noqa: E402
 from repro_torch.kernels import cholupdate as k_cholupdate  # noqa: E402
@@ -270,6 +295,46 @@ PATHS = {
 # (benchmarks/bench_stream.py)
 KINDS = {"captured": {}, "eager": {},
          "pipelined": dict(pipeline_depth=2, step_block=4)}
+# the retirement modes at ARAB's full width, each on the incremental refresh
+# (benchmarks/bench_stream.py:310-335): forget at the reference's lambda, a
+# window of half a stream (its capacity set per run, max(4, n // 2)),
+# adaptive on its defaults and under int8; the kernels each launches a
+# round (K3: the fold, and the window's flagged downdate)
+INC = dict(refresh_mode="incremental")
+RETIRE_PATHS = {
+    "forget": (dict(INC, retirement="forget", forget=0.95),
+               {"K1 train_forward": 1, "K2 streaming_logits": 1,
+                "K3 cholupdate_window_t": 1}),
+    "window": (dict(INC, retirement="window"),
+               {"K1 train_forward": 1, "K2 streaming_logits": 1,
+                "K3 cholupdate_window_t": 2}),
+    "adaptive": (dict(INC, retirement="adaptive"),
+                 {"K1 train_forward": 1, "K2 streaming_logits": 1,
+                  "K3 cholupdate_window_t": 1}),
+    "adaptive_int8": (dict(INC, retirement="adaptive", quantize="int8"),
+                      {"K1 train_forward": 1, "K2 streaming_logits": 1,
+                       "K5 streaming_logits_q8": 1,
+                       "K3 cholupdate_window_t": 1}),
+}
+# the reference's drift cells (benchmarks/bench_stream.py:405-470,
+# BENCH_stream_drift.json): S4/N160/W4 at Nx 8 and 16, phase_steps=3,
+# refresh_every=2, incremental, lambda 0.95, a window of 40; each policy's
+# post-drift accuracy must beat the baseline's by DRIFT_GAIN
+DRIFT_NODES = (8, 16)
+DRIFT_STREAMS, DRIFT_SAMPLES, DRIFT_T, DRIFT_CLASSES = 4, 160, 16, 4
+DRIFT_POLICIES = {
+    "baseline": {},
+    "forget": dict(retirement="forget", forget=0.95),
+    "window": dict(retirement="window", retire_window=40),
+    "adaptive": dict(retirement="adaptive"),
+}
+DRIFT_ADAPTIVE_MODES = {"plain": {}, "blocked": dict(step_block=4),
+                        "int8": dict(quantize="int8")}
+DRIFT_GAIN = 0.3
+K3_FORGET = 0.95   # phase 3's scale operand: sqrt(lambda) on live rows
+# phase 5's subset for the retirement paths: the first 400 ARAB samples in
+# 8 streams on 4 slots (the CPU folds K3's plain version at s = 931)
+RETIRE_AGREE_SAMPLES = 400
 
 
 class SmokeFailure(RuntimeError):
@@ -548,11 +613,64 @@ def k3_records(dev) -> list:
           f"chain bound {chain_ms:.4f} ms ({s * W} dependent rotations x "
           f"{K3_ROTATION_CYCLES} cycles at the maximum SM clock) at K={K} "
           f"W={W} s={s}")
+    k3_retirement_operands(Lt, X, up, ms)
     return [dict(name=name, route="cuda",
                  source="src/repro_torch/kernels/csrc/cholupdate.cu",
                  replaces="src/repro/kernels/cholupdate.py:53",
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                  bound_by=by, library_ms=None)]
+
+
+def k3_retirement_operands(Lt, X, up, unscaled_ms: float) -> None:
+    """K3's operands for the retirement modes at the server's fold: the
+    forget scale (sqrt(K3_FORGET) on live rows, exactly 1.0 on the dead
+    row) and the window's flagged downdate, which the guard skips in some
+    factors; each bit for bit equal to its plain version and timed as the
+    server calls it (in place), beside the unscaled fold."""
+    name = "K3 cholupdate_window_t"
+    K, W, s = K3_SHAPE
+    scale = torch.where(X.abs().sum(dim=-1) > 0, K3_FORGET ** 0.5,
+                        1.0).to(torch.float32)
+    got = ops.cholupdate_window_t(Lt, X, scale=scale, backend="cuda")
+    want = ops.cholupdate_window_t(Lt, X, scale=scale, backend="torch")
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    print(f"  {name} with the forget scale sqrt({K3_FORGET}): equal to its "
+          f"plain version bit for bit: {equal}")
+    check(equal, f"{name}: the scaled fold differs from its plain version")
+    trip = (0, 5, 17)   # factors whose downdate the guard skips
+    D = 0.05 * X
+    for i in trip:
+        D[i, -1, s // 2] = 3.0 * up[i, s // 2, s // 2]
+    flags = torch.full((K,), 7, dtype=torch.int32, device=X.device)
+    plain_flags = flags.clone()
+    got = ops.cholupdate_window_t(up, D, -1.0, flags=flags, backend="cuda")
+    want = ops.cholupdate_window_t(up, D, -1.0, flags=plain_flags,
+                                   backend="torch")
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    flagged = [i for i, f in enumerate(flags.tolist()) if f]
+    print(f"  {name} flagged downdate: equal to its plain version bit for "
+          f"bit: {equal}; guard flags {flagged} (plain "
+          f"{[i for i, f in enumerate(plain_flags.tolist()) if f]}, "
+          f"engineered {list(trip)})")
+    check(equal and flags.tolist() == plain_flags.tolist()
+          and flagged == list(trip),
+          f"{name}: the flagged downdate differs from its plain version")
+    scaled_ms = device_ms(lambda dst: ops.cholupdate_window_t(
+        dst, X, scale=scale, out=dst, backend="cuda"), setup=Lt.clone)
+    down_ms = device_ms(lambda dst: ops.cholupdate_window_t(
+        dst, D, -1.0, flags=flags, out=dst, backend="cuda"), setup=up.clone)
+    # as the unscaled fold's bound, plus the scales read and one multiply an
+    # element a row (scaled), or the flags written (flagged)
+    bnd_s, by_s = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4 + K * W * 4,
+                           7 * K * W * s * (s - 1) // 2)
+    bnd_d, by_d = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4 + K * 4,
+                           6 * K * W * s * (s - 1) // 2)
+    print(f"  {name}: scaled {scaled_ms:.4f} ms ({scaled_ms / unscaled_ms:.3f}"
+          f" x the unscaled {unscaled_ms:.4f} ms), bound {bnd_s:.5f} ms "
+          f"({by_s}); flagged downdate {down_ms:.4f} ms, bound {bnd_d:.5f} ms "
+          f"({by_d}); device time, median of 50, at K={K} W={W} s={s}")
 
 
 def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
@@ -795,10 +913,8 @@ def ridge_solve_check(A, B, betas) -> None:
 def load_arab():
     """The paper's ARAB configuration (configs/dfr_paper.py), its full
     training split as numpy arrays, and both splits as batches."""
-    spec = PAPER_DATASETS["ARAB"]
     train, test = load("ARAB")
-    cfg = DFRConfig(n_in=spec.n_in, n_classes=spec.n_classes, n_nodes=30,
-                    nonlinearity="linear")
+    cfg = paper_dfr_config("ARAB")
     arrays = (train.u.numpy(), train.length.numpy(), train.label.numpy())
     return cfg, arrays, (train, test)
 
@@ -843,9 +959,10 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
     peak memory is the server's over both waves, above what the process
     held before it: allocated, and reserved (the graphs' pool is reserved,
     and a replay allocates nothing)."""
-    knobs = {**PATHS[path][0], **KINDS[kind]}
+    knobs = {**{**PATHS, **RETIRE_PATHS}[path][0], **KINDS[kind]}
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 64)
+    knobs = window_capacity(knobs, per_stream)
     srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
                        phase_steps=phase_steps_for(per_stream, 4),
                        refresh_every=5, device="cuda",
@@ -891,6 +1008,13 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
         served_int8=srv.served_int8 - int8_0,
         peak_alloc=torch.cuda.max_memory_allocated() - base_alloc,
         peak_reserved=torch.cuda.max_memory_reserved() - base_reserved)
+
+
+def window_capacity(knobs: dict, per_stream: int) -> dict:
+    """The window mode's ring of half a stream (bench_stream.py)."""
+    if knobs.get("retirement") == "window" and "retire_window" not in knobs:
+        knobs = dict(knobs, retire_window=max(4, per_stream // 2))
+    return knobs
 
 
 def run_line(res: dict) -> str:
@@ -959,7 +1083,7 @@ def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
 
 
 def profile_phase(card: str, cfg, arrays, path: str, kind: str,
-                  top: int = 6) -> None:
+                  top: int = 6) -> dict:
     """Where a round's time goes: the measured wave of ``serving_run``
     under torch.profiler.  Prints the device's busy time a round and its
     idle share of the wall time, the graph launches and the kernel launches
@@ -1004,6 +1128,10 @@ def profile_phase(card: str, cfg, arrays, path: str, kind: str,
     check(busy_us > 0, "the profiler saw no device time")
     if kind != "eager":
         check(graph_launches > 0, "the profiler saw no graph launch")
+    k3_us = sum(e.self_device_time_total for e in dev
+                if "cholupdate_kernel" in e.key)
+    return dict(busy_ms=busy_us / 1e3 / rounds, k3_ms=k3_us / 1e3 / rounds,
+                idle=100 - 100 * busy_us / 1e6 / wall)
 
 
 def same_serving(a: dict, b: dict) -> tuple:
@@ -1014,6 +1142,8 @@ def same_serving(a: dict, b: dict) -> tuple:
     states = [(x.final_state, y.final_state) for x, y in
               ((a["done"][rid], r) for rid, r in b["done"].items())]
     states.append((a["srv"].states, b["srv"].states))
+    if a["srv"].win is not None:
+        states.append((a["srv"].win, b["srv"].win))
     leaves_a, leaves_b = [], []
     for sa, sb in states:
         map_leaves(leaves_a.append, sa)
@@ -1021,13 +1151,14 @@ def same_serving(a: dict, b: dict) -> tuple:
     return preds, all(torch.equal(x, y) for x, y in zip(leaves_a, leaves_b))
 
 
-def rounds_phase(card: str, cfg, arrays, path: str) -> None:
+def rounds_phase(card: str, cfg, arrays, path: str) -> list:
     """The captured round, the eager round and the captured round at the
     reference benchmark's pipeline_depth=2, step_block=4, each as
     ``serving_run``'s measured wave, alternated (captured, eager,
     pipelined, pipelined, eager, captured) because host speed varies within
     a call.  Every run must serve the first captured run's predictions and
-    end with its final states, bit for bit."""
+    end with its final states (and window rings), bit for bit.  Returns the
+    runs."""
     order = ("captured", "eager", "pipelined", "pipelined", "eager",
              "captured")
     runs = []
@@ -1052,14 +1183,114 @@ def rounds_phase(card: str, cfg, arrays, path: str) -> None:
             f"{x:.3f} ms" for x in p50))
     check(all(r["replays"] == 0 for k, r in zip(order, runs)
               if k == "eager"), "the eager round replayed a graph")
+    return runs
 
 
-def agreement_phase(cfg, arrays, path: str) -> None:
-    knobs = PATHS[path][0]
+def retirement_phase(card: str, cfg, arrays, path: str) -> None:
+    """A retirement path at ARAB's full width: its captured, eager and
+    pipelined, blocked rounds alternated (``rounds_phase``),
+    every kernel of the path launched its count a round in the first
+    captured run (counted at replay) and no other, the final states finite
+    and each live factor still factoring its statistics; then the captured
+    round's measured wave under torch.profiler, for the device's busy time
+    and K3's time a round."""
+    knobs, per_round = RETIRE_PATHS[path]
+    runs = rounds_phase(card, cfg, arrays, path)
+    res = runs[0]
+    rounds, launches = res["rounds"], res["launches"]
+    print(f"  {path}: launches in the first captured run: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in launches.items())
+        + f" over {rounds} rounds")
+    for name, n in launches.items():
+        want = rounds * per_round.get(name, 0)
+        check(n == want, f"{path}: {name}: {n} launches over {rounds} "
+                         f"rounds ({want} expected)")
+    if knobs.get("quantize") == "int8":
+        check(res["served_int8"] > 0, "no prediction came from an armed slot")
+    worst = 0.0
+    for r in res["done"].values():
+        st = r.final_state
+        check(all(bool(torch.isfinite(t).all()) for t in
+                  (st.params.W, st.params.b, st.ridge.Lt, st.ridge.B)),
+              f"{path}: stream {r.rid}: non-finite final state")
+        Lt = st.ridge.Lt.double()
+        M = st.ridge.B.double() + float(st.ridge.factor_beta) * torch.eye(
+            cfg.s, dtype=torch.float64, device=Lt.device)
+        worst = max(worst, float((Lt.T @ Lt - M).abs().max() / M.abs().max()))
+    print(f"  {path}: max |Lt^T Lt - (B + factor_beta I)| / max |B + "
+          f"factor_beta I| over the streams {worst:.3e} (tolerance 1e-4)")
+    check(worst <= 1e-4, f"{path}: a live factor no longer factors its "
+                         f"statistics")
+    prof = profile_phase(card, cfg, arrays, path, "captured")
+    samples = [r["served"] / r["wall"] for r in runs]
+    print(f"  [{card}] {path}: samples/s {min(samples):.1f}-"
+          f"{max(samples):.1f} over the {len(runs)} runs; device busy "
+          f"{prof['busy_ms']:.3f} ms a round (idle {prof['idle']:.1f}% under "
+          f"the profiler), K3 {prof['k3_ms']:.4f} ms a round "
+          f"({per_round['K3 cholupdate_window_t']} launch(es) a round)")
+
+
+def drift_phase(card: str) -> None:
+    """The reference's drift cells on the card, through the captured round:
+    each policy's pre/at/post-drift accuracy beside BENCH_stream_drift.json's
+    columns, and adaptive's plain, blocked and int8 rows; every retirement
+    policy's post-drift accuracy must beat the baseline's by DRIFT_GAIN in
+    both cells."""
+    bench = json.loads((ROOT / "BENCH_stream_drift.json").read_text())
+    rows = {(r["table"], r["cell"]): r for r in bench["rows"]}
+    for nx in DRIFT_NODES:
+        cfg = DFRConfig(n_in=1, n_classes=DRIFT_CLASSES, n_nodes=nx)
+        cell = f"S{DRIFT_STREAMS}/N{DRIFT_SAMPLES}/Nx{nx}/W4"
+        runs = {("drift", name): dict(INC, **kw)
+                for name, kw in DRIFT_POLICIES.items()}
+        runs.update({("drift-adaptive-modes", mode): dict(
+            INC, retirement="adaptive", **kw)
+            for mode, kw in DRIFT_ADAPTIVE_MODES.items()})
+        post = {}
+        for (table, name), knobs in runs.items():
+            arrays, switches = make_drift_label_streams(
+                DRIFT_STREAMS, DRIFT_SAMPLES, DRIFT_T, DRIFT_CLASSES)
+            streams = [StreamRequest(rid=i, **a) for i, a in enumerate(arrays)]
+            srv = StreamServer(cfg, t_max=DRIFT_T, max_streams=DRIFT_STREAMS,
+                               window=4, phase_steps=3, refresh_every=2,
+                               device="cuda", **knobs)
+            t0 = time.perf_counter()
+            for r in streams:
+                srv.submit(r)
+            srv.run_until_drained(strict=True)
+            wall = time.perf_counter() - t0
+            bounds = drift_segment_bounds(DRIFT_SAMPLES, switches[0], 4)
+            acc = [float(np.mean([np.mean(np.asarray(r.preds[lo:hi])
+                                          == r.label[lo:hi])
+                                  for r in streams])) for lo, hi in bounds]
+            ref_row = rows[(table, cell)]
+            want = [ref_row[f"{name}_{seg}_acc"] for seg in
+                    ("pre", "at", "post")]
+            if table == "drift":
+                post[name] = acc[2]
+            print(f"  [{card}] {cell} {table} {name}: pre/at/post accuracy "
+                  + "/".join(f"{a:.3f}" for a in acc) + " (reference "
+                  + "/".join(f"{a:.3f}" for a in want) + f"); "
+                  f"{DRIFT_STREAMS * DRIFT_SAMPLES / wall:.1f} samples/s "
+                  f"(first episode of a fresh server, captures included)")
+        for name in ("forget", "window", "adaptive"):
+            gain = post[name] - post["baseline"]
+            check(gain >= DRIFT_GAIN,
+                  f"{cell}: {name} post-drift accuracy {post[name]:.3f} is "
+                  f"not {DRIFT_GAIN} above the baseline's "
+                  f"{post['baseline']:.3f}")
+        print(f"  {cell}: post-drift gain over the baseline: " + ", ".join(
+            f"{n} {post[n] - post['baseline']:+.3f}" for n in
+            ("forget", "window", "adaptive")) + f" (at least {DRIFT_GAIN})")
+
+
+def agreement_phase(cfg, arrays, path: str, n_samples: int = 800) -> None:
+    knobs = {**PATHS, **RETIRE_PATHS}[path][0]
     t_max = arrays[0].shape[1]
-    streams, per_stream = make_streams(arrays, 8, n_samples=800)
+    streams, per_stream = make_streams(arrays, 8, n_samples=n_samples)
+    knobs = window_capacity(knobs, per_stream)
     _, on_card = serve(cfg, streams, t_max, per_stream, 4, "cuda", **knobs)
-    streams, _ = make_streams(arrays, 8, n_samples=800)
+    streams, _ = make_streams(arrays, 8, n_samples=n_samples)
     _, on_cpu = serve(cfg, streams, t_max, per_stream, 4, "cpu", **knobs)
     total = agree = 0
     diffs = {"p": 0.0, "q": 0.0, "W": 0.0}
@@ -1076,7 +1307,7 @@ def agreement_phase(cfg, arrays, path: str) -> None:
           f"({frac:.4f}); "
           f"largest final |dp| {diffs['p']:.3e}, |dq| {diffs['q']:.3e}, "
           f"|dW| {diffs['W']:.3e}")
-    check(frac >= 0.98, f"card and CPU agree on {frac:.4f} < 0.98")
+    check(frac >= 0.98, f"{path}: card and CPU agree on {frac:.4f} < 0.98")
 
 
 def timed(obj, name: str, log: list) -> None:
@@ -1639,9 +1870,17 @@ def main() -> int:
           "alternated")
     for path in PATHS:
         rounds_phase(card, cfg, arrays, path)
+    print("[4d] the retirement modes at full width: captured, eager, and "
+          "pipelined and blocked rounds, alternated")
+    for path in RETIRE_PATHS:
+        retirement_phase(card, cfg, arrays, path)
+    print("[4e] the reference's drift cells on the card")
+    drift_phase(card)
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)
+    for path in RETIRE_PATHS:
+        agreement_phase(cfg, arrays, path, n_samples=RETIRE_AGREE_SAMPLES)
     print("[6] the training path at full width: DFRModel.fit, OnlineDFR")
     launches.update(training_phase(card, cfg, data))
     print("[7] training path agreement, card vs CPU")

@@ -14,6 +14,8 @@ The names are the ones the reference's own golden fixtures use
 (``params_p`` ... ``ridge_B``, ``step``, ``loss_ema``).  Every leaf keeps
 its dtype, so an armed int8 state (``quant_Wq`` codes and scales) and a live
 incremental factor (``ridge_Lt``, ``ridge_factor_beta``) cross unchanged.
+``window_leaves`` / ``window_from_leaves`` carry a window ring
+(``WindowState``: ``rows``, ``onehot``, ``pos``) the same way.
 Nothing here imports the JAX package: a caller on that side builds its own
 state from the same dict.
 
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.online import OnlineState
-from repro_torch.core.types import DFRParams, QuantParams, RidgeState
+from repro_torch.core.types import (DFRParams, QuantParams, RidgeState,
+                                    WindowState)
 from repro_torch.models.transformer import ParamTree
 
 # flat leaf name -> attribute path, in OnlineState field order
@@ -116,6 +119,19 @@ def state_from_leaves(leaves: Dict[str, np.ndarray],
         loss_fast=t["loss_fast"],
         loss_slow=t["loss_slow"],
     )
+
+
+def window_leaves(win) -> Dict[str, np.ndarray]:
+    """A ``WindowState`` (either package's, batched or not) as numpy
+    ``rows``, ``onehot``, ``pos``."""
+    return {k: _to_numpy(getattr(win, k)) for k in ("rows", "onehot", "pos")}
+
+
+def window_from_leaves(leaves: Dict[str, np.ndarray],
+                       device=None) -> WindowState:
+    """The port's ``WindowState`` from ``window_leaves`` output."""
+    return WindowState(**{k: torch.from_numpy(np.array(leaves[k])).to(device)
+                          for k in ("rows", "onehot", "pos")})
 
 
 def _load_tree(node: ParamTree, tree: Mapping[str, Any], index=None) -> None:

@@ -6,7 +6,9 @@ The counterpart of the parts of ``repro.core.online`` the port runs:
   (infer-before-update plus truncated-BP SGD plus (A, B) accumulation from
   ONE forward pass), the Ridge refresh of selected slot rows in both modes
   (recompute: a batched Cholesky; incremental: two triangular solves
-  against the live factor) and the int8 serving scale fold.  The reference
+  against the live factor), the int8 serving scale fold, the forgetting
+  factor of ``retirement='forget'`` and the drift detector of
+  ``retirement='adaptive'`` (``adaptive_anneal``).  The reference
   writes these for one system and ``vmap``s them over the server's slot
   axis; here they take the slot-batched state directly (each leaf leads
   with the slot axes *P, and the data with the same axes).  Slots never
@@ -35,10 +37,9 @@ class OnlineState:
     """Carry of the online system; leaves may lead with slot axes.
 
     ``quant`` holds the int8 serving codes and scales (``quantize='int8'``
-    moves them; otherwise they stay zeros).  The drift-detector EMAs
-    ``loss_fast``/``loss_slow`` are inert zeros in this port: the retirement
-    modes that move them are not ported, and they ride along so the state
-    keeps the reference's shape.
+    moves them; otherwise they stay zeros).  ``loss_fast``/``loss_slow`` are
+    the drift detector's fast and slow EMAs of the serving error
+    (``adaptive_anneal``); they stay zeros outside ``retirement='adaptive'``.
     """
 
     params: DFRParams
@@ -81,10 +82,29 @@ def reset_statistics(state: OnlineState,
     """Zero the Ridge sufficient statistics, keeping (p, q, W, b) and the
     step counter: the phase switch of the paper's protocol.  The zeroed
     ``factor_beta`` drops any live factor; pass ``factor_beta`` to re-seed
-    one for the restarted statistics.  The soft reset (``forget``) is not
-    ported yet."""
+    one for the restarted statistics.
+
+    ``forget`` (exclusive with ``factor_beta``) is the soft reset: (A, B)
+    and ``factor_beta`` scale by lambda and a live factor by sqrt(lambda),
+    so ``Lt^T Lt == B + factor_beta I`` keeps holding, instead of zeroing.
+    ``forget=1.0`` changes no bit; ``count`` keeps the number of folded
+    samples either way."""
+    if forget is not None and factor_beta is not None:
+        raise ValueError(
+            "reset_statistics: factor_beta (hard reset re-seed) and forget "
+            "(soft decaying reset) are exclusive - the soft reset keeps the "
+            "existing decayed prior")
     if forget is not None:
-        raise unported("reset_statistics(forget=...)", "Retirement modes")
+        lam_value = float(forget)
+        if not 0.0 < lam_value <= 1.0:
+            # lambda = 0 would zero the live factor, and the next fold
+            # divides by its zero diagonal
+            raise ValueError(f"forget must be in (0, 1], got {lam_value!r}")
+        rs = state.ridge
+        lam = torch.as_tensor(forget, dtype=rs.B.dtype, device=rs.B.device)
+        return dataclasses.replace(state, ridge=RidgeState(
+            A=rs.A * lam, B=rs.B * lam, count=rs.count,
+            Lt=rs.Lt * torch.sqrt(lam), factor_beta=rs.factor_beta * lam))
     rs = map_leaves(torch.zeros_like, state.ridge)
     if factor_beta is not None:
         s = rs.B.shape[-1]
@@ -94,6 +114,88 @@ def reset_statistics(state: OnlineState,
             factor_beta=torch.tensor(factor_beta, dtype=rs.B.dtype,
                                      device=rs.B.device))
     return dataclasses.replace(state, ridge=rs)
+
+
+# retirement='adaptive': the drift detector's rates, per serving step (the
+# reference's values).  The fast EMA of a slot's serving error tracks the
+# current regime; the slow one is the baseline, which follows improvements
+# quickly and degradations slowly, so at a drift point it stays near the
+# pre-drift error while the fast EMA rises.  A slot trips when fast >
+# ratio * slow + ADAPT_MARGIN; the margin keeps a near-perfect slot from
+# tripping on one stray miss.  _ADAPT_EPS floors the slow EMA once it is
+# seeded, so slow == 0 marks a slot not yet seeded.
+ADAPT_FAST_ALPHA = 0.3
+ADAPT_SLOW_ALPHA_DOWN = 0.15
+ADAPT_SLOW_ALPHA_UP = 0.01
+ADAPT_MARGIN = 0.25
+_ADAPT_EPS = 1e-6
+
+
+def adaptive_detect(
+    loss_fast: Tensor,   # (S,) fast EMA of the serving error
+    loss_slow: Tensor,   # (S,) slow EMA (0: not seeded yet)
+    step_err: Tensor,    # (S,) this step's serving error rate (1 - acc)
+    update: Tensor,      # (S,) bool: the slot folded live frozen samples
+    armed: Tensor,       # (S,) bool: the slot is past its warm-up
+    ratio: float,
+    forget,              # lambda applied to a tripped slot
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The detector half of ``adaptive_anneal``: the new (fast, slow) EMAs,
+    the (S,) trips and the per-slot anneal factor ``lam`` (``forget`` where
+    a slot trips, exactly 1.0 elsewhere).  EMAs move only where ``update``
+    is set; the first such step seeds both with the observed error; a trip
+    snaps the slow EMA to the fast one, re-arming the detector."""
+    init = update & (loss_slow <= 0)
+    fa = ADAPT_FAST_ALPHA
+    sa = torch.where(step_err <= loss_slow,
+                     torch.full_like(loss_slow, ADAPT_SLOW_ALPHA_DOWN),
+                     torch.full_like(loss_slow, ADAPT_SLOW_ALPHA_UP))
+    fast = torch.where(init, step_err, torch.where(
+        update, (1.0 - fa) * loss_fast + fa * step_err, loss_fast))
+    slow = torch.where(init, step_err, torch.where(
+        update, (1.0 - sa) * loss_slow + sa * step_err, loss_slow))
+    slow = torch.where(update, torch.clamp(slow, min=_ADAPT_EPS), slow)
+    trip = update & armed & ~init & (fast > ratio * slow + ADAPT_MARGIN)
+    lam = torch.where(trip, torch.as_tensor(forget, dtype=fast.dtype,
+                                            device=fast.device),
+                      torch.ones_like(fast))
+    slow = torch.where(trip, fast, slow)
+    return fast, slow, trip, lam
+
+
+def anneal_ridge_(rs: RidgeState, lam: Tensor) -> None:
+    """Scale slot rows of ``rs`` in place by the (S,) factors ``lam``:
+    (A, B) and ``factor_beta`` by lam, the live factor by sqrt(lam), the
+    ``reset_statistics(forget=...)`` contract per slot.  A factor of 1.0
+    changes no bit."""
+    lam3 = lam[:, None, None]
+    rs.A.mul_(lam3)
+    rs.B.mul_(lam3)
+    rs.Lt.mul_(torch.sqrt(lam)[:, None, None])
+    rs.factor_beta.mul_(lam)
+
+
+def adaptive_anneal(
+    states: OnlineState,
+    step_err: Tensor,    # (S,) this step's serving error rate (1 - acc)
+    update: Tensor,      # (S,) bool: slot folded live frozen-phase samples
+    armed: Tensor,       # (S,) bool: slot past its detector warm-up
+    ratio: float,
+    forget,              # lambda in (0, 1] applied to a tripped slot
+) -> Tuple[OnlineState, Tensor]:
+    """Per-slot drift detection and soft statistics anneal over the slot
+    axis: ``adaptive_detect``, then each tripped slot's statistics annealed
+    by its ``lam`` (``anneal_ridge_`` on copies).  Returns (new states,
+    trips).  The reference gates the anneal on any trip; a slot that does
+    not trip scales by exactly 1.0 here, which changes no bit, so a silent
+    step moves only the two detector leaves either way."""
+    fast, slow, trip, lam = adaptive_detect(
+        states.loss_fast, states.loss_slow, step_err, update, armed, ratio,
+        forget)
+    rs = map_leaves(torch.clone, states.ridge)
+    anneal_ridge_(rs, lam)
+    return dataclasses.replace(states, ridge=rs, loss_fast=fast,
+                               loss_slow=slow), trip
 
 
 def _features(cfg: DFRConfig, params: DFRParams, j_seq: Tensor,
@@ -219,6 +321,7 @@ def online_serve_step(
     track_state_absmax: bool = False,
     fused: bool = False,
     accumulate_in_place: bool = False,
+    forget: Optional[Tensor] = None,
 ) -> Tuple[OnlineState, Tensor, Dict[str, Tensor]]:
     """Fused infer-before-update + train step for the serving path.
 
@@ -249,8 +352,18 @@ def online_serve_step(
     the window's live boundary states ``x_last``/``x_prev`` (weight-gated):
     the int8 state scale's calibration.
 
-    ``forget=None`` always: the retirement modes are not ported.  Returns
-    (new state, logits (*P, B, Ny), metrics).  The input state is not
+    ``forget`` (None, or a scalar lambda in (0, 1]) is the forgetting
+    factor of ``retirement='forget'``: before each accumulated sample's
+    fold, (A, B) scale by lambda and the live factor by sqrt(lambda), the
+    exponentially weighted recursion B <- lambda B + r~ r~^T.  The window's
+    rows carry lambda^(suffix/2) on each factor of their outer product
+    (suffix: live rows folded after the row), the carried (A, B) decay by
+    lambda^m (m live rows), and ``factor_beta`` decays with the data under
+    ``'defer'``, so Lt^T Lt == B + factor_beta I keeps holding.  Under
+    ``'defer'`` the per-row factor scales (sqrt(lambda) on live rows,
+    exactly 1.0 on gated ones) are ``metrics['fold_scale']``, for the
+    caller's fold.  ``forget=1.0`` serves ``forget=None`` bit for bit.
+    Returns (new state, logits (*P, B, Ny), metrics).  The input state is not
     modified, except with ``accumulate_in_place``: the window's statistics
     are then added into ``state.ridge.A`` and ``.B`` themselves (same
     rounding), which the new state returns.  The stream server's captured
@@ -288,13 +401,28 @@ def online_serve_step(
     acc = accumulate.to(dt)
     live = w * acc[..., None]                      # (*P, B) accumulated rows
     rt = dprr.r_tilde(aux.r) * live[..., None]
-    A, B = ridge.accumulate_ab(state.ridge.A, state.ridge.B, rt, onehot,
-                               in_place=accumulate_in_place)
+    rt_acc, oh_acc, decay, fold_scale = rt, onehot, None, None
+    if forget is not None:
+        lam = torch.as_tensor(forget, dtype=dt, device=rt.device)
+        # suffix: live rows folded after each row
+        suffix = torch.flip(torch.cumsum(torch.flip(live, (-1,)), -1),
+                            (-1,)) - live
+        half = lam ** (0.5 * suffix)
+        rt_acc = rt * half[..., None]
+        oh_acc = onehot * half[..., None]
+        decay = lam ** live.sum(dim=-1)
+        fold_scale = torch.where(live > 0, torch.sqrt(lam),
+                                 torch.ones_like(live))
+    A, B = ridge.accumulate_ab(state.ridge.A, state.ridge.B, rt_acc, oh_acc,
+                               in_place=accumulate_in_place, decay=decay)
     moved = acc * n_w
     fb = state.ridge.factor_beta
     if maintain_factor != "defer":
         # statistics move without rotating a factor: drop any live one
         fb = torch.where(moved > 0, torch.zeros_like(fb), fb)
+    elif decay is not None:
+        # the prior decays with the data
+        fb = fb * decay
     quant = state.quant
     if track_state_absmax:
         wb = w[..., None]
@@ -321,6 +449,8 @@ def online_serve_step(
     metrics = {"loss": loss * inv, "acc": hits.sum(dim=-1) * inv}
     if maintain_factor == "defer":
         metrics["rt_rows"] = rt
+        if fold_scale is not None:
+            metrics["fold_scale"] = fold_scale
     return new, aux.logits, metrics
 
 

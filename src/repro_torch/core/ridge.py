@@ -15,7 +15,7 @@ the reference stores it: column k of L is row k of Lt, contiguous.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,15 +28,23 @@ DOWNDATE_GUARD_REL = 1e-6
 
 
 def accumulate_ab(A: Tensor, B: Tensor, r_tilde: Tensor, onehot: Tensor,
-                  in_place: bool = False) -> Tuple[Tensor, Tensor]:
+                  in_place: bool = False,
+                  decay: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Rank-k update of (A, B) with a batch of samples.
 
     r_tilde: (..., batch, s), onehot: (..., batch, Ny); A (..., Ny, s) and
-    B (..., s, s) carry the same leading dims.  ``in_place`` adds into A and
-    B and returns them, rounding exactly as the sum into new tensors.
+    B (..., s, s) carry the same leading dims.  ``decay`` (the leading
+    dims) scales the carried A and B before the add: A * decay + dA.
+    ``in_place`` updates A and B themselves and returns them, rounding
+    exactly as into new tensors.
     """
     dA = onehot.transpose(-1, -2) @ r_tilde
     dB = r_tilde.transpose(-1, -2) @ r_tilde
+    if decay is not None:
+        d = decay[..., None, None]
+        if in_place:
+            return A.mul_(d).add_(dA), B.mul_(d).add_(dB)
+        return A * d + dA, B * d + dB
     if in_place:
         return A.add_(dA), B.add_(dB)
     return A + dA, B + dB
@@ -153,10 +161,21 @@ def guarded_rotation(dk: Tensor, xk: Tensor, sign: float):
     return r, c, sk, bad
 
 
-def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0) -> Tensor:
+def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0,
+                        scale: Optional[Tensor] = None,
+                        flags: Optional[Tensor] = None) -> Tensor:
     """Rotate the rows of X (..., W, s) one by one, in stream order, into
     the transposed factors Lt (..., s, s): Lt'^T Lt' = Lt^T Lt + sign x x^T
     per row (sign -1: the guarded hyperbolic downdate).
+
+    ``scale`` (..., W) multiplies the factor (its upper triangle, the only
+    part read) by ``scale[..., t]`` before row t: the forgetting factor's
+    fold, Lt'^T Lt' = scale^2 Lt^T Lt + x x^T, the reference's
+    ``cholupdate_window_t_decay``.  A scale of 1.0 changes no bit, so
+    ``scale=None`` and all-ones give the same factor.
+    ``flags`` (the leading dims, int32) receives whether the downdate guard
+    skipped any rotation of that factor (``_cholupdate_dense_t_flagged``'s
+    flag): its factor is then finite but no longer factors the statistics.
 
     The plain version of K3 and the reference's sample-by-sample sweep
     (``repro.core.ridge.cholupdate_window_t``), batched over the leading
@@ -166,16 +185,25 @@ def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0) -> Tensor:
         raise ValueError(f"sign must be +1 or -1, got {sign!r}")
     U = Lt.clone()
     s = U.shape[-1]
+    bad_any = torch.zeros(U.shape[:-2], dtype=torch.bool, device=U.device)
+    upper = torch.ones(s, s, dtype=torch.bool, device=U.device).triu()
     for t in range(X.shape[-2]):
+        if scale is not None:
+            # the upper triangle, as K3 reads and writes it
+            U = torch.where(upper, U * scale[..., t, None, None].to(U.dtype),
+                            U)
         x = X[..., t, :].to(U.dtype).clone()
         for k in range(s):
-            r, c, sk, _ = guarded_rotation(U[..., k, k], x[..., k], sign)
+            r, c, sk, bad = guarded_rotation(U[..., k, k], x[..., k], sign)
+            bad_any |= bad
             tail = ((U[..., k, k + 1:] + (sign * sk)[..., None] * x[..., k + 1:])
                     / c[..., None])
             x[..., k + 1:] = (c[..., None] * x[..., k + 1:]
                               - sk[..., None] * tail)
             U[..., k, k + 1:] = tail
             U[..., k, k] = r
+    if flags is not None:
+        flags.copy_(bad_any)
     return U
 
 

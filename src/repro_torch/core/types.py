@@ -226,6 +226,37 @@ class RidgeState:
 
 
 @dataclasses.dataclass
+class WindowState:
+    """Ring of the last ``capacity`` retained samples of one stream, for
+    ``retirement='window'`` (the stream server stacks a slot axis onto every
+    leaf).
+
+    ``rows[pos]`` is the next sample to evict: when a new sample is
+    retained, the overwritten row is subtracted from (A, B) and downdated
+    out of the live factor.  Every r~ row ends in the constant-1 feature,
+    so a zero row marks capacity never written, and evicting it is an exact
+    no-op: a capacity of at least a stream's length serves as no retirement.
+
+    rows:   (capacity, s)  retained r~ rows, in ring order.
+    onehot: (capacity, Ny) their label one-hots.
+    pos:    int32 write cursor (the next row to evict and overwrite).
+    """
+
+    rows: Tensor
+    onehot: Tensor
+    pos: Tensor
+
+    @classmethod
+    def zeros(cls, capacity: int, s: int, n_classes: int,
+              dtype=torch.float32, device=None) -> "WindowState":
+        return cls(
+            rows=_zeros((capacity, s), dtype, device),
+            onehot=_zeros((capacity, n_classes), dtype, device),
+            pos=_zeros((), torch.int32, device),
+        )
+
+
+@dataclasses.dataclass
 class RequestPool:
     """Device-resident staged stream payloads, one row per serving slot.
 

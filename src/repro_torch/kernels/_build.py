@@ -84,6 +84,21 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
     return logs
 
 
+def c_function(name: str, symbol: str, argtypes: Sequence):
+    """``symbol`` of library ``name`` (built at first use) as a ctypes
+    function returning a CUDA error code, and the library's
+    ``dfr_error_string``."""
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = lib.dfr_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
 @contextlib.contextmanager
 def tally_launches() -> Iterator[Dict["CudaKernel", int]]:
     """Count the launches made inside the block into the yielded dict, not
@@ -115,21 +130,13 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self._lib = None
         self._fn = None
         self._err = None
 
     def _function(self):
         if self._fn is None:
-            build([self.name])
-            lib = ctypes.CDLL(str(library_path(self.name)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = lib.dfr_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._lib, self._fn, self._err = lib, fn, err
+            self._fn, self._err = c_function(self.name, self.symbol,
+                                             self.argtypes)
         return self._fn
 
     def launch(self, *args) -> None:

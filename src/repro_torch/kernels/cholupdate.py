@@ -5,7 +5,10 @@ rotated, in stream order, into each of K transposed Cholesky factors
 (``sign=+1`` update, ``sign=-1`` guarded hyperbolic downdate).  The kernel
 (``csrc/cholupdate.cu``) runs one block per factor and folds in place:
 one warp runs the chain of rotations down the diagonal, the other seven
-apply each step to the rest of its row one step behind.
+apply each step to the rest of its row one step behind.  An optional
+per-row scale (the forgetting factor's sqrt(lambda)) multiplies each factor
+before each row, and an optional flag output reports, per factor, whether
+the downdate guard skipped a rotation.
 Its plain version is ``core.ridge.cholupdate_window_t``;
 ``kernels.ops.cholupdate_window_t`` chooses between them by the tensors'
 device.
@@ -13,6 +16,7 @@ device.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,13 +30,18 @@ MAX_FACTOR = 4096  # csrc/cholupdate.cu: passes of 5 rows in shared memory
 
 KERNEL = CudaKernel(
     "cholupdate", "dfr_cholupdate_window_t",
-    [_P, _P, _I, _I, _I, _F, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 )
 
 
-def cholupdate_window_t_cuda(Lt: Tensor, X: Tensor, sign: float) -> Tensor:
+def cholupdate_window_t_cuda(Lt: Tensor, X: Tensor, sign: float,
+                             scale: Optional[Tensor] = None,
+                             flags: Optional[Tensor] = None) -> Tensor:
     """Launch K3 once: fold X (K, W, s) into Lt (K, s, s) in place, and
-    return Lt.  Only its upper triangle is read and written."""
+    return Lt.  Only its upper triangle is read and written.  ``scale``
+    (K, W) float32 scales each factor before each row; ``flags`` (K,) int32
+    receives whether the downdate guard skipped a rotation of each
+    factor."""
     dev = Lt.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel needs CUDA tensors, got {dev}")
@@ -48,10 +57,20 @@ def cholupdate_window_t_cuda(Lt: Tensor, X: Tensor, sign: float) -> Tensor:
         raise ValueError(f"sign must be +1 or -1, got {sign!r}")
     check_operand("Lt", Lt, torch.float32, dev)
     check_operand("X", X, torch.float32, dev)
-    if X.shape[1] == 0:
+    w = X.shape[1]
+    if scale is not None:
+        check_operand("scale", scale, torch.float32, dev, (k, w))
+    if flags is not None:
+        check_operand("flags", flags, torch.int32, dev, (k,))
+    if w == 0:
+        if flags is not None:
+            flags.zero_()
         return Lt
     KERNEL.launch(
-        Lt.data_ptr(), X.data_ptr(), k, s, X.shape[1], float(sign),
+        Lt.data_ptr(), X.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if flags is None else flags.data_ptr(),
+        k, s, w, float(sign),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream_handle(dev),
     )

@@ -6,7 +6,13 @@
 // Lt = L^T (upper triangular, row-major): Lt'^T Lt' = Lt^T Lt + sign x x^T
 // per row, sign -1 being the hyperbolic downdate with the reference's guard
 // (repro.core.ridge._guarded_rotation: an indefinite rotation becomes the
-// identity).
+// identity).  Two optional operands serve the stream server's retirement
+// modes: a (K, W) scale multiplies each element of the factor by scale[w]
+// just before row w's rotation reaches it (the forgetting factor's fold,
+// repro.core.ridge.cholupdate_window_t_decay, which scales the whole factor
+// first: the same products, since each element is read once a row), and a
+// (K,) int32 flag receives whether the guard skipped any rotation of that
+// factor (repro.core.ridge._cholupdate_dense_t_flagged).
 //
 // Rotation k of a row touches row k of Lt and the tail of x.  The kernel
 // loops k (the step) outside and the rows of a pass (up to 8) inside: at
@@ -134,18 +140,22 @@ __device__ __forceinline__ RowCopy row_copy(const float* lt, int s, int q) {
 }
 
 // The rotations of one column for the WC rows of a pass, in stream order,
-// from the diagonal d (the reference's _guarded_rotation); returns the new
-// diagonal.
-template <int WC, bool kExact>
+// from the diagonal d (the reference's _guarded_rotation), each after the
+// scale of its row (kScale); returns the new diagonal.  `guard` picks up
+// every rotation the guard skips.
+template <int WC, bool kExact, bool kScale>
 __device__ __forceinline__ float rotations(float d, const float (&xk)[WC],
-                                           float sign, Coef (&cf)[WC],
-                                           bool& bad) {
+                                           const float (&sc)[WC], float sign,
+                                           Coef (&cf)[WC], bool& bad,
+                                           bool& guard) {
 #pragma unroll
   for (int r = 0; r < WC; ++r) {
+    if (kScale) d = __fmul_rn(d, sc[r]);
     const float x = xk[r];
     const float dd = __fmul_rn(d, d);
     const float rad = __fadd_rn(dd, __fmul_rn(__fmul_rn(sign, x), x));
     const bool skip = rad <= __fmul_rn(kGuardRel, dd);
+    guard |= skip;
     const float rr = skip ? d : sqrt_rn<kExact>(skip ? 1.0f : rad, bad);
     float c, q;
     if (kExact) {
@@ -166,13 +176,15 @@ __device__ __forceinline__ float rotations(float d, const float (&xk)[WC],
 
 // One element's WC rotations of a column: v, Lt's value, and xin, its
 // sample rows' values, into the new v (returned) and xout (which may be
-// xin).
-template <int WC, bool kExact>
+// xin); each rotation after the scale of its row (kScale).
+template <int WC, bool kExact, bool kScale>
 __device__ __forceinline__ float rotate(float v, const float (&xin)[WC],
                                         float (&xout)[WC],
-                                        const Coef (&cf)[WC], bool& bad) {
+                                        const Coef (&cf)[WC],
+                                        const float (&sc)[WC], bool& bad) {
 #pragma unroll
   for (int r = 0; r < WC; ++r) {
+    if (kScale) v = __fmul_rn(v, sc[r]);
     const float xv = xin[r];
     const float a = __fadd_rn(v, __fmul_rn(cf[r].ssk, xv));
     v = kExact ? __fdiv_rn(a, cf[r].c) : div_by(a, cf[r].c, cf[r].rc, bad);
@@ -217,12 +229,18 @@ struct Smem {
   int slot;               // floats a ring slot
 };
 
-// One pass: the WC sample rows in xs rotated into lt, steps 0 .. s - 1.
-template <int WC>
-__device__ void fold_pass(float* lt, int s, float sign, const Smem& sm,
-                          unsigned& phases) {
+// One pass: the WC sample rows in xs rotated into lt, steps 0 .. s - 1,
+// each after its scale in scg (kScale); the chain ORs the guard's skips
+// into `guard`.
+template <int WC, bool kScale>
+__device__ void fold_pass(float* lt, int s, float sign,
+                          const float* __restrict__ scg, const Smem& sm,
+                          unsigned& phases, bool& guard) {
   const int tid = threadIdx.x;
   const int jt = tid - 32;  // a trailing thread's elements: jt (mod kTrail)
+  float sc[WC];  // the rows' scales (read only with kScale)
+#pragma unroll
+  for (int r = 0; r < WC; ++r) sc[r] = kScale ? scg[r] : 1.0f;
 
   // chain state: x_w[t] after steps < t, and diag[t]
   float xk[WC];
@@ -257,18 +275,19 @@ __device__ void fold_pass(float* lt, int s, float sign, const Smem& sm,
       Coef cf[WC], pv[WC];  // steps t and t - 1 (published last step)
       load_coef<WC>(sm.coef[(t - 1) & 1], pv);
       bool bad = step_b && sm.cbad[(t - 1) & 1];
-      float dnew = rotations<WC, false>(d0, xk, sign, cf, bad);
+      float dnew = rotations<WC, false, kScale>(d0, xk, sc, sign, cf, bad,
+                                                guard);
       float vb = u2, vc = u1;
-      if (step_b) vb = rotate<WC, false>(u2, xn, xn, pv, bad);
+      if (step_b) vb = rotate<WC, false, kScale>(u2, xn, xn, pv, sc, bad);
       bool cbad = coef_out_of_range(cf);
       bad |= next && cbad;
-      if (next) vc = rotate<WC, false>(u1, xn, xc, cf, bad);
+      if (next) vc = rotate<WC, false, kScale>(u1, xn, xc, cf, sc, bad);
       if (bad) {  // the step again with the intrinsics (d0, xk kept)
-        dnew = rotations<WC, true>(d0, xk, sign, cf, bad);
+        dnew = rotations<WC, true, kScale>(d0, xk, sc, sign, cf, bad, guard);
         cbad = coef_out_of_range(cf);
         load_column<WC>(sm.xs, s, jn, xn);
-        if (step_b) vb = rotate<WC, true>(u2, xn, xn, pv, bad);
-        if (next) vc = rotate<WC, true>(u1, xn, xc, cf, bad);
+        if (step_b) vb = rotate<WC, true, kScale>(u2, xn, xn, pv, sc, bad);
+        if (next) vc = rotate<WC, true, kScale>(u1, xn, xc, cf, sc, bad);
       }
       if (tid == 0) {
 #pragma unroll
@@ -307,13 +326,13 @@ __device__ void fold_pass(float* lt, int s, float sign, const Smem& sm,
         load_column<WC>(sm.xs, s, j1, xb);
         const float va0 = lrow[j], vb0 = lrow[j1];
         bool bad = cbad;
-        float va = rotate<WC, false>(va0, xa, xa, cf, bad);
-        float vb = rotate<WC, false>(vb0, xb, xb, cf, bad);
+        float va = rotate<WC, false, kScale>(va0, xa, xa, cf, sc, bad);
+        float vb = rotate<WC, false, kScale>(vb0, xb, xb, cf, sc, bad);
         if (bad) {  // again from the operands, still in shared memory
           load_column<WC>(sm.xs, s, j, xa);
           load_column<WC>(sm.xs, s, j1, xb);
-          va = rotate<WC, true>(va0, xa, xa, cf, bad);
-          vb = rotate<WC, true>(vb0, xb, xb, cf, bad);
+          va = rotate<WC, true, kScale>(va0, xa, xa, cf, sc, bad);
+          vb = rotate<WC, true, kScale>(vb0, xb, xb, cf, sc, bad);
         }
 #pragma unroll
         for (int r = 0; r < WC; ++r) sm.xs[r * s + j] = xa[r];
@@ -331,9 +350,37 @@ __device__ void fold_pass(float* lt, int s, float sign, const Smem& sm,
   asm volatile("fence.proxy.async;" ::: "memory");
 }
 
+// Every pass of one factor: the sample rows in passes of `rows`, each
+// pass's scales from scg (kScale).
+template <bool kScale>
+__device__ void fold_all(float* lt, const float* __restrict__ xg,
+                         const float* __restrict__ scg, int s, int w,
+                         int rows, float sign, const Smem& sm, bool& guard) {
+  const int tid = threadIdx.x;
+  unsigned phases = 0;  // bit i: the parity of ring slot i's next phase
+  for (int w0 = 0; w0 < w; w0 += rows) {
+    const int wc = min(rows, w - w0);
+    for (int i = tid; i < wc * s; i += kThreads)
+      sm.xs[i] = xg[static_cast<size_t>(w0) * s + i];
+    __syncthreads();
+    const float* const sc = kScale ? scg + w0 : nullptr;
+    switch (wc) {  // uniform across the block
+      case 1: fold_pass<1, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 2: fold_pass<2, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 3: fold_pass<3, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 4: fold_pass<4, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 5: fold_pass<5, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 6: fold_pass<6, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 7: fold_pass<7, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      default: fold_pass<8, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-cholupdate_kernel(float* Lt, const float* __restrict__ X, int s, int w,
-                  int rows, float sign) {
+cholupdate_kernel(float* Lt, const float* __restrict__ X,
+                  const float* __restrict__ scale, int* __restrict__ flags,
+                  int s, int w, int rows, float sign) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem sm;
   sm.coef = reinterpret_cast<Coef(*)[kChunk]>(smem);
@@ -357,30 +404,22 @@ cholupdate_kernel(float* Lt, const float* __restrict__ X, int s, int w,
     sm.sup1[k] = k + 1 < s ? row[1] : 0.0f;
     sm.sup2[k] = k + 2 < s ? row[2] : 0.0f;
   }
-  unsigned phases = 0;  // bit i: the parity of ring slot i's next phase
-  for (int w0 = 0; w0 < w; w0 += rows) {
-    const int wc = min(rows, w - w0);
-    for (int i = tid; i < wc * s; i += kThreads)
-      sm.xs[i] = xg[static_cast<size_t>(w0) * s + i];
-    __syncthreads();
-    switch (wc) {  // uniform across the block
-      case 1: fold_pass<1>(lt, s, sign, sm, phases); break;
-      case 2: fold_pass<2>(lt, s, sign, sm, phases); break;
-      case 3: fold_pass<3>(lt, s, sign, sm, phases); break;
-      case 4: fold_pass<4>(lt, s, sign, sm, phases); break;
-      case 5: fold_pass<5>(lt, s, sign, sm, phases); break;
-      case 6: fold_pass<6>(lt, s, sign, sm, phases); break;
-      case 7: fold_pass<7>(lt, s, sign, sm, phases); break;
-      default: fold_pass<8>(lt, s, sign, sm, phases); break;
-    }
-  }
+  bool guard = false;  // the chain's: a rotation the guard skipped
+  if (scale != nullptr)  // uniform across the grid
+    fold_all<true>(lt, xg, scale + static_cast<size_t>(blockIdx.x) * w, s, w,
+                   rows, sign, sm, guard);
+  else
+    fold_all<false>(lt, xg, nullptr, s, w, rows, sign, sm, guard);
+  if (flags != nullptr && tid == 0) flags[blockIdx.x] = guard;
 }
 
 }  // namespace
 
-extern "C" int dfr_cholupdate_window_t(float* Lt, const float* X, int n_sys,
-                                       int s, int w, float sign, int device,
-                                       void* stream) {
+// scale (n_sys, w) and flags (n_sys,) may be null: no scaling, no flags.
+extern "C" int dfr_cholupdate_window_t(float* Lt, const float* X,
+                                       const float* scale, int* flags,
+                                       int n_sys, int s, int w, float sign,
+                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int rows = kChunk;
@@ -394,8 +433,8 @@ extern "C" int dfr_cholupdate_window_t(float* Lt, const float* X, int n_sys,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cholupdate_kernel<<<n_sys, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(Lt, X, s, w, rows,
-                                                           sign);
+                      static_cast<cudaStream_t>(stream)>>>(
+      Lt, X, scale, flags, s, w, rows, sign);
   return static_cast<int>(cudaGetLastError());
 }
 

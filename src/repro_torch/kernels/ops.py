@@ -339,6 +339,8 @@ def cholupdate_window_t(
     X: Tensor,         # (*K, W, s) sample rows, stream order
     sign: float = 1.0,
     *,
+    scale: Optional[Tensor] = None,   # (*K, W) factor scale before each row
+    flags: Optional[Tensor] = None,   # (*K,) int32 out: the guard skipped
     out: Optional[Tensor] = None,
     backend: Optional[str] = None,
 ) -> Tensor:
@@ -347,8 +349,12 @@ def cholupdate_window_t(
     downdate).  One kernel launch for all K factors (K3).  Zero rows are
     exact no-ops.
 
-    ``out`` (contiguous, Lt's shape) receives the result and may be ``Lt``
-    itself: the stream server folds its (S, s, s) factors in place."""
+    ``scale`` multiplies each factor by ``scale[..., t]`` before row t (the
+    forgetting factor's fold; 1.0 changes no bit).  ``flags`` (contiguous
+    int32) receives, per factor, whether the downdate guard skipped any
+    rotation.  ``out`` (contiguous, Lt's shape) receives the result and may
+    be ``Lt`` itself: the stream server folds its (S, s, s) factors in
+    place."""
     be = resolve_backend(backend, Lt)
     *lead, s, s2 = Lt.shape
     w = X.shape[-2]
@@ -356,18 +362,29 @@ def cholupdate_window_t(
         raise ValueError(f"Lt must be (..., s, s) and X (..., W, s) with the "
                          f"same leading axes, got {tuple(Lt.shape)} and "
                          f"{tuple(X.shape)}")
+    if scale is not None and tuple(scale.shape) != (*lead, w):
+        raise ValueError(f"scale must be {(*lead, w)}, got "
+                         f"{tuple(scale.shape)}")
+    if flags is not None and (tuple(flags.shape) != tuple(lead)
+                              or flags.dtype != torch.int32
+                              or not flags.is_contiguous()):
+        raise ValueError(f"flags must be contiguous int32 of shape "
+                         f"{tuple(lead)}")
     if out is not None and (out.shape != Lt.shape or not out.is_contiguous()):
         raise ValueError("out must be contiguous with Lt's shape")
     if be == "torch":
-        res = core_ridge.cholupdate_window_t(Lt, X, sign)
+        res = core_ridge.cholupdate_window_t(Lt, X, sign, scale=scale,
+                                             flags=flags)
         return res if out is None else out.copy_(res)
     k = int(torch.Size(lead).numel())
     if out is None:
         out = Lt.clone(memory_format=torch.contiguous_format)
     elif out.data_ptr() != Lt.data_ptr():
         out.copy_(Lt)
-    cholupdate_window_t_cuda(out.view(k, s, s),
-                             _flat(X, (k, w, s), torch.float32), sign)
+    cholupdate_window_t_cuda(
+        out.view(k, s, s), _flat(X, (k, w, s), torch.float32), sign,
+        scale=None if scale is None else _flat(scale, (k, w), torch.float32),
+        flags=None if flags is None else flags.view(k))
     return out
 
 

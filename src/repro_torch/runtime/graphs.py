@@ -15,14 +15,41 @@ kernel's first load, every library's handles and autograd's threads come up
 outside capture.  The second call captures the body, which executes
 nothing, and replays it.  A capture or a replay that fails raises; nothing
 falls back to the eager round.
+
+``run_if`` is the round's ``lax.cond``: the rare, costly steps that the
+reference gates on a device flag (the window mode's refactorization of the
+slots whose downdate tripped the guard, the adaptive mode's anneal) become
+a conditional node of the captured graph (``kernels/csrc/graph_cond.cu``),
+whose body runs at a replay only when the flag is set on the device.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def run_if(flag: torch.Tensor, body: Callable[[], None],
+           graphs: Optional["RoundGraphs"] = None,
+           read: bool = False) -> None:
+    """Run ``body``, which updates tensors in place, where the device
+    scalar ``flag`` holds; ``body`` must change no bit where it does not.
+
+    While ``graphs`` captures, ``body`` becomes the body of a conditional
+    node: a replay runs it only when ``flag`` is set, and the flag never
+    leaves the device.  Otherwise ``body`` runs unconditionally (the same
+    bits, since it changes none where the flag is clear), or, with
+    ``read``, only if ``flag`` reads true on the host: a blocking read on a
+    CUDA device, which the eager round pays rather than a costly body."""
+    if graphs is not None and graphs.capturing:
+        graphs.conditional(flag, body)
+    elif not read or bool(flag):
+        body()
 
 
 class _Graph:
@@ -60,7 +87,12 @@ class RoundGraphs:
     def __init__(self, capture: bool = True):
         self.capture = capture
         self.pool = torch.cuda.graph_pool_handle() if capture else None
+        # the conditional bodies' memory: the allocator takes one capture
+        # per pool at a time, and a body is captured inside its graph's
+        self.body_pool = torch.cuda.graph_pool_handle() if capture else None
         self._stream: Optional[torch.cuda.Stream] = None
+        self._body_stream: Optional[torch.cuda.Stream] = None
+        self.capturing = False   # a body is being captured (run_if)
         self._graphs: Dict[Hashable, _Graph] = {}
         self._warm: set = set()
         self.replays = 0       # graph launches
@@ -94,14 +126,57 @@ class RoundGraphs:
         self._stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self._stream), _build.tally_launches() as tally:
             graph.capture_begin(pool=self.pool)
+            self.capturing = True
             try:
                 outputs = body()
             except BaseException:
                 _end_failed_capture(graph)
                 raise
+            finally:
+                self.capturing = False
             graph.capture_end()
         torch.cuda.current_stream().wait_stream(self._stream)
         return _Graph(graph, outputs, dict(tally))
+
+    def conditional(self, flag: torch.Tensor,
+                    body: Callable[[], None]) -> None:
+        """Capture ``body`` as a conditional node on ``flag`` into the graph
+        being captured on the current stream (``run_if``)."""
+        if self._body_stream is None:
+            self._body_stream = torch.cuda.Stream()
+        flag = flag.reshape(()).to(torch.bool).contiguous()
+        dev = torch.cuda.current_device()
+        begin = _cond_fn("dfr_graph_if_begin", [_P, _P, _P, _I])
+        end = _cond_fn("dfr_graph_if_end", [_P])
+        _check(begin, begin[0](torch.cuda.current_stream().cuda_stream,
+                               flag.data_ptr(), self._body_stream.cuda_stream,
+                               0))   # the global capture mode, as PyTorch's
+        torch._C._cuda_beginAllocateCurrentThreadToPool(dev, self.body_pool)
+        try:
+            with torch.cuda.stream(self._body_stream):
+                body()
+        finally:
+            # end the body's capture even when the body failed: its error
+            # is then the one raised
+            rc = end[0](self._body_stream.cuda_stream)
+            torch._C._cuda_endAllocateToPool(dev, self.body_pool)
+        _check(end, rc)
+
+
+_COND: Dict[str, tuple] = {}
+
+
+def _cond_fn(symbol: str, argtypes) -> tuple:
+    """(``symbol`` of the conditional-node library, its error strings)."""
+    if symbol not in _COND:
+        _COND[symbol] = _build.c_function("graph_cond", symbol, argtypes)
+    return _COND[symbol]
+
+
+def _check(fn: tuple, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"conditional node: {fn[0].__name__} failed: "
+                           f"{fn[1](rc).decode()} (error {rc})")
 
 
 def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:

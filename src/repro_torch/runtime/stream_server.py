@@ -1,8 +1,8 @@
 """Continuous-batching stream server: train-while-serve for sensor streams.
 
 The PyTorch counterpart of ``repro.runtime.stream_server`` with its refresh
-modes and int8 serving.  Many independent sensor streams each get an online
-DFR that
+modes, int8 serving and sample retirement.  Many independent sensor streams
+each get an online DFR that
 (a) answers every window from the parameters it had before seeing the
 labels (infer-before-update) and (b) keeps adapting: truncated-BP SGD on
 (p, q, W, b) while the slot is young (phase 1), then frozen-reservoir (A, B)
@@ -15,7 +15,9 @@ all slots: K1 (``kernels/csrc/train.cu``) for the shared training forward,
 K2 (``kernels/csrc/streaming.cu``) for the infer-before-update logits, and,
 when their knobs are set, K5 (``kernels/csrc/streaming_q8.cu``) for the
 int8 logits and K3 (``kernels/csrc/cholupdate.cu``) for the fold of the
-window's samples into the live factors.  On the CPU the step keeps the
+window's samples into the live factors (scaled by sqrt(lambda) under
+``retirement='forget'``), and once more under ``retirement='window'`` for
+the downdate of the samples the window evicts.  On the CPU the step keeps the
 reference's off-TPU choices: the plain forward, and the serve step's own
 logits unless ``fused_infer=True``; K5 and K3 run their plain versions.
 
@@ -23,7 +25,10 @@ On the card with ``staging='device'`` a round replays CUDA graphs of its
 fixed-shape bodies (``runtime.graphs``) instead of launching their kernels
 one by one from Python: the step, and the cohort refresh of a refresh
 round.  The round updates the server's state in place there, the
-counterpart of the reference's donated buffers.  The eager round
+counterpart of the reference's donated buffers.  The reference's
+``lax.cond``-gated steps (the window mode's refactorization of a slot whose
+downdate tripped the guard, the adaptive mode's anneal) are conditional
+nodes of the step graph (``graphs.run_if``).  The eager round
 (``_step_core``) serves on the CPU and under ``staging='host'``.
 
 The host keeps a mirror of every slot's step count, so choosing between the
@@ -41,15 +46,17 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import masking
-from repro_torch.core.online import (OnlineState, fold_quant_rows, init_state,
-                                     online_serve_step,
+from repro_torch.core import masking, ridge
+from repro_torch.core.online import (OnlineState, adaptive_detect,
+                                     anneal_ridge_, fold_quant_rows,
+                                     init_state, online_serve_step,
                                      refresh_output_factor_rows,
                                      refresh_output_rows)
-from repro_torch.core.types import (DFRConfig, RequestPool, Tensor,
-                                    map_leaves, resolve_device, unported)
+from repro_torch.core.types import (DFRConfig, RequestPool, RidgeState,
+                                    Tensor, WindowState, map_leaves,
+                                    resolve_device, unported)
 from repro_torch.kernels import ops
-from repro_torch.runtime.graphs import PinnedRing, RoundGraphs
+from repro_torch.runtime.graphs import PinnedRing, RoundGraphs, run_if
 from repro_torch.runtime.scheduler import RefreshCohorts, SlotScheduler
 
 
@@ -82,6 +89,20 @@ def _bcast_to(mask1d: Tensor, leaf: Tensor) -> Tensor:
     return mask1d.reshape((-1,) + (1,) * (leaf.ndim - 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class Retirement:
+    """A server's sample retirement (``StreamServer``'s knobs): the mode,
+    ``lam`` (a device scalar: forget's lambda, or adaptive's fire-time
+    lambda), the window mode's ridge ``beta`` for the guard's rebuild, and
+    the adaptive detector's trip ratio and warm-up steps."""
+
+    mode: str = "none"
+    lam: Optional[Tensor] = None
+    beta: float = 0.0
+    ratio: float = 1.2
+    warmup: int = 4
+
+
 def _assign(dst: OnlineState, src: OnlineState) -> None:
     """Write every leaf of ``src`` that is not already ``dst``'s own into
     ``dst``'s tensor, in place."""
@@ -109,6 +130,9 @@ def _step_core(
     maintain_factor: bool = False,
     quantize: str = "none",
     stats_in_place: bool = False,
+    retire: Retirement = Retirement(),
+    win: Optional[WindowState] = None,
+    graphs: Optional[RoundGraphs] = None,
 ) -> Tuple[OnlineState, Tensor, Optional[Tensor]]:
     """One server step: infer-before-update + train for every live slot.
 
@@ -134,6 +158,17 @@ def _step_core(
     ``states.ridge`` itself (the captured round's in-place update).  Dead
     slots then skip the liveness select on A and B: their rows add exact
     zeros, and A and B never hold -0, so they keep their bits.
+
+    ``retire`` (the reference's order): 'forget' decays the statistics in
+    the serve step and scales the K3 fold by its ``fold_scale`` rows;
+    'window' then evicts from ``win`` (updated in place, and reset for the
+    admitted rows) through ``_retire_window``; 'adaptive' runs the drift
+    detector on the step's serving error after the fold and anneals the
+    slots that trip.  These two steps run through ``graphs.run_if``: under
+    a capture of ``graphs`` (the round's graphs) as conditional nodes;
+    without ``graphs`` (the eager round) the guard's rebuild reads its flag
+    on the host and the anneal runs unconditionally (its factors are
+    exactly 1.0 where no slot trips).
     """
     f = cfg.f()
     if fresh_rows is not None:
@@ -142,6 +177,8 @@ def _step_core(
             lambda batched, single: batched.index_copy(
                 0, fresh_rows, single.expand(k, *single.shape)),
             states, fresh)
+        if win is not None:
+            _reset_window_rows(win, fresh_rows)
 
     # per-slot learning-rate phase: adapt (p, q, W, b) while the slot is
     # young, then freeze the reservoir; (A, B) accumulate only when frozen
@@ -154,6 +191,7 @@ def _step_core(
         maintain_factor="defer" if maintain_factor else False, train=train,
         track_state_absmax=quantize == "int8", fused=fused,
         accumulate_in_place=stats_in_place,
+        forget=retire.lam if retire.mode == "forget" else None,
     )
     if fused_infer or quantize == "int8":
         j_seq = masking.apply_mask(mask, u)
@@ -184,8 +222,96 @@ def _step_core(
         # in place: the old state is dropped once the step returns, and
         # retired rows were snapshot by clone
         ops.cholupdate_window_t(new_states.ridge.Lt, metrics["rt_rows"],
+                                scale=metrics.get("fold_scale"),
                                 out=new_states.ridge.Lt)
+        if retire.mode == "window":
+            gate = weight * acc_slot[:, None]
+            onehot = torch.nn.functional.one_hot(
+                label.to(torch.int64), cfg.n_classes).to(cfg.dtype)
+            _retire_window(new_states.ridge, win, metrics["rt_rows"], onehot,
+                           gate, retire.beta, graphs)
+    if retire.mode == "adaptive":
+        # the detector reads the serving error of live slots that folded
+        # frozen-phase samples; the anneal scales the post-fold factor
+        update = live & ~in_phase1 & (weight.sum(dim=1) > 0)
+        warm = new_states.step >= phase_steps + retire.warmup
+        fast, slow, trip, lam = adaptive_detect(
+            new_states.loss_fast, new_states.loss_slow, 1.0 - metrics["acc"],
+            update, warm, retire.ratio, retire.lam)
+        new_states = dataclasses.replace(new_states, loss_fast=fast,
+                                         loss_slow=slow)
+        rs = new_states.ridge
+        run_if(trip.any(), lambda: anneal_ridge_(rs, lam), graphs)
     return new_states, preds, armed
+
+
+def _reset_window_rows(win: WindowState, rows: Tensor) -> None:
+    """Empty the window rings of slot ``rows`` (admitted), in place."""
+    for leaf in (win.rows, win.onehot, win.pos):
+        leaf.index_fill_(0, rows, 0)
+
+
+def _retire_window(rs: RidgeState, win: WindowState, rt_rows: Tensor,
+                   onehot: Tensor, gate: Tensor, beta: float,
+                   graphs: Optional[RoundGraphs]) -> None:
+    """The window mode's eviction for every slot at once, in place on
+    ``rs`` and ``win``: the reference's ``_retire_window_slot`` per slot.
+
+    Each accumulated row (``gate`` (S, W) 0/1; the live rows of a window are
+    a prefix, since ``weight`` gates the samples past a stream's end and
+    ``acc`` whole slots) evicts the ring's row at the cursor, then takes its
+    place, and the cursor advances.  Row t evicts the ring's row pos + t
+    while t < capacity; past that it evicts this window's own row t -
+    capacity, written earlier in the same round.  The evicted rows leave
+    (A, B) in one product each (the reference subtracts them one by one:
+    the same sum, rounded in another order), and the factor through K3 as a
+    guarded downdate (sign -1).  A slot whose downdate the guard skipped
+    has its factor rebuilt from B + beta I (``run_if``: a conditional node
+    under a capture of ``graphs``; without ``graphs`` it reads the flag).
+    Zero rows (empty ring capacity, gated rows) evict exact no-ops.
+    """
+    S, W = gate.shape
+    cap = win.rows.shape[1]
+    dev = gate.device
+    t = torch.arange(W, device=dev)
+    slot = torch.arange(S, device=dev)[:, None]
+    m = gate.sum(dim=1).to(torch.int64)               # live rows a slot
+    pos = win.pos.to(torch.int64)
+    ring = (pos[:, None] + t[None, :]) % cap          # (S, W)
+    ev_r, ev_o = win.rows[slot, ring], win.onehot[slot, ring]
+    if W > cap:
+        own = (t >= cap)[None, :, None]
+        back = torch.clamp(t - cap, min=0)
+        ev_r = torch.where(own, rt_rows[:, back], ev_r)
+        ev_o = torch.where(own, onehot[:, back], ev_o)
+    g = gate[..., None]
+    ev_r, ev_o = ev_r * g, ev_o * g
+    # every r~ row ends in the constant-1 feature: a real eviction
+    valid = (ev_r[..., -1] > 0.5).sum(dim=1).to(rs.count.dtype)
+    rs.A.sub_(ev_o.transpose(-1, -2) @ ev_r)
+    rs.B.sub_(ev_r.transpose(-1, -2) @ ev_r)
+    rs.count.sub_(valid)
+    bad = torch.empty((S,), dtype=torch.int32, device=dev)
+    ops.cholupdate_window_t(rs.Lt, ev_r, -1.0, flags=bad, out=rs.Lt)
+    # ring position j keeps the last live row t with (pos + t) % cap == j
+    j = torch.arange(cap, device=dev)
+    t0 = (j[None, :] - pos[:, None]) % cap            # (S, cap)
+    hit = t0 < m[:, None]
+    last = t0 + torch.clamp(torch.div(m[:, None] - 1 - t0, cap,
+                                      rounding_mode="floor"), min=0) * cap
+    last = torch.clamp(last, max=W - 1)
+    win.rows.copy_(torch.where(hit[..., None], rt_rows[slot, last],
+                               win.rows))
+    win.onehot.copy_(torch.where(hit[..., None], onehot[slot, last],
+                                 win.onehot))
+    win.pos.copy_((pos + m) % cap)
+    flagged = bad != 0
+
+    def rebuild():
+        fresh = ridge.cholesky_or_nan(ridge.regularize(rs.B, beta)).mT
+        rs.Lt.copy_(torch.where(flagged[:, None, None], fresh, rs.Lt))
+
+    run_if(flagged.any(), rebuild, graphs, read=graphs is None)
 
 
 def _gather_window(
@@ -254,6 +380,23 @@ class StreamServer:
         it and admissions happen only at its start, so a blocked episode
         serves the ``step_block=1`` episode exactly.  Needs
         ``staging='device'``, as in the reference.
+      * ``retirement``: how a slot forgets old samples, for streams that
+        drift.  'forget' (lambda ``forget``): exponentially weighted RLS,
+        every accumulated sample scales (A, B) by lambda and the live
+        factor by sqrt(lambda) before its fold (K3's scale operand);
+        lambda = 1 serves 'none' bit for bit.  'window' (capacity
+        ``retire_window``, needs ``refresh_mode='incremental'``): a ring of
+        each slot's last retained (r~, one-hot) rows; a new row evicts the
+        oldest from (A, B) and downdates it out of the live factor (K3, sign
+        -1, flagged), and a slot whose downdate the guard skipped has its
+        factor rebuilt from B + beta I; a capacity of at least every
+        stream's length serves 'none' bit for bit.  'adaptive': a per-slot
+        drift detector (``online.adaptive_anneal``) on the serving error,
+        armed ``adapt_warmup`` steps after phase 1; a slot whose fast EMA
+        passes ``adapt_ratio`` x its slow EMA plus a margin has its
+        statistics annealed by ``adapt_forget``; a detector that never
+        trips serves 'none' bit for bit.  The refactorization and the
+        anneal are conditional nodes of the captured round.
       * ``fused_infer``: serve the logits through K2 (default: on a CUDA
         device).
       * ``donate``: the reference donates the state buffers so XLA updates
@@ -269,10 +412,8 @@ class StreamServer:
         in one warp and have no chunks.
 
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``retirement`` other than 'none', ``devices > 1``,
-    ``config='auto'``, ``attach_autotuner`` and a non-float32
-    ``cfg.dtype``; the reference's retirement parameters (``forget``,
-    ``retire_window``, ``adapt_*``) come with them.
+    ROADMAP item: ``devices > 1``, ``config='auto'``, ``attach_autotuner``
+    and a non-float32 ``cfg.dtype``.
     """
 
     def __init__(
@@ -290,6 +431,11 @@ class StreamServer:
         refresh_mode: Optional[str] = None,
         refresh_cohorts: Optional[int] = None,
         retirement: str = "none",
+        forget: float = 1.0,
+        retire_window: int = 0,
+        adapt_forget: float = 0.12,
+        adapt_ratio: float = 1.2,
+        adapt_warmup: int = 4,
         staging: str = "device",
         pipeline_depth: int = 0,
         donate: bool = True,
@@ -311,8 +457,27 @@ class StreamServer:
             raise ValueError(f"unknown refresh_mode: {refresh_mode!r}")
         if retirement not in ("none", "forget", "window", "adaptive"):
             raise ValueError(f"unknown retirement: {retirement!r}")
-        if retirement != "none":
-            raise unported(f"retirement={retirement!r}", "Retirement modes")
+        if retirement == "forget" and not 0.0 < forget <= 1.0:
+            raise ValueError(f"forget must be in (0, 1], got {forget!r}")
+        if retirement == "adaptive":
+            if not 0.0 < adapt_forget <= 1.0:
+                raise ValueError(
+                    f"adapt_forget must be in (0, 1], got {adapt_forget!r}")
+            if adapt_ratio <= 1.0:
+                raise ValueError(
+                    f"adapt_ratio must be > 1, got {adapt_ratio!r}")
+            if adapt_warmup < 0:
+                raise ValueError(
+                    f"adapt_warmup must be >= 0, got {adapt_warmup!r}")
+        if retirement == "window":
+            if refresh_mode != "incremental":
+                raise ValueError(
+                    "retirement='window' needs refresh_mode='incremental' "
+                    "(the eviction downdates a live factor)")
+            if retire_window < 1:
+                raise ValueError(
+                    f"retirement='window' needs retire_window >= 1, got "
+                    f"{retire_window!r}")
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize: {quantize!r}")
         step_block = 1 if step_block is None else step_block
@@ -354,6 +519,17 @@ class StreamServer:
         self.refresh_every = int(refresh_every)
         self.beta = float(beta)
         self.refresh_mode = refresh_mode
+        self.retirement = retirement
+        # adaptive mode takes its fire-time lambda where forget takes its
+        # lambda; 'none' and 'window' read neither
+        self.retire = Retirement(
+            mode=retirement,
+            lam=torch.tensor(
+                adapt_forget if retirement == "adaptive" else forget,
+                dtype=cfg.dtype, device=self.device),
+            beta=self.beta, ratio=float(adapt_ratio),
+            warmup=int(adapt_warmup))
+        self.retire_window = int(retire_window)
         self.quantize = quantize
         self.staging = staging
         self.pipeline_depth = int(pipeline_depth)
@@ -388,6 +564,14 @@ class StreamServer:
         self.states: OnlineState = map_leaves(
             lambda leaf: leaf.expand(self.max_streams, *leaf.shape).clone(),
             self._fresh_row)
+        # window mode: each slot's ring of retained samples
+        self.win: Optional[WindowState] = None
+        if retirement == "window":
+            self.win = map_leaves(
+                lambda leaf: leaf.expand(self.max_streams,
+                                         *leaf.shape).clone(),
+                WindowState.zeros(self.retire_window, cfg.s, cfg.n_classes,
+                                  cfg.dtype, self.device))
         self.pool: Optional[RequestPool] = None
         self._staged: Dict[int, Tuple] = {}
         if self.staging == "device":
@@ -647,7 +831,7 @@ class StreamServer:
             all_live=bool(live_np.all()), train=train,
             fused_infer=self.fused_infer, fused=self.fused,
             maintain_factor=self.refresh_mode == "incremental",
-            quantize=self.quantize,
+            quantize=self.quantize, retire=self.retire, win=self.win,
         )
         out = _served(preds, armed)
         out_host[:out.numel()].copy_(out, non_blocking=True)
@@ -676,8 +860,10 @@ class StreamServer:
             map_leaves(lambda leaf, row: leaf.index_copy_(
                 0, rows, row.expand(k, *row.shape)),
                 self.states, self._fresh_row)
+            if self.win is not None:
+                _reset_window_rows(self.win, rows)
         all_live = bool(live_np.all())
-        out = self._graphs.run(("step", train, all_live),
+        out = self._graphs.run(("step", self.retirement, train, all_live),
                                lambda: self._step_body(train, all_live))
         out_host[:out.numel()].copy_(out, non_blocking=True)
         due, rows_np, ok_np = self._after_step(live_np)
@@ -698,7 +884,8 @@ class StreamServer:
             weight, live, self.lr, self.phase_steps, all_live=all_live,
             train=train, fused_infer=self.fused_infer, fused=self.fused,
             maintain_factor=self.refresh_mode == "incremental",
-            quantize=self.quantize, stats_in_place=True,
+            quantize=self.quantize, stats_in_place=True, retire=self.retire,
+            win=self.win, graphs=self._graphs,
         )
         _assign(self.states, new)
         return _served(preds, armed)

@@ -15,7 +15,9 @@ Tolerances:
   * K5's int32 DPRR accumulators for linear f: exact - the kernel rounds
     every fp32 operation before a requantization as the plain version does;
   * K3: max |dLt| <= 1e-5 x max |Lt| - the same rotations in the same
-    order, each divided by c and d.
+    order, each divided by c and d; with its retirement operands (the
+    forget scale, the guard flags) bit for bit, as the server's checks
+    print it;
   * K6 and K7: rtol 1e-4 / atol 1e-4, as K1 (the ring matvec and the DPRR
     sums in another order);
   * K4a: max |dL| <= 1e-5 x max |L| - the same column updates in the same
@@ -265,6 +267,51 @@ def test_k3_out_of_range_operands_fold_exactly(dev, scale, sign):
     _assert_factor_close(got, want)
 
 
+# the forget fold's scale and the window's flagged downdate, at one pass
+# of 1, 4 and 8 rows, a small factor and ARAB's
+@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("s", [31, 931])
+def test_k3_scale_and_flags_bit_for_bit(dev, w, s):
+    k = 4
+    Lt, X = _k3_operands(dev, k, w, s, seed=w + s)
+    X[1, -1] = 0.0                     # a gated row: scale exactly 1.0
+    scale = torch.where(X.abs().sum(dim=-1) > 0, 0.95 ** 0.5,
+                        1.0).to(torch.float32)
+    want = ops.cholupdate_window_t(Lt, X, 1.0, scale=scale, backend="torch")
+    got = ops.cholupdate_window_t(Lt, X, 1.0, scale=scale, backend="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # a downdate the guard skips in factors 0 and 2, not in 1 and 3
+    D = 0.05 * X
+    D[0, -1, s // 2] = 3.0 * want[0, s // 2, s // 2]
+    D[2, 0, 0] = 3.0 * want[2, 0, 0]
+    flags = torch.full((k,), 7, dtype=torch.int32, device=dev)
+    plain_flags = flags.clone()
+    got = ops.cholupdate_window_t(want, D, -1.0, flags=flags, out=want.clone(),
+                                  backend="cuda")
+    plain = ops.cholupdate_window_t(want, D, -1.0, flags=plain_flags,
+                                    backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert flags.tolist() == plain_flags.tolist() == [1, 0, 1, 0]
+
+
+def test_k3_scale_of_one_is_the_unscaled_fold(dev):
+    Lt, X = _k3_operands(dev, 3, 4, 73, seed=3)
+    ones = torch.ones(3, 4, device=dev)
+    flags = torch.ones(3, dtype=torch.int32, device=dev)
+    a = ops.cholupdate_window_t(Lt, X, 1.0, scale=ones, flags=flags)
+    b = ops.cholupdate_window_t(Lt, X, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and flags.tolist() == [0, 0, 0]
+    with pytest.raises(ValueError, match="scale"):
+        k_cholupdate.cholupdate_window_t_cuda(Lt.clone(), X, 1.0,
+                                              scale=ones[:, :3].clone())
+    with pytest.raises(TypeError):
+        k_cholupdate.cholupdate_window_t_cuda(Lt.clone(), X, 1.0,
+                                              flags=flags.long())
+
+
 def test_k5_k3_launch_counts_and_rejections(dev):
     args = _q8_operands(dev, 2, 3, 9, 6, 3, seed=0)
     Lt, X = _k3_operands(dev, 2, 3, 10, seed=0)
@@ -439,6 +486,114 @@ def test_pool_growth_captures_again(dev):
         runs[eager] = srv
     assert runs[False]._graphs._graphs   # captured again after the growth
     _assert_same_serving(runs[False], runs[True])
+
+
+# the retirement modes: streams whose labels follow a fixed linear rule of
+# the first steps and move to the next class at sample 20, so that the
+# adaptive detector trips
+RETIRE_MODES = {
+    "forget": {"retirement": "forget", "forget": 0.95},
+    "window": {"retirement": "window", "retire_window": 3},
+    "adaptive": {"retirement": "adaptive"},
+    "adaptive_int8": {"retirement": "adaptive", "quantize": "int8"},
+}
+
+
+def _retire_server(mode, eager=False, **kw):
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=8)
+    rng = np.random.default_rng(0)
+    mask = np.sign(rng.normal(size=(8, 2))).astype(np.float32)
+    knobs = {**RETIRE_MODES[mode], **kw}
+    srv = StreamServer(cfg, t_max=16, max_streams=3, window=4,
+                       phase_steps=2, refresh_every=3, mask=mask,
+                       refresh_mode="incremental", device="cuda", **knobs)
+    if eager:
+        srv._graphs = None
+    for rid, n in enumerate((40, 34, 37, 29)):
+        r = np.random.default_rng(rid)
+        u = r.normal(size=(n, 16, 2)).astype(np.float32)
+        score = u[:, :4].sum(axis=1) @ np.array([1.0, -1.0], np.float32)
+        label = np.digitize(score, [-1.0, 1.0]).astype(np.int32)
+        label[20:] = (label[20:] + 1) % 3
+        srv.submit(StreamRequest(
+            rid=rid, u=u, length=r.integers(4, 17, n).astype(np.int32),
+            label=label))
+    return srv
+
+
+def _serve_retire(mode, eager=False, shrink_at=None, **kw):
+    """Serve the retirement episode; ``shrink_at`` shrinks every live
+    factor after that many dispatches, so the next evictions trip the
+    downdate guard (the reference's
+    ``test_window_guard_refactorizes_on_indefinite_eviction``)."""
+    srv = _retire_server(mode, eager=eager, **kw)
+    steps = 0
+    while srv.sched.active():
+        if steps == shrink_at:
+            srv.states.ridge.Lt.mul_(0.05)
+        srv.step()
+        steps += 1
+    srv.drain()
+    return srv
+
+
+@pytest.mark.parametrize("mode", sorted(RETIRE_MODES))
+def test_retirement_captured_and_pipelined_serve_the_eager_episode(dev,
+                                                                   mode):
+    """Each mode's captured round (the window's guard rebuild and the
+    detector's anneal as conditional nodes) and its pipelined, blocked
+    round serve the eager round's episode bit for bit."""
+    eager = _serve_retire(mode, eager=True)
+    captured = _serve_retire(mode)
+    assert captured._graphs.replays > 0
+    _assert_same_serving(captured, eager)
+    blocked = _serve_retire(mode, pipeline_depth=2, step_block=4)
+    assert len(blocked.step_times_s) < blocked.global_step
+    _assert_same_serving(blocked, eager)
+    if captured.win is not None:
+        for x, y in zip(_state_leaves(captured.win),
+                        _state_leaves(eager.win)):
+            assert torch.equal(x, y)
+
+
+def test_window_guard_rebuild_captured_is_the_eager_one(dev):
+    """Rounds where the guard fires: the captured round's conditional
+    rebuild gives the eager round's factors bit for bit, and the rebuilt
+    factors factor their statistics again."""
+    eager = _serve_retire("window", eager=True, shrink_at=8)
+    captured = _serve_retire("window", shrink_at=8)
+    clean = _serve_retire("window", shrink_at=None)
+    _assert_same_serving(captured, eager)
+    assert any(not torch.equal(a.final_state.ridge.Lt, b.final_state.ridge.Lt)
+               for a, b in zip(sorted(captured.completed, key=lambda r: r.rid),
+                               sorted(clean.completed, key=lambda r: r.rid)))
+    for r in captured.completed:
+        Lt = r.final_state.ridge.Lt.double()
+        M = r.final_state.ridge.B.double() + 1e-2 * torch.eye(
+            Lt.shape[0], dtype=torch.float64, device=dev)
+        assert float((Lt.T @ Lt - M).abs().max() / M.abs().max()) <= 1e-4
+
+
+def test_adaptive_trips_in_the_captured_round(dev):
+    """The detector trips on the drifting streams inside the captured
+    round: its statistics leave the silent detector's."""
+    tripping = _serve_retire("adaptive")
+    silent = _serve_retire("adaptive", adapt_ratio=1e9)
+    assert tripping._graphs.replays > 0
+    assert any(not torch.equal(a.final_state.ridge.B, b.final_state.ridge.B)
+               for a, b in zip(sorted(tripping.completed, key=lambda r: r.rid),
+                               sorted(silent.completed, key=lambda r: r.rid)))
+
+
+@pytest.mark.parametrize("mode,per_round", [("forget", 1), ("window", 2)])
+def test_retirement_k3_launches_at_replay(dev, mode, per_round):
+    """K3 folds once a round under forget (scaled) and twice under window
+    (the fold, then the flagged downdate), counted at replay."""
+    srv = _retire_server(mode)
+    before = k_cholupdate.KERNEL.launches
+    srv.run_until_drained()
+    assert srv._graphs.replays > 0
+    assert k_cholupdate.KERNEL.launches - before == per_round * srv.global_step
 
 
 def test_failed_capture_raises(dev, monkeypatch):

@@ -148,9 +148,6 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("kw", [
-    {"retirement": "forget"},
-    {"retirement": "window"},
-    {"retirement": "adaptive"},
     {"devices": 2},
     {"config": "auto"},
 ])
