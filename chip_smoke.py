@@ -44,7 +44,11 @@ Phases, each fatal on failure:
      (Ny padded to 8) right-hand side, each forward and backward, beside
      torch.linalg.solve_triangular; the blocked ridge solve at s=931
      against the unblocked library solve over the beta sweep, with tiles
-     of 128 and 256.
+     of 128 and 256.  Last, K1 at the population's shape: one launch over
+     16 members x all 6600 ARAB training samples, held against its plain
+     version on each member's first 256 samples, entrywise at 16 stable
+     (p, q) and to each sample's scale at the 4 x 4 grid's (whose corner
+     diverges), and timed beside its byte bound and its chain bound.
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
@@ -87,9 +91,24 @@ Phases, each fatal on failure:
      forget, window and adaptive (and adaptive's plain, blocked and int8
      rows) beside BENCH_stream_drift.json's columns; each retirement
      policy's post-drift accuracy must beat the baseline's by 0.3.
+  4f. The warm-pool autotuner (runtime/autotuner.py, WarmPoolAutotuner on
+     its defaults, seed 0) on phase 4's fp32 and int8 servers: an untuned
+     run and a margin=10 tuner (which never swaps) must serve the same
+     episode bit for bit; then the tuned server's captured, eager and
+     pipelined rounds alternated as in phase 4c must make the same tuner
+     stats and serve the same predictions and final states bit for bit,
+     with K1 launched once a round plus twice a tuning round, and every
+     live factor still factoring its statistics (allclose at 2e-3).  Then
+     the reference's tuner episode (tests/test_adaptive.py: Nx=16 with a
+     bad (p, q), the NARMA drift streams, 2 refresh cohorts) through the
+     captured round: swaps, and at least 0.03 accuracy over the untuned
+     episode.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
      first 800 ARAB samples, same widths) served on the card and on the CPU;
-     each retirement path on the first 400.
+     each retirement path on the first 400; the population search (the
+     first 512 training samples, divs=3, one round; the cull's draws from
+     the same CPU generator on both): the same best (p, q, beta), accuracy
+     within one test sample.
   6. The training path at full width: DFRModel.fit(train, minibatch=4) on
      the whole ARAB training split (6600 samples, Nx=30, s=931, FIT_EPOCHS
      epochs, the paper's recipe with select='val'), with every launch count
@@ -101,6 +120,21 @@ Phases, each fatal on failure:
      whose refresh must be finite on the card exactly when it is on the
      CPU.  torch.profiler over one fit_ridge and over one
      SGD epoch of 256 samples: the device's busy share and top kernels.
+  6b. The hyperparameter search at full width, each run with every launch
+     count set to 0 before it and read after: grid_search_serial (K6, K7,
+     K4a, K4b a candidate) and grid_search (K1 once a split) at divs=4,
+     whose (16, 4) accuracy tables must agree within 2 test samples at
+     beta >= 1e-4 wherever fp32 resolves the readout (the cells whose
+     float64 accuracy moves by at most 2 predictions when every feature is
+     perturbed by 1e-6, relative; the others are printed with their
+     float64 accuracy); K1's share of grid_search's device time;
+     train_population_classification (divs=4, one round of one epoch in
+     minibatches of 4: K1 once a minibatch step), whose round 0 must be
+     grid_search's accuracy and whose best must not be below it; a
+     profiled refinement of 32 steps (ms, launches and busy share a step);
+     the features' peak memory; then the paper's Table 5 protocol,
+     grid_search_until(target = phase 6's test accuracy, max_divs=8), its
+     total time beside the fit's wall time and their ratio.
   7. Card against CPU on a reduced fit (Nx=30, the first 512 ARAB training
      samples, 2 epochs): the same beta, at least 0.98 of the test split's
      predictions equal, and |dW| / max |W|.
@@ -175,7 +209,12 @@ from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.models.lm import make_prefill_step  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.runtime import (Request, Server, StreamRequest,  # noqa: E402
-                                 StreamServer)
+                                 StreamServer, WarmPoolAutotuner)
+from repro_torch.core import candidates  # noqa: E402
+from repro_torch.core import population as core_population  # noqa: E402
+from repro_torch.core.grid_search import (grid_search,  # noqa: E402
+                                          grid_search_serial,
+                                          grid_search_until)
 
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12   # H100 SXM fp32 outside the tensor cores
@@ -335,6 +374,40 @@ K3_FORGET = 0.95   # phase 3's scale operand: sqrt(lambda) on live rows
 # phase 5's subset for the retirement paths: the first 400 ARAB samples in
 # 8 streams on 4 slots (the CPU folds K3's plain version at s = 931)
 RETIRE_AGREE_SAMPLES = 400
+# the hyperparameter search at ARAB's full width: the population's grid
+# (K = divs^2 members), its refinement (tests/test_population.py's
+# classification case), K1's plain version on K x POP_PLAIN_SAMPLES of the
+# phase-3 launch, the two grid searches' accuracy tables within
+# POP_TABLE_SAMPLES test samples at beta >= POP_HEALTHY_BETA (at 1e-6 both
+# solves are degenerate in fp32, tests/test_population.py:47), the paper's
+# Table 5 protocol up to TABLE5_MAX_DIVS, and the card-vs-CPU run (phase 5)
+POP_DIVS = 4
+POP_REFINE = dict(rounds=1, steps_per_round=1, minibatch=4)
+POP_PLAIN_SAMPLES = 256
+POP_TABLE_SAMPLES = 2
+POP_HEALTHY_BETA = 1e-4
+# a cell is ill-posed in fp32 where perturbing every feature by this much
+# (relative; about the rounding of an fp32 sum over 6600 samples, sqrt(6600)
+# x 2^-24 = 5e-6, taken lower) moves its float64 accuracy by more than
+# POP_TABLE_SAMPLES test samples
+POP_FP32_NOISE = 1e-6
+POP_PROFILE_STEPS = 32
+TABLE5_MAX_DIVS = 8
+# divs=3: a 2 x 2 grid holds only the box's corners, where on these 512
+# samples p = 10^-3.75 leaves the readout at the class prior and p = 10^-0.25
+# diverges, so every member scores 0.1 on both devices
+POP_AGREE = dict(samples=512, divs=3, rounds=1)
+# the autotuner on phase 4's servers (WarmPoolAutotuner's defaults, seed 0),
+# and the reference's tuner episode (tests/test_adaptive.py:254-283)
+TUNER_CFG = DFRConfig(n_in=1, n_classes=4, n_nodes=16, p_init=0.5,
+                      q_init=0.5)
+TUNER_SERVER = dict(t_max=16, max_streams=4, window=4,
+                    refresh_mode="incremental", refresh_every=5,
+                    refresh_cohorts=2)
+TUNER_EPISODE = dict(population=8, history=32, interval=2, margin=0.02,
+                     seed=1)
+TUNER_GAIN = 0.03
+TUNER_TOL = 2e-3   # Lt^T Lt against B + beta I after swaps (rtol and atol)
 
 
 class SmokeFailure(RuntimeError):
@@ -948,17 +1021,20 @@ def serve(cfg, streams, t_max, per_stream, max_streams, device, **kw):
     return srv, {r.rid: r for r in done}
 
 
-def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
+def serving_run(cfg, arrays, path: str, kind: str, profile=None,
+                tuner=None) -> dict:
     """One full-width ARAB server of ``path`` (see PATHS) and ``kind`` (see
     KINDS) serving two waves of the same 64 streams on its 32 slots.  The
     first is the warm-up: each kernel's first load, the libraries' set-up
     and, on the captured round, the capture of each graph (a server's graphs
     hold its own tensors, so every server captures its own).  The second is
     measured, with every launch count set to 0 just before it and read just
-    after, under ``profile`` (a torch.profiler context) where given.  The
-    peak memory is the server's over both waves, above what the process
-    held before it: allocated, and reserved (the graphs' pool is reserved,
-    and a replay allocates nothing)."""
+    after, under ``profile`` (a torch.profiler context) where given.  With
+    ``tuner`` (WarmPoolAutotuner's knobs) a tuner seeded 0 is attached
+    before the first wave; its rounds and swaps in the measured wave are
+    returned with its stats.  The peak memory is the server's over both
+    waves, above what the process held before it: allocated, and reserved
+    (the graphs' pool is reserved, and a replay allocates nothing)."""
     knobs = {**{**PATHS, **RETIRE_PATHS}[path][0], **KINDS[kind]}
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 64)
@@ -970,6 +1046,8 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
                        **knobs)
     if kind == "eager":
         srv._graphs = None   # the eager round: the captured round's oracle
+    if tuner is not None:
+        srv.attach_autotuner(WarmPoolAutotuner(srv, **{"seed": 0, **tuner}))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base_alloc = torch.cuda.memory_allocated()
@@ -989,6 +1067,7 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
     replays0 = graphs.replays if graphs else 0
     eager0 = graphs.eager_calls if graphs else 0
     step0, int8_0 = srv.global_step, srv.served_int8
+    tuned0 = srv._autotuner.stats() if tuner is not None else None
     reset_launches()
     with profile if profile is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
@@ -998,7 +1077,13 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rounds = srv.global_step - step0
-    return dict(
+    tuned = {}
+    if tuner is not None:
+        stats = srv._autotuner.stats()
+        tuned = dict(stats=stats, tuning_rounds=stats["rounds_run"]
+                     - tuned0["rounds_run"], swaps=stats["swaps_applied"]
+                     - tuned0["swaps_applied"])
+    return dict(**tuned,
         srv=srv, done={r.rid: r for r in done[-len(streams):]}, wall=wall,
         warm_s=warm_s, rounds=rounds, dispatches=len(srv.step_times_s),
         launches=read_launches(), lat=srv.latency_percentiles_ms(),
@@ -1359,9 +1444,10 @@ def check_launches(what: str, launches: dict, on_path) -> None:
         check(ok, f"{what}: {name} launched {n} times")
 
 
-def training_phase(card: str, cfg, data) -> dict:
+def training_phase(card: str, cfg, data) -> tuple:
     """DFRModel.fit at full width, then OnlineDFR over the training split;
-    returns the fit's launches of the training path's kernels."""
+    returns the fit's launches of the training path's kernels, and the
+    fit's wall time and test accuracy (phase 6b's Table 5 target)."""
     train, test = data
     fit_cfg = dataclasses.replace(cfg, epochs=FIT_EPOCHS)
     model = DFRModel.create(fit_cfg,
@@ -1421,7 +1507,8 @@ def training_phase(card: str, cfg, data) -> dict:
                   "OnlineDFR: card and CPU disagree on a finite refresh")
 
     profile_training(card, model, train, params)
-    return {name: launches[name] for name in TRAINING_KERNELS}
+    return ({name: launches[name] for name in TRAINING_KERNELS},
+            dict(wall=wall, test_acc=acc_te))
 
 
 def online_episode(cfg, mask, train, test, lr: float, device: str):
@@ -1530,6 +1617,462 @@ def training_agreement_phase(cfg, data) -> None:
           f"{dW:.3e}")
     check(bg == bc, f"card and CPU chose beta {bg:g} and {bc:g}")
     check(agree >= 0.98, f"card and CPU agree on {agree:.4f} < 0.98")
+
+
+def k1_population_phase(cfg, train, mask) -> None:
+    """K1 at the population's shape (phase 3): one launch over K = POP_DIVS^2
+    members x all ARAB training samples, each member with its own (p, q),
+    against the plain version on the first POP_PLAIN_SAMPLES samples of
+    every member, and timed beside its byte bound and its chain bound.
+
+    Two sets of (p, q): K distinct pairs drawn log-uniform from the stable
+    part of the search box (p, q <= 10^-0.5: the state contracts), held
+    entrywise at rtol 1e-4 / atol 1e-4 as phase 3 holds K1; and the
+    population's own grid, whose corner members (p = 10^-0.25 with q >=
+    0.08) grow by about p / (1 - q) a step, to |r| ~ 1e19 at T = 93, where
+    the same sums in another order agree to each sample's scale and not
+    entrywise: held at |dr| <= 1e-4 max |r of the sample| + 1e-4."""
+    dev = torch.device("cuda")
+    nx, nr, f = cfg.n_nodes, cfg.n_rep, cfg.f()
+    k, n = POP_DIVS ** 2, train.batch
+    rng = np.random.default_rng(0)
+    stable = tuple(torch.from_numpy((10.0 ** rng.uniform(lo, -0.5, k)).astype(
+        np.float32)).to(dev) for lo in (candidates.P_LOG_RANGE[0],
+                                        candidates.Q_LOG_RANGE[0]))
+    grid = candidates.grid_candidates(POP_DIVS, device=dev)
+    j = masking.apply_mask(mask.to(dev), train.u.to(dev))
+    jk = j.expand(k, *j.shape).contiguous()
+    lk = train.length.to(dev).expand(k, n).contiguous()
+    sub = POP_PLAIN_SAMPLES
+
+    def k1(jj, ll, pq, backend):
+        return ops.train_forward(jj, ll, *pq, nx, f=f, backend=backend)
+
+    times = {}
+    for name, pq in (("stable (p, q)", stable), ("the grid's (p, q)", grid)):
+        got = k1(jk, lk, pq, "cuda")
+        want = k1(jk[:, :sub], lk[:, :sub], pq, "torch")
+        torch.cuda.synchronize()
+        got = tuple(g[:, :sub] for g in got)
+        what = f"K1 at K={k} x B={sub} of one launch over K x {n}, {name}"
+        if pq is stable:
+            compare(what, got, want)
+        else:
+            worst = 0.0
+            for g, w in zip(got, want):
+                check(bool(torch.isfinite(g).all()), f"{what}: non-finite")
+                scale = w.abs().amax(dim=-1, keepdim=True)
+                err = (g - w).abs() / (scale + 1.0)
+                worst = max(worst, float(err.max()))
+            print(f"  {what}: max |dr| / (max |r| of the sample + 1) "
+                  f"{worst:.3e} (tolerance 1e-4), largest |r| "
+                  f"{float(want[0].abs().max()):.3e}")
+            check(worst <= 1e-4, f"{what}: kernel disagrees with its plain "
+                                 f"version")
+        times[name] = device_ms(lambda: k1(jk, lk, pq, "cuda"), reps=10)
+    plain_ms = wall_ms(lambda: k1(jk[:, :sub], lk[:, :sub], grid, "torch"),
+                       reps=3)
+    live = int(lk.sum())
+    bnd, by = bound(live, k * n, nx, 8 * k + 4 * k * n * (nr + 3 * nx), 0)
+    print(f"  K1 at the population's shape, K={k} x B={n} = {k * n} samples "
+          f"(T={train.t_max}, Nx={nx}, {live} live steps, inputs "
+          f"{jk.numel() * 4 / 2**20:.1f} MiB expanded): kernel "
+          + ", ".join(f"{ms:.4f} ms at {name}" for name, ms in times.items())
+          + f" (device time, median of 10), bound {bnd:.5f} ms ({by}), "
+          f"{times["the grid's (p, q)"] / bnd:.1f}x the bound; plain on K x "
+          f"{sub}: {plain_ms:.2f} ms; "
+          + chain_bound(int(lk.max()),
+                        CHAIN["step_cycles"]["K1/K2/K6 scan_step"],
+                        "scan_step"))
+
+
+def device_share(fn, key: str, top: int = 4) -> tuple:
+    """(the device time of kernels whose name holds ``key``, all kernels'
+    device time, the wall time, in ms, and the kernel launches) of one call
+    of ``fn`` under torch.profiler; prints the ``top`` kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    mine = sum(e.self_device_time_total for e in dev if key in e.key) / 1e3
+    launches = sum(e.count for e in host
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    check(busy > 0, "the profiler saw no device time")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    return mine, busy, wall * 1e3, launches
+
+
+def fp32_sensitivity(cfg, train, test, mask) -> tuple:
+    """The (K, n_beta) test accuracy of the population grid's ridge
+    readouts solved in float64 from K1's features, and for each cell the
+    most test predictions that move when every feature is perturbed by a
+    relative POP_FP32_NOISE (two draws): cells where fp32 cannot resolve
+    the readout.  A member whose fp32 Gram would overflow counts as moving
+    every prediction."""
+    dev = torch.device("cuda")
+    ps, qs = candidates.grid_candidates(POP_DIVS, device=dev)
+    feats = [core_population.population_features(
+        cfg, mask.to(dev), ps, qs, b.u.to(dev), b.length.to(dev)).double()
+        for b in (train, test)]
+    y = torch.nn.functional.one_hot(train.label.long(), cfg.n_classes).to(
+        dev, torch.float64)
+    label = test.label.to(dev)
+    eye = torch.eye(cfg.s, dtype=torch.float64, device=dev)
+
+    def table(rt, rte):
+        A, B = y.T @ rt, rt.mT @ rt
+        out = []
+        for beta in cfg.betas:
+            W, _ = torch.linalg.solve_ex(B + beta * eye, A.mT)
+            out.append((rte @ W).argmax(dim=-1) == label)
+        return torch.stack(out, dim=1)                    # (K, nb, Be)
+
+    base = table(*feats)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flips = torch.zeros(base.shape[:2], dtype=torch.int64, device=dev)
+    for _ in range(2):
+        noisy = [f * (1 + POP_FP32_NOISE * torch.randn(
+            f.shape, generator=gen, dtype=f.dtype, device=dev)) for f in feats]
+        flips = torch.maximum(flips, (table(*noisy) != base).sum(dim=-1))
+    gram_max = train.batch * feats[0].abs().amax(dim=(1, 2)) ** 2
+    flips[gram_max > torch.finfo(torch.float32).max] = test.batch
+    acc64 = base.double().mean(dim=-1)
+    return acc64.cpu().numpy(), flips.cpu().numpy()
+
+
+def population_k1_ms(cfg, data, mask) -> tuple:
+    """The device time (ms) of K1's two launches of a population evaluation
+    at divs=POP_DIVS (the training and test splits), and of expanding the
+    masked inputs over the members, which K1 reads contiguous."""
+    dev = torch.device("cuda")
+    ps, qs = candidates.grid_candidates(POP_DIVS, device=dev)
+    k, k1, copy = ps.shape[0], 0.0, 0.0
+    for b in data:
+        j = masking.apply_mask(mask.to(dev), b.u.to(dev))
+        lens = b.length.to(dev)
+        jk = j.expand(k, *j.shape).contiguous()
+        lk = lens.expand(k, *lens.shape).contiguous()
+        k1 += device_ms(lambda: ops.train_forward(jk, lk, ps, qs, cfg.n_nodes,
+                                                  f=cfg.f()), reps=10)
+        copy += device_ms(lambda: j.expand(k, *j.shape).contiguous(),
+                          reps=10)
+    return k1, copy
+
+
+def population_phase(card: str, cfg, data, fit: dict) -> None:
+    """The hyperparameter search at ARAB's full width (phase 6b): the serial
+    grid search (K6, K7, K4a, K4b a candidate), the population's grid search
+    (K1 once a split for all members) and the population search with one
+    refinement round, each with every launch count set to 0 just before it
+    and read just after; then the paper's Table 5 protocol against phase
+    6's fit."""
+    train, test = data
+    n_test = test.batch
+    betas = np.asarray(cfg.betas)
+    tag = f"[{card}] ARAB Nx={cfg.n_nodes} s={cfg.s}, divs={POP_DIVS}"
+    out = {}
+    for name, fn, on_path in (
+            ("grid_search_serial", grid_search_serial,
+             ("K6 reservoir_states", "K7 dprr_features", "K4a chol_tile",
+              "K4b trsm_tile")),
+            ("grid_search", grid_search, ("K1 train_forward",))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(cfg, train, test, POP_DIVS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[name] = res
+        print(f"  {tag}: {name}: {wall:.3f} s ({res['n_points']} points), "
+              f"test accuracy {res['acc']:.4f}, p {res['p']:.6g}, q "
+              f"{res['q']:.6g}, beta {res['beta']:g}; peak memory above the "
+              f"data {peak / 2**20:.1f} MiB")
+        check_launches(f"{name}", launches, on_path)
+    check(launches["K1 train_forward"] == 2,
+          "grid_search: K1 must launch once a split")
+    k = POP_DIVS ** 2
+    diff = np.abs(out["grid_search"]["acc_all"]
+                  - out["grid_search_serial"]["acc_all"]) * n_test
+    print(f"  grid_search against grid_search_serial: largest accuracy "
+          f"difference over the {k} candidates, in test samples, by beta: "
+          + ", ".join(f"{b:g}: {d:.0f}" for b, d in zip(betas,
+                                                       diff.max(axis=0)))
+          + " (held below where the cell is well posed in fp32)")
+    mask = masking.make_mask(torch.Generator().manual_seed(cfg.mask_seed),
+                             cfg.n_nodes, cfg.n_in, cfg.dtype)
+    acc64, flips = fp32_sensitivity(cfg, train, test, mask)
+    healthy = flips <= POP_TABLE_SAMPLES
+    ps, qs = (x.numpy() for x in candidates.grid_candidates(POP_DIVS))
+    ser = out["grid_search_serial"]["acc_all"]
+    par = out["grid_search"]["acc_all"]
+    for m, c in np.argwhere(~healthy):
+        print(f"  ill-posed in fp32: member {m} (p {ps[m]:.4g}, q "
+              f"{qs[m]:.4g}) at beta {betas[c]:g}: {flips[m, c]} test "
+              f"predictions move under a {POP_FP32_NOISE:g} perturbation of "
+              f"the features; accuracy serial {ser[m, c]:.4f}, population "
+              f"{par[m, c]:.4f}, float64 {acc64[m, c]:.4f}")
+    held = healthy & (betas >= POP_HEALTHY_BETA)[None, :]
+    d64 = np.abs(par - acc64) * n_test
+    print(f"  {int(held.sum())} of {held.size} cells well posed at beta >= "
+          f"{POP_HEALTHY_BETA:g}: largest difference serial vs population "
+          f"{diff[held].max():.0f} test samples (at most "
+          f"{POP_TABLE_SAMPLES}), population vs float64 "
+          f"{d64[held].max():.0f} (printed)")
+    for m, c in np.argwhere(held & (d64 > POP_TABLE_SAMPLES)):
+        print(f"    fp32 apart from float64: member {m} (p {ps[m]:.4g}, q "
+              f"{qs[m]:.4g}) at beta {betas[c]:g}: serial {ser[m, c]:.4f}, "
+              f"population {par[m, c]:.4f}, float64 {acc64[m, c]:.4f}")
+    check(float(diff[held].max()) <= POP_TABLE_SAMPLES + 1e-6,
+          "the two grid searches' accuracy tables disagree")
+    _, busy, wall_ms_, _ = device_share(
+        lambda: grid_search(cfg, train, test, POP_DIVS, mask=mask,
+                            device="cuda"), "train_forward_kernel")
+    # K1's two launches timed by events on their own operands (the
+    # profiler's kernel records of K1 came back incomplete in this phase)
+    k1_ms, copy_ms = population_k1_ms(cfg, data, mask)
+    print(f"  grid_search under torch.profiler: device busy {busy:.3f} ms of "
+          f"{wall_ms_:.1f} ms wall; K1's two launches {k1_ms:.3f} ms (events, "
+          f"median of 10) = {100 * k1_ms / busy:.1f}% of the device time; "
+          f"expanding the masked inputs over the members {copy_ms:.3f} ms")
+
+    refine_s, eval_s = [], []
+    originals = (core_population.refine_population,
+                 core_population.evaluate_population)
+    timed(core_population, "refine_population", refine_s)
+    timed(core_population, "evaluate_population", eval_s)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = core_population.train_population_classification(
+            cfg, train, test, divs=POP_DIVS, device="cuda", **POP_REFINE)
+    finally:
+        (core_population.refine_population,
+         core_population.evaluate_population) = originals
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = POP_REFINE["rounds"] * POP_REFINE["steps_per_round"] * (
+        train.batch // POP_REFINE["minibatch"])
+    print(f"  {tag}: train_population_classification {POP_REFINE}: "
+          f"{wall:.3f} s (evaluations {sum(eval_s):.3f} s, refinement "
+          f"{sum(refine_s):.3f} s = {1e3 * sum(refine_s) / steps:.3f} ms a "
+          f"minibatch step over {steps}); best test accuracy "
+          f"{res.best_acc:.4f} (round 0 {res.history[0]['best_acc']:.4f}), "
+          f"p {res.best_p:.6g}, q {res.best_q:.6g}, beta {res.best_beta:g}; "
+          f"launches: " + ", ".join(f"{n.split()[0]} {c}" for n, c in
+                                   launches.items() if c))
+    check(launches["K1 train_forward"] == 2 * (POP_REFINE["rounds"] + 1)
+          + steps, "train_population: K1 must launch once a minibatch step "
+                   "and once a split an evaluation")
+    check(res.history[0]["best_acc"] == out["grid_search"]["acc"],
+          "the population's round 0 is not grid_search's accuracy")
+    check(res.best_acc >= res.history[0]["best_acc"],
+          "the population lost its elite")
+    sub = slice(0, POP_PROFILE_STEPS * POP_REFINE["minibatch"])
+    u, ln = train.u[sub].cuda(), train.length[sub].cuda()
+    y = torch.nn.functional.one_hot(train.label[sub].long(),
+                                    cfg.n_classes).float().cuda()
+    pop = candidates.init_population(
+        cfg, *candidates.grid_candidates(POP_DIVS, device="cuda"))
+    lr = torch.tensor(cfg.lr, device="cuda")
+
+    def refine():
+        core_population.refine_population(
+            cfg, mask.cuda(), pop, u, ln, y, lr, lr,
+            minibatch=POP_REFINE["minibatch"])
+
+    refine()
+    k1_ms, busy, wall_ms_, launches = device_share(refine,
+                                                   "train_forward_kernel")
+    print(f"  refine_population, {POP_PROFILE_STEPS} minibatch steps of "
+          f"{k} members x {POP_REFINE['minibatch']} under torch.profiler: "
+          f"{wall_ms_ / POP_PROFILE_STEPS:.3f} ms a step, "
+          f"{launches / POP_PROFILE_STEPS:.1f} kernel launches a step, "
+          f"device busy {busy / POP_PROFILE_STEPS:.4f} ms a step "
+          f"({100 * busy / wall_ms_:.1f}%, idle "
+          f"{100 - 100 * busy / wall_ms_:.1f}%), K1 "
+          f"{k1_ms / POP_PROFILE_STEPS:.4f} ms a step")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    until = grid_search_until(cfg, train, test, target_acc=fit["test_acc"],
+                              max_divs=TABLE5_MAX_DIVS, device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  [{card}] Table 5 (grid_search_until, target "
+          f"{fit['test_acc']:.4f} = phase 6's fit): reached divs="
+          f"{until['divs']} (K={until['divs'] ** 2}), accuracy "
+          f"{until['acc']:.4f}, total "
+          f"{until['total_time_s']:.3f} s over divs 1..{until['divs']}; "
+          f"backprop (DFRModel.fit) {fit['wall']:.2f} s; grid / backprop "
+          f"{until['total_time_s'] / fit['wall']:.4f}; peak memory above "
+          f"the data {peak / 2**30:.2f} GiB")
+    check(np.isfinite(until["acc"]), "grid_search_until gave no accuracy")
+
+
+def autotuner_phase(card: str, cfg, arrays) -> None:
+    """The warm-pool autotuner on phase 4's servers (phase 4f): for each
+    path an untuned run and a margin=10 tuner (bit for bit equal), then the
+    tuned server's captured, eager and pipelined rounds alternated as in
+    phase 4c, every run bit for bit equal to the first (stats too), K1 once
+    a round plus twice a tuning round, each live factor still factoring its
+    statistics; then the reference's tuner episode on the card."""
+    order = ("captured", "eager", "pipelined", "pipelined", "eager",
+             "captured")
+    for path, (_, on_path) in PATHS.items():
+        untuned = serving_run(cfg, arrays, path, "captured")
+        print(f"  [{card}] {path} untuned: " + run_line(untuned))
+        quiet = serving_run(cfg, arrays, path, "captured",
+                            tuner=dict(margin=10.0))
+        preds, states = same_serving(quiet, untuned)
+        print(f"  {path} margin=10 tuner: {quiet['tuning_rounds']} tuning "
+              f"rounds, {quiet['swaps']} swaps; predictions "
+              f"{'equal' if preds else 'DIFFER'}, final states "
+              f"{'equal bit for bit' if states else 'DIFFER'}")
+        check(preds and states and quiet["tuning_rounds"] > 0
+              and quiet["stats"]["swaps_applied"] == 0,
+              f"{path}: a tuner that never swaps changed the episode")
+        runs = []
+        for kind in order:
+            res = serving_run(cfg, arrays, path, kind, tuner={})
+            r, tr = res["rounds"], res["tuning_rounds"]
+            print(f"  [{card}] {path} tuned {kind}: " + run_line(res)
+                  + f"; tuner: {tr} tuning rounds and {res['swaps']} swaps "
+                  f"in the wave, {res['stats']}; K1 "
+                  f"{res['launches']['K1 train_forward']} launches over "
+                  f"{r} rounds")
+            for name, n in res["launches"].items():
+                want = (r + 2 * tr if name == "K1 train_forward"
+                        else r if name in on_path else 0)
+                check(n == want, f"{path} tuned {kind}: {name}: {n} launches "
+                                 f"({want} expected)")
+            runs.append(res)
+        first = runs[0]
+        check(first["stats"]["swaps_applied"] > 0,
+              f"{path}: the tuner made no swap")
+        acc = [float(np.mean([r.online_accuracy
+                              for r in res["done"].values()]))
+               for res in (untuned, first)]
+        print(f"  {path}: mean rolling online accuracy of the measured wave: "
+              f"untuned {acc[0]:.4f}, tuned {acc[1]:.4f}")
+        for kind, res in zip(order[1:], runs[1:]):
+            preds, states = same_serving(res, first)
+            same = res["stats"] == first["stats"]
+            print(f"  {path} tuned: {kind} against the first captured run: "
+                  f"predictions {'equal' if preds else 'DIFFER'}, final "
+                  f"states {'equal bit for bit' if states else 'DIFFER'}, "
+                  f"tuner stats {'equal' if same else 'DIFFER'}")
+            check(preds and states and same,
+                  f"{path}: the tuned {kind} round serves another episode")
+        if PATHS[path][0].get("refresh_mode") == "incremental":
+            worst = tuned_invariant(first)
+            print(f"  {path} tuned: every live factor against B + beta I "
+                  f"after the swaps: largest |Lt^T Lt - (B + beta I)| "
+                  f"{worst:.3e} (allclose at rtol = atol = {TUNER_TOL})")
+    tuner_episode(card)
+
+
+def tuned_invariant(res: dict) -> float:
+    """Check every live factor (factor_beta > 0) of the server and of the
+    streams' final states against its statistics; return the largest
+    absolute difference."""
+    states = [res["srv"].states] + [r.final_state
+                                    for r in res["done"].values()]
+    worst = 0.0
+    for st in states:
+        rs = st.ridge
+        Lt, B, fb = (t.double().reshape(-1, *t.shape[-2:]) if t.ndim >= 2
+                     else t.double().reshape(-1) for t in
+                     (rs.Lt, rs.B, rs.factor_beta))
+        eye = torch.eye(B.shape[-1], dtype=torch.float64, device=B.device)
+        for i in torch.nonzero(fb > 0).flatten().tolist():
+            got, want = Lt[i].T @ Lt[i], B[i] + fb[i] * eye
+            worst = max(worst, float((got - want).abs().max()))
+            check(bool(torch.allclose(got, want, rtol=TUNER_TOL,
+                                      atol=TUNER_TOL)),
+                  "a live factor no longer factors its statistics")
+    return worst
+
+
+def tuner_episode(card: str) -> None:
+    """The reference's tuner episode (tests/test_adaptive.py:254-283)
+    through the captured round: swaps, and at least TUNER_GAIN accuracy
+    over the untuned episode."""
+    acc = {}
+    for name, tuner in (("untuned", None), ("tuned", TUNER_EPISODE)):
+        arrays, _ = make_drift_label_streams(DRIFT_STREAMS, DRIFT_SAMPLES,
+                                             DRIFT_T, DRIFT_CLASSES)
+        srv = StreamServer(TUNER_CFG, device="cuda", **TUNER_SERVER)
+        if tuner is not None:
+            srv.attach_autotuner(WarmPoolAutotuner(srv, **tuner))
+        t0 = time.perf_counter()
+        for rid, a in enumerate(arrays):
+            srv.submit(StreamRequest(rid=rid, **a))
+        done = srv.run_until_drained(strict=True)
+        wall = time.perf_counter() - t0
+        check(srv._graphs.replays > 0, "the tuner episode replayed no graph")
+        acc[name] = float(np.mean([np.mean(np.asarray(r.preds) == r.label)
+                                   for r in done]))
+        stats = srv._autotuner.stats() if tuner is not None else {}
+        print(f"  [{card}] the reference's tuner episode (BAD_CFG, Nx=16, 4 "
+              f"drift streams of {DRIFT_SAMPLES}), {name}: accuracy "
+              f"{acc[name]:.4f}, {wall:.2f} s (a fresh server, captures "
+              f"included) {stats}")
+        if tuner is not None:
+            check(stats["swaps_applied"] > 0, "the tuner episode made no swap")
+            tuned_invariant(dict(srv=srv, done={r.rid: r for r in done}))
+    gain = acc["tuned"] - acc["untuned"]
+    print(f"  tuner episode: accuracy gain {gain:+.4f} (at least "
+          f"{TUNER_GAIN})")
+    check(gain >= TUNER_GAIN, f"the tuner gained {gain:.4f} < {TUNER_GAIN}")
+
+
+def population_agreement_phase(cfg, data) -> None:
+    """The same reduced population search on the card and on the CPU
+    (phase 5): the first POP_AGREE['samples'] ARAB training samples, the
+    whole test split; the cull's draws come from the same CPU generator on
+    both."""
+    train, test = data
+    n = POP_AGREE["samples"]
+    sub = TimeSeriesBatch(u=train.u[:n], length=train.length[:n],
+                          label=train.label[:n])
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = core_population.train_population_classification(
+            cfg, sub, test, divs=POP_AGREE["divs"],
+            rounds=POP_AGREE["rounds"], device=device)
+        out[device].time_s = time.perf_counter() - t0
+    g, c = out["cuda"], out["cpu"]
+    print(f"  train_population_classification, {n} samples, divs="
+          f"{POP_AGREE['divs']}, rounds={POP_AGREE['rounds']}: card "
+          f"{g.time_s:.1f} s, CPU {c.time_s:.1f} s; best (p, q, beta) card "
+          f"({g.best_p:.6g}, {g.best_q:.6g}, {g.best_beta:g}), CPU "
+          f"({c.best_p:.6g}, {c.best_q:.6g}, {c.best_beta:g}); test accuracy "
+          f"card {g.best_acc:.4f}, CPU {c.best_acc:.4f} on {test.batch}")
+    check(g.best_beta == c.best_beta
+          and np.isclose(g.best_p, c.best_p, rtol=1e-4)
+          and np.isclose(g.best_q, c.best_q, rtol=1e-4),
+          "card and CPU chose different (p, q, beta)")
+    check(abs(g.best_acc - c.best_acc) <= 1.0 / test.batch + 1e-9,
+          "card and CPU accuracies differ by more than one test sample")
 
 
 def k8_records(dev) -> dict:
@@ -1856,6 +2399,9 @@ def main() -> int:
         DFRModel.create(cfg, generator=torch.Generator().manual_seed(0)),
         data[0]))
     records.update(k8_records(dev))
+    k1_population_phase(cfg, data[0], masking.make_mask(
+        torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes, cfg.n_in,
+        cfg.dtype))
     print("[4] main paths: StreamServer on ARAB at full width")
     launches = {}
     for path in PATHS:
@@ -1876,13 +2422,21 @@ def main() -> int:
         retirement_phase(card, cfg, arrays, path)
     print("[4e] the reference's drift cells on the card")
     drift_phase(card)
+    print("[4f] the warm-pool autotuner on phase 4's servers, and the "
+          "reference's tuner episode")
+    autotuner_phase(card, cfg, arrays)
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)
     for path in RETIRE_PATHS:
         agreement_phase(cfg, arrays, path, n_samples=RETIRE_AGREE_SAMPLES)
+    population_agreement_phase(cfg, data)
     print("[6] the training path at full width: DFRModel.fit, OnlineDFR")
-    launches.update(training_phase(card, cfg, data))
+    fit_launches, fit = training_phase(card, cfg, data)
+    launches.update(fit_launches)
+    print("[6b] the hyperparameter search at full width: grid searches, the "
+          "population, the paper's Table 5")
+    population_phase(card, cfg, data, fit)
     print("[7] training path agreement, card vs CPU")
     training_agreement_phase(cfg, data)
     print(f"[8] the LM main path at full width: {LM_ARCH}, "

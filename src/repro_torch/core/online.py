@@ -18,6 +18,8 @@ The counterpart of the parts of ``repro.core.online`` the port runs:
   ``refresh_output``, ``reset_statistics``) on one unbatched state, with
   the features from K6 and K7 and the full refresh from the blocked ridge
   solve (K4a, K4b) on the card.
+* ``OnlineEnsemble``: K such systems on one stream, stacked on a member
+  axis, with the population engine's cull.
 """
 from __future__ import annotations
 
@@ -610,3 +612,143 @@ class OnlineDFR:
     def reset_statistics(self, state: OnlineState) -> OnlineState:
         """Restart the (A, B) accumulation (phase switch)."""
         return reset_statistics(state)
+
+
+# ---------------------------------------------------------------------------
+# Population-parallel online ensemble
+# ---------------------------------------------------------------------------
+
+
+def _member_row(state: OnlineState, i: int) -> OnlineState:
+    return map_leaves(lambda leaf: leaf[i], state)
+
+
+def _stack_members(rows) -> OnlineState:
+    return map_leaves(lambda *leaves: torch.stack(leaves), *rows)
+
+
+class OnlineEnsemble:
+    """K independent online DFR members on one stream, stacked on a leading
+    member axis of every state leaf (as the stream server stacks its slot
+    axis).
+
+    The members share the mask and see the same windows; they differ in
+    their (p, q) seeds: member 0 is the exact paper init, members 1..K-1
+    log-normal-jittered clones (``candidates.seed_candidates``, drawing from
+    a ``torch.Generator`` seeded by ``seed``).  ``step`` and
+    ``logits_members`` run each member through ``online_step`` and
+    ``online_logits`` (K6 and K7 on the card) on its row, so a K=1 ensemble
+    is ``OnlineDFR`` step for step, bit for bit.  ``infer`` averages the
+    members' softmax probabilities.
+
+    ``cull`` applies the offline engine's selection to the live ensemble:
+    members are ranked by loss EMA, losers re-seed near survivors with
+    jittered (p, q) (``candidates.survivor_parents``, ``jitter_clones``),
+    and re-seeded members restart their Ridge statistics, since their
+    features moved.
+
+    Runs on the CUDA device unless ``device`` names another; ``mask``
+    defaults to one drawn from a generator seeded by ``cfg.mask_seed``.
+    """
+
+    def __init__(self, cfg: DFRConfig, n_members: int,
+                 mask: Optional[Tensor] = None, seed: int = 0,
+                 seed_jitter: float = 0.1, device=None):
+        self.cfg = cfg
+        self.n_members = int(n_members)
+        self.seed = seed
+        self.seed_jitter = seed_jitter
+        self.device = resolve_device(device, "OnlineEnsemble")
+        if mask is None:
+            mask = masking.make_mask(
+                torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes,
+                cfg.n_in, cfg.dtype)
+        self.mask = torch.as_tensor(mask).to(self.device, cfg.dtype)
+
+    def _dev(self, t) -> Tensor:
+        return torch.as_tensor(t).to(self.device)
+
+    def init(self, generator: Optional[torch.Generator] = None
+             ) -> OnlineState:
+        """Stacked ensemble state: every leaf leads with the K member axis."""
+        from repro_torch.core import candidates
+
+        cfg, k = self.cfg, self.n_members
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.seed)
+        ps, qs = candidates.seed_candidates(
+            generator, k, cfg.p_init, cfg.q_init, self.seed_jitter,
+            dtype=cfg.dtype, device=self.device)
+        stacked = map_leaves(lambda leaf: leaf.expand(k, *leaf.shape).clone(),
+                             init_state(cfg, self.device))
+        stacked.params = dataclasses.replace(stacked.params, p=ps, q=qs)
+        return stacked
+
+    def step(self, state: OnlineState, u, length, label, lr_res, lr_out
+             ) -> Tuple[OnlineState, Dict[str, Tensor]]:
+        """Every member trains on the shared window; metrics per member,
+        shape (K,)."""
+        u, length, label = (self._dev(u).to(self.cfg.dtype),
+                            self._dev(length), self._dev(label))
+        out = [online_step(self.cfg, self.mask, _member_row(state, i), u,
+                           length, label, lr_res, lr_out)
+               for i in range(self.n_members)]
+        metrics = {key: torch.stack([m[key] for _, m in out])
+                   for key in out[0][1]}
+        return _stack_members([s for s, _ in out]), metrics
+
+    def logits_members(self, state: OnlineState, u, length) -> Tensor:
+        """Per-member logits (K, B, Ny)."""
+        u, length = self._dev(u).to(self.cfg.dtype), self._dev(length)
+        return torch.stack([
+            online_logits(self.cfg, self.mask, _member_row(state, i), u,
+                          length) for i in range(self.n_members)])
+
+    def infer_members(self, state: OnlineState, u, length) -> Tensor:
+        """Per-member predictions (K, B)."""
+        return self.logits_members(state, u, length).argmax(dim=-1)
+
+    def infer(self, state: OnlineState, u, length) -> Tensor:
+        """Ensemble predictions (B,): the argmax of the members' mean
+        softmax probabilities (for K=1, the member's own argmax)."""
+        probs = torch.softmax(self.logits_members(state, u, length), dim=-1)
+        return probs.mean(dim=0).argmax(dim=-1)
+
+    def refresh_output(self, state: OnlineState, beta) -> OnlineState:
+        """Ridge refresh of every member: one batched Cholesky."""
+        return refresh_output_batched(state, beta)
+
+    def cull(self, state: OnlineState, generator: torch.Generator,
+             survive_frac: float = 0.5, jitter: float = 0.15) -> OnlineState:
+        """Rank members by loss EMA and re-seed the losers near survivors.
+
+        Survivors keep everything; each culled member inherits its parent's
+        whole state, gets jittered (p, q) and restarts its Ridge statistics
+        as ``reset_statistics(factor_beta=...)`` does: A = B = 0, count = 0
+        and, where it inherited a live factor, a fresh ``sqrt(beta) I``
+        seed with the inherited ``factor_beta``, never an all-zero factor
+        (which would break Lt^T Lt == B + factor_beta I and give NaN at the
+        next fold)."""
+        from repro_torch.core import candidates
+
+        parent, keep, _ = candidates.survivor_parents(state.loss_ema,
+                                                      survive_frac)
+        inherited = map_leaves(lambda leaf: leaf[parent], state)
+        new_p, new_q = candidates.jitter_clones(
+            generator, inherited.params.p, inherited.params.q, keep, jitter)
+        params = dataclasses.replace(inherited.params, p=new_p, q=new_q)
+
+        def keep_or_zero(leaf):
+            k_mask = keep.reshape((-1,) + (1,) * (leaf.ndim - 1))
+            return torch.where(k_mask, leaf, torch.zeros_like(leaf))
+
+        zeroed = map_leaves(keep_or_zero, inherited.ridge)
+        beta_inh = inherited.ridge.factor_beta             # (K,)
+        s = inherited.ridge.Lt.shape[-1]
+        seeded = torch.sqrt(beta_inh)[:, None, None] * torch.eye(
+            s, dtype=inherited.ridge.Lt.dtype, device=beta_inh.device)
+        ridge_state = dataclasses.replace(
+            zeroed,
+            Lt=torch.where(keep[:, None, None], inherited.ridge.Lt, seeded),
+            factor_beta=beta_inh)
+        return dataclasses.replace(inherited, params=params, ridge=ridge_state)

@@ -379,7 +379,9 @@ class StreamServer:
         read.  The block is clamped so that no live slot completes inside
         it and admissions happen only at its start, so a blocked episode
         serves the ``step_block=1`` episode exactly.  Needs
-        ``staging='device'``, as in the reference.
+        ``staging='device'``, as in the reference.  An attached autotuner
+        runs after each round of the block (the reference calls it once a
+        dispatch), so a blocked tuned episode serves the unblocked one.
       * ``retirement``: how a slot forgets old samples, for streams that
         drift.  'forget' (lambda ``forget``): exponentially weighted RLS,
         every accumulated sample scales (A, B) by lambda and the live
@@ -411,9 +413,12 @@ class StreamServer:
         TPU tiling knob; the CUDA kernels run each sample's whole time loop
         in one warp and have no chunks.
 
+    ``attach_autotuner`` takes a ``runtime.autotuner.WarmPoolAutotuner``,
+    which the server calls after each round.
+
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``devices > 1``, ``config='auto'``, ``attach_autotuner``
-    and a non-float32 ``cfg.dtype``.
+    ROADMAP item: ``devices > 1``, ``config='auto'`` and a non-float32
+    ``cfg.dtype``.
     """
 
     def __init__(
@@ -598,6 +603,7 @@ class StreamServer:
         self._mask_cache: Dict[bytes, Tensor] = {}
         self._rows_cache: Dict[bytes, Tuple[Tensor, Tensor]] = {}
         self.global_step = 0
+        self._autotuner = None   # optional WarmPoolAutotuner
         self.served_int8 = 0   # predictions served from armed int8 slots
         self.step_times_s: Deque[float] = deque(maxlen=latency_window)
         self.dispatch_times_s: Deque[float] = deque(maxlen=latency_window)
@@ -643,7 +649,15 @@ class StreamServer:
             self._graphs.reset()
 
     def attach_autotuner(self, tuner) -> None:
-        raise unported("attach_autotuner", "Autotuner")
+        """Attach a ``runtime.autotuner.WarmPoolAutotuner``: after every
+        round the tuner applies the hyperparameter swaps due at a cohort
+        refresh boundary, in place on the server's state, and (at its own
+        low rate) runs one background (p, q, beta) tuning round.  A tuner
+        that never swaps leaves the served episode unchanged, bit for
+        bit."""
+        if tuner.server is not self:
+            raise ValueError("tuner was constructed for a different server")
+        self._autotuner = tuner
 
     def submit(self, req: StreamRequest) -> None:
         if req.u.shape[1] != self.t_max:
@@ -753,8 +767,9 @@ class StreamServer:
 
         out_host = self._out_host[self._dispatches]
         ctl_host = self._ctl_host[self._dispatches]
+        base = self.slot_pos.copy()
         for t in range(n_sub):
-            cursor = self.slot_pos + t * W * live_np
+            cursor = base + t * W * live_np
             train = bool(np.any(live_np
                                 & (self._slot_steps < self.phase_steps)))
             fresh = self._admitted_this_step if t == 0 else []
@@ -764,6 +779,14 @@ class StreamServer:
             else:
                 self._substep_eager(cursor, live_np, fresh, train, meta,
                                     out_host[t])
+            if self._autotuner is not None and t < n_sub - 1:
+                # the tuner follows every round, so a blocked dispatch makes
+                # the unblocked episode's swaps at the same steps; the clamp
+                # keeps retirements at the block's end
+                for tt, i, _req, lo, n in meta:
+                    if tt == t:
+                        self.slot_pos[i] = lo + n
+                self._autotuner.on_step()
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -773,12 +796,14 @@ class StreamServer:
         # never wait on the predictions; meta is sub-step-major, so a slot
         # retires exactly at its block's end
         for _t, i, req, lo, n in meta:
-            self.slot_pos[i] += n
+            self.slot_pos[i] = lo + n
             if self.slot_pos[i] >= req.n_samples:
                 req.final_state = self._snapshot_row(i)
                 self.sched.retire(i)   # continuous batching: slot refills
         self._inflight.append((out_host, event, n_sub, meta))
         self._dispatches += 1
+        if self._autotuner is not None:
+            self._autotuner.on_step()
         self.dispatch_times_s.append(time.perf_counter() - t_start)
         while len(self._inflight) > self.pipeline_depth:
             self._drain_one()

@@ -37,7 +37,10 @@ Tolerances:
     relative because the outputs are small (a causal row of randn inputs
     averages about T/e keys);
   * the reduced LM on the card against the CPU in fp32: logits within 1e-3
-    of the largest, greedy tokens equal.
+    of the largest, greedy tokens equal;
+  * the population's features (K1 with the member axis leading): rtol
+    1e-4 / atol 1e-4, as K1; a tuned episode through the captured round
+    (and pipelined, blocked) against the eager one: bit for bit.
 """
 import dataclasses
 
@@ -1218,3 +1221,92 @@ def test_lm_server_on_card_agrees_with_cpu(dev):
         out.append({r.rid: r.out_tokens for r in server.run_until_drained()})
         assert k_flash.KERNEL.launches == before   # decode attention is plain
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# The hyperparameter search and the autotuner on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,b,t", [(16, 40, 93), (5, 333, 29)])
+def test_k1_population_shape_matches_plain(dev, k, b, t):
+    """K1 with the member axis leading: every member's (p, q) over one
+    shared, expanded batch, as core.population launches it."""
+    from repro_torch.core import population
+
+    nx = 30
+    cfg = DFRConfig(n_in=13, n_classes=10, n_nodes=nx)
+    rng = np.random.default_rng(k)
+    u = torch.from_numpy(rng.normal(size=(b, t, 13)).astype(np.float32))
+    lens = rng.integers(0, t + 1, b).astype(np.int32)
+    lens[:2] = (1, t)
+    mask = torch.from_numpy(
+        np.sign(rng.normal(size=(nx, 13))).astype(np.float32))
+    ps = torch.from_numpy((10.0 ** rng.uniform(-3.75, -0.25, k)).astype(
+        np.float32))
+    qs = torch.from_numpy((10.0 ** rng.uniform(-2.75, -0.25, k)).astype(
+        np.float32))
+    args = (mask, ps, qs, u, torch.from_numpy(lens))
+    before = k_train.KERNEL.launches
+    got = population.population_features(cfg, *(a.to(dev) for a in args))
+    assert k_train.KERNEL.launches == before + 1
+    want = population.population_features(cfg, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+_TUNE_CFG = DFRConfig(n_in=1, n_classes=4, n_nodes=8, p_init=0.5, q_init=0.5)
+
+
+def _tuned_server(eager=False, **kw):
+    from repro_torch.data import make_drift_label_streams
+    from repro_torch.runtime import WarmPoolAutotuner
+
+    srv = StreamServer(_TUNE_CFG, t_max=16, max_streams=4, window=4,
+                       refresh_mode="incremental", refresh_every=5,
+                       refresh_cohorts=2, device="cuda", **kw)
+    if eager:
+        srv._graphs = None
+    srv.attach_autotuner(WarmPoolAutotuner(srv, population=8, history=32,
+                                           interval=2, margin=0.02, seed=1))
+    arrays, _ = make_drift_label_streams(4, 64, 16, 4, seed=0)
+    for rid, a in enumerate(arrays):
+        srv.submit(StreamRequest(rid=rid, **a))
+    return srv
+
+
+@pytest.mark.parametrize("kw,eager_kw", [
+    ({}, {}), ({"quantize": "int8"}, {"quantize": "int8"}),
+    ({"pipeline_depth": 2, "step_block": 4}, {})])
+def test_captured_tuned_episode_serves_the_eager_one(dev, kw, eager_kw):
+    """The captured round with a tuner attached (and the pipelined, blocked
+    one) makes the eager round's swaps at the same steps and serves its
+    episode bit for bit."""
+    eager = _tuned_server(eager=True, **eager_kw)
+    eager.run_until_drained()
+    srv = _tuned_server(**kw)
+    srv.run_until_drained()
+    assert srv._graphs.replays > 0
+    stats = srv._autotuner.stats()
+    assert stats["swaps_applied"] > 0 and stats == eager._autotuner.stats()
+    _assert_same_serving(srv, eager)
+
+
+def test_swap_keeps_every_leaf_in_place(dev):
+    """A swap writes into the server's own tensors, whose addresses the
+    captured round's graphs hold."""
+    from repro_torch.runtime import autotuner
+
+    srv = _tuned_server()
+    for _ in range(6):
+        srv.step()
+    ptrs = [leaf.data_ptr() for leaf in _state_leaves(srv.states)]
+    W = torch.randn(_TUNE_CFG.n_classes, _TUNE_CFG.n_rep, device=dev)
+    b = torch.randn(_TUNE_CFG.n_classes, device=dev)
+    autotuner._swap_slot_row(srv.states, 2, 0.05, 0.02, W, b, 0.1, True)
+    assert [leaf.data_ptr() for leaf in _state_leaves(srv.states)] == ptrs
+    Lt = srv.states.ridge.Lt[2]
+    torch.testing.assert_close(Lt.T @ Lt, srv.states.ridge.B[2]
+                               + 0.1 * torch.eye(_TUNE_CFG.s, device=dev))
+    srv.run_until_drained()
+    assert [leaf.data_ptr() for leaf in _state_leaves(srv.states)] == ptrs
