@@ -111,7 +111,8 @@ Phases, each fatal on failure:
      within one test sample.
   6. The training path at full width: DFRModel.fit(train, minibatch=4) on
      the whole ARAB training split (6600 samples, Nx=30, s=931, FIT_EPOCHS
-     epochs, the paper's recipe with select='val'), with every launch count
+     = 10 epochs, cut from the paper's 25, the paper's recipe with
+     select='val'), with every launch count
      set to 0 before it and read after it (K6, K7, K4a and K4b); the wall
      time of the SGD and of the ridge fits, the chosen beta, the train and
      test accuracy.  Then OnlineDFR streamed over the training split in
@@ -135,6 +136,23 @@ Phases, each fatal on failure:
      the features' peak memory; then the paper's Table 5 protocol,
      grid_search_until(target = phase 6's test accuracy, max_divs=8), its
      total time beside the fit's wall time and their ratio.
+  6c. The paper's memory algorithms at full width, from phase 6's model
+     and parameters.  Table 8: fit_ridge by Gauss-Jordan, the blocked
+     solve (K4a, K4b) and the packed in-place Cholesky (Algorithms 2-4)
+     must choose the same beta with test accuracies within 2 of 2200, and
+     at beta >= 1e-4 the packed W must lie within max(1e-3, the float64
+     W's move under a 1e-6 relative perturbation of B, solved on the CPU)
+     of the blocked W; each method's wall time, launches, device time and
+     peak memory a solve, beside Table 2's words.  Fig. 9's rows
+     (benchmarks_torch/bench_ridge.py) at Nx 10, 20, 30.  Four feature
+     rows rotated into the packed factor (cholupdate_packed) against K3's
+     fold of them, within 1e-5 of max |Lt|.  On 256 training samples the
+     manual truncated gradients against K1's, K6 + K7's (rtol 1e-4 / atol
+     1e-5) and full BPTT's W and b (rtol 1e-4 / atol 1e-6), each path's
+     launches read apart.  Table 7: the peak memory of full BPTT and of
+     K1's truncated gradients over all 6600 samples (full BPTT on the
+     largest batch that fits), beside the storage words and one (B, T,
+     Nx) state tensor.
   7. Card against CPU on a reduced fit (Nx=30, the first 512 ARAB training
      samples, 2 epochs): the same beta, at least 0.98 of the test split's
      predictions equal, and |dW| / max |W|.
@@ -187,7 +205,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dfr_paper import paper_dfr_config  # noqa: E402
-from repro_torch.core import masking, ridge  # noqa: E402
+from repro_torch.core import backprop, dprr, masking, ridge  # noqa: E402
 from repro_torch.core.dfr import DFRModel  # noqa: E402
 from repro_torch.core.online import OnlineDFR  # noqa: E402
 from repro_torch.core.types import (DFRConfig, TimeSeriesBatch,  # noqa: E402
@@ -211,6 +229,8 @@ from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.runtime import (Request, Server, StreamRequest,  # noqa: E402
                                  StreamServer, WarmPoolAutotuner)
 from repro_torch.core import candidates  # noqa: E402
+from benchmarks_torch.bench_ridge import (card_line,  # noqa: E402
+                                         fig9_runtime_ratio)
 from repro_torch.core import population as core_population  # noqa: E402
 from repro_torch.core.grid_search import (grid_search,  # noqa: E402
                                           grid_search_serial,
@@ -245,12 +265,14 @@ K5_CHAIN_OPS = {"fp32 FMA": 17, "fp32 min/max": 4, "IDP4A": 4,
 CHAIN = {}  # chain_latency.measure() and the SM clock, set in phase 2
 # the training path: ridge tiles (the DFRModel path's block), the chunk of
 # fit_ridge, the sizes of the card-vs-CPU fit, and the epochs of the
-# full-width fit (the paper's 25)
+# full-width fit, cut from the paper's 25 to keep the script well inside
+# its time (the SGD reaches the clamp p = 10^-3.75 within two epochs on
+# ARAB, and each epoch costs 5-12 s of host-bound steps)
 TILE = 128
 CHUNK = 256
 FIT_MINIBATCH = 4   # fit_sgd's minibatch in phase 6
 AGREE_SAMPLES, AGREE_EPOCHS = 512, 2
-FIT_EPOCHS = 25
+FIT_EPOCHS = 10
 ONLINE_LR = 0.01  # OnlineDFR's SGD rate at ARAB's width
 K4A_REL = 1e-5   # K4a: the same rounded operations as its plain version
 K4B_REL = 1e-4   # K4b: dot products in another order
@@ -408,6 +430,24 @@ TUNER_EPISODE = dict(population=8, history=32, interval=2, margin=0.02,
                      seed=1)
 TUNER_GAIN = 0.03
 TUNER_TOL = 2e-3   # Lt^T Lt against B + beta I after swaps (rtol and atol)
+# the paper's memory algorithms at ARAB's full width (phase 6c): the three
+# ridge methods on phase 6's statistics (their chosen beta, their test
+# accuracies within MEM_ACC_SAMPLES of 2200, the packed W against the
+# blocked W at beta >= MEM_HELD_BETA within the float64 run's sensitivity
+# to a MEM_FP32_NOISE relative perturbation of B, floored at SOLVE_REL);
+# Fig. 9 at Nx 10, 20, 30; the packed update of MEM_UPDATE_ROWS rows
+# against K3 within K3's CPU limit; the four gradient paths on
+# MEM_GRAD_SAMPLES samples within the CPU tests' limits; and Table 7's
+# peak memories on the whole training split
+MEM_METHODS = ("gaussian", "cholesky_blocked", "cholesky_packed")
+MEM_ACC_SAMPLES = 2
+MEM_HELD_BETA = 1e-4
+MEM_FP32_NOISE = 1e-6
+MEM_UPDATE_ROWS = 4
+MEM_UPDATE_REL = 1e-5
+MEM_GRAD_SAMPLES = 256
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)     # the truncated paths
+FULL_WB_TOL = dict(rtol=1e-4, atol=1e-6)  # full BPTT's W and b
 
 
 class SmokeFailure(RuntimeError):
@@ -417,14 +457,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def max_sm_clock_hz() -> float:
@@ -1508,7 +1540,7 @@ def training_phase(card: str, cfg, data) -> tuple:
 
     profile_training(card, model, train, params)
     return ({name: launches[name] for name in TRAINING_KERNELS},
-            dict(wall=wall, test_acc=acc_te))
+            dict(wall=wall, test_acc=acc_te, model=model, params=params))
 
 
 def online_episode(cfg, mask, train, test, lr: float, device: str):
@@ -1925,6 +1957,255 @@ def population_phase(card: str, cfg, data, fit: dict) -> None:
           f"{until['total_time_s'] / fit['wall']:.4f}; peak memory above "
           f"the data {peak / 2**30:.2f} GiB")
     check(np.isfinite(until["acc"]), "grid_search_until gave no accuracy")
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| / max |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def fp64_sensitivity(A, B, beta: float) -> tuple:
+    """The float64 W = A (B + beta I)^-1 of phase 6's statistics, solved on
+    the CPU, and how far it moves (max |dW| / max |W|, the larger of two
+    draws) when every entry of B is perturbed by a relative
+    MEM_FP32_NOISE, symmetrically: the spread that two fp32 solves of this
+    system may show."""
+    A64, B64 = A.double().cpu(), B.double().cpu()
+    eye = torch.eye(B64.shape[-1], dtype=torch.float64)
+    W = torch.linalg.solve(B64 + beta * eye, A64.T).T
+    gen = torch.Generator().manual_seed(0)
+    worst = 0.0
+    for _ in range(2):
+        N = torch.randn(B64.shape, generator=gen, dtype=torch.float64)
+        Bp = B64 * (1.0 + MEM_FP32_NOISE * 0.5 * (N + N.T))
+        worst = max(worst, rel_diff(
+            torch.linalg.solve(Bp + beta * eye, A64.T).T, W))
+    return worst, W
+
+
+def solve_sweep(A, B, betas, method: str) -> dict:
+    """W~ of each beta by ``method`` (None where not finite)."""
+    out = {}
+    for beta in betas:
+        W = ridge.ridge_solve(A, ridge.regularize(B, beta), method)
+        out[beta] = W if bool(torch.isfinite(W).all()) else None
+    return out
+
+
+def table8_phase(card: str, cfg, model, data, params):
+    """Table 8 on the card: DFRModel.fit_ridge by each of MEM_METHODS on
+    phase 6's (p, q) over the whole training split: the beta each chooses,
+    the test accuracies, the packed W against the blocked W, and each
+    method's wall time, launches, device time and peak memory a solve.
+    Returns B + 1e-2 I of the split's statistics."""
+    train, test = data
+    s, ny = cfg.s, cfg.n_classes
+    tag = f"[{card}] Table 8, ARAB Nx={cfg.n_nodes} s={s}"
+    A, B = model.ridge_statistics(train, params, CHUNK)
+    sols, chosen, correct = {}, {}, {}
+    for method in MEM_METHODS:
+        fitted = model.fit_ridge(train, params, method=method)
+        sols[method] = solve_sweep(A, B, cfg.betas, method)
+        dist = {beta: rel_diff(W[:, :-1], fitted.W)
+                for beta, W in sols[method].items() if W is not None}
+        check(bool(dist), f"{method}: no beta of the sweep is finite")
+        chosen[method] = min(dist, key=dist.get)
+        check(dist[chosen[method]] <= 1e-6,
+              f"{method}: no beta of the sweep gives fit_ridge's W")
+        correct[method] = int(round(float(model.accuracy(test, fitted))
+                                    * test.batch))
+        print(f"  {tag}: fit_ridge(method='{method}'): finite at beta "
+              + ", ".join(f"{b:g}" for b, W in sols[method].items()
+                          if W is not None)
+              + f"; chooses beta {chosen[method]:g}; test accuracy "
+              f"{correct[method] / test.batch:.4f} ({correct[method]} of "
+              f"{test.batch})")
+    check(len(set(chosen.values())) == 1,
+          f"the ridge methods choose different betas: {chosen}")
+    spread = max(correct.values()) - min(correct.values())
+    print(f"  {tag}: test accuracies within {spread} samples (at most "
+          f"{MEM_ACC_SAMPLES})")
+    check(spread <= MEM_ACC_SAMPLES, "the ridge methods' accuracies differ")
+    for beta in cfg.betas:
+        sens, W64 = fp64_sensitivity(A, B, beta)
+        blocked, packed = (sols[m][beta] for m in ("cholesky_blocked",
+                                                    "cholesky_packed"))
+        vs64 = ", ".join(
+            f"{m} {rel_diff(sols[m][beta].cpu(), W64):.3e}"
+            if sols[m][beta] is not None else f"{m} not finite"
+            for m in MEM_METHODS)
+        line = (f"  {tag}: beta {beta:g}: float64 W moves {sens:.3e} under a "
+                f"{MEM_FP32_NOISE:g} perturbation of B; each fp32 W against "
+                f"float64: {vs64}")
+        if beta < MEM_HELD_BETA or blocked is None:
+            print(line + " (not held)")
+            continue
+        limit = max(SOLVE_REL, sens)
+        d = (rel_diff(packed, blocked) if packed is not None
+             else float("inf"))
+        print(line + f"; packed against blocked {d:.3e} (limit {limit:.3e})")
+        check(d <= limit, f"packed W against blocked W at beta {beta}: {d}")
+
+    Bb = ridge.regularize(B, 1e-2)
+    for method in MEM_METHODS:
+        def solve():
+            return ridge.ridge_solve(A, Bb, method)
+
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solve()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        _, busy, wall, launches = device_share(solve, "", top=2)
+        print(f"  {tag}: {method} at beta 1e-2: {1e3 * np.median(walls):.2f} "
+              f"ms a solve (wall, median of 3); under torch.profiler "
+              f"{wall:.2f} ms, {launches} launches, device busy {busy:.3f} "
+              f"ms; peak memory above the inputs {peak / 2**20:.3f} MiB")
+    print(f"  {tag}: Table 2's words x 4 bytes: naive "
+          f"{ridge.memory_words_naive(s, ny) * 4 / 2**20:.3f} MiB, proposed "
+          f"{ridge.memory_words_proposed(s, ny) * 4 / 2**20:.3f} MiB")
+    return Bb
+
+
+def packed_update_phase(card: str, cfg, model, train, params, Bb) -> None:
+    """MEM_UPDATE_ROWS feature rows rotated into the packed factor of
+    B + 1e-2 I (cholupdate_packed) against K3's fold of the same rows on
+    the same factor."""
+    s = cfg.s
+    P = ridge.cholesky_packed(ridge.pack_lower(Bb), s)
+    check(bool(torch.isfinite(P).all()), "the packed factor is not finite")
+    rows = TimeSeriesBatch(u=train.u[:MEM_UPDATE_ROWS],
+                           length=train.length[:MEM_UPDATE_ROWS],
+                           label=train.label[:MEM_UPDATE_ROWS])
+    X = dprr.r_tilde(model.features(rows, params))
+    Lt = ridge.unpack_lower(P, s).T.contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ops.cholupdate_window_t(Lt[None], X[None], 1.0)[0]
+    torch.cuda.synchronize()
+    k3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for x in X:
+        ridge.cholupdate_packed(P, x, s)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    d = rel_diff(ridge.unpack_lower(P, s).T, want)
+    print(f"  [{card}] packed update, s={s}, {MEM_UPDATE_ROWS} rows into the "
+          f"factor of B + 1e-2 I: cholupdate_packed {1e3 * packed_s:.1f} ms "
+          f"(wall), K3 {1e3 * k3_s:.3f} ms (wall, one launch); max |dLt| / "
+          f"max |Lt| {d:.3e} (limit {MEM_UPDATE_REL:g})")
+    check(d <= MEM_UPDATE_REL, "the packed update disagrees with K3")
+
+
+def gradients_phase(card: str, cfg, model, train, params) -> None:
+    """The manual truncated gradients, K1's, K6 + K7's, and full BPTT's W and
+    b on MEM_GRAD_SAMPLES training samples at phase 6's parameters."""
+    n = MEM_GRAD_SAMPLES
+    j = model.mask_inputs(train.u[:n].cuda())
+    ln = train.length[:n].cuda()
+    onehot = torch.nn.functional.one_hot(
+        train.label[:n].long().cuda(), cfg.n_classes).float()
+    f = cfg.f()
+    grads, on_path = {}, {"manual": (), "K1 fused": ("K1 train_forward",),
+                          "K6 + K7": ("K6 reservoir_states",
+                                      "K7 dprr_features"),
+                          "full BPTT": ()}
+    for name, fn in (
+            ("manual", lambda: backprop.grads_truncated_manual(
+                params, j, onehot, f, None, ln)),
+            ("K1 fused", lambda: backprop.grads_truncated_fused(
+                params, j, onehot, f, ln)),
+            ("K6 + K7", lambda: backprop.grads_truncated(
+                params, j, onehot, f, ln)),
+            ("full BPTT", lambda: backprop.grads_full_bptt(
+                params, j, onehot, f, ln))):
+        reset_launches()
+        grads[name] = fn()[1]
+        torch.cuda.synchronize()
+        check_launches(f"[{card}] {name} gradients", read_launches(),
+                       on_path[name])
+    want = grads["manual"]
+    for name, leaves, tol in (("K1 fused", "pqWb", GRAD_TOL),
+                              ("K6 + K7", "pqWb", GRAD_TOL),
+                              ("full BPTT", "Wb", FULL_WB_TOL)):
+        for leaf in leaves:
+            got, ref_ = getattr(grads[name], leaf), getattr(want, leaf)
+            err = float((got - ref_).abs().max())
+            print(f"  [{card}] {name} against the manual gradients, {leaf}: "
+                  f"max abs err {err:.3e} of max {float(ref_.abs().max()):.3e}"
+                  f" (rtol {tol['rtol']}, atol {tol['atol']})")
+            check(torch.allclose(got, ref_, **tol),
+                  f"{name} gradient of {leaf} disagrees with the manual one")
+    full = grads["full BPTT"]
+    print(f"  [{card}] full BPTT's (p, q) gradients {float(full.p):.6g}, "
+          f"{float(full.q):.6g} beside the truncated {float(want.p):.6g}, "
+          f"{float(want.q):.6g} (not compared)")
+
+
+def table7_phase(card: str, cfg, model, train, params) -> None:
+    """Table 7 on the card: the peak memory above the inputs of full BPTT
+    and of K1's truncated gradients over the whole training split."""
+    n, t = train.batch, train.t_max
+    j = model.mask_inputs(train.u.cuda())
+    ln = train.length.cuda()
+    onehot = torch.nn.functional.one_hot(train.label.long().cuda(),
+                                         cfg.n_classes).float()
+    f = cfg.f()
+
+    def peak(fn, b):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(params, j[:b], onehot[:b], f, ln[:b])
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, \
+            time.perf_counter() - t0
+
+    k1_peak, k1_s = peak(backprop.grads_truncated_fused, n)
+    b = n
+    while True:
+        try:
+            full_peak, full_s = peak(backprop.grads_full_bptt, b)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"  [{card}] full BPTT at {b} samples does not fit")
+            b //= 2
+            check(b > 0, "full BPTT fits no batch")
+    state_mb = n * t * cfg.n_nodes * 4 / 1e6
+    print(f"  [{card}] Table 7, ARAB Nx={cfg.n_nodes}, {n} samples, T <= {t}"
+          f": full BPTT ({b} samples) peak {full_peak / 1e6:.1f} MB above "
+          f"the inputs in {full_s:.3f} s; K1 truncated peak "
+          f"{k1_peak / 1e6:.1f} MB in {k1_s:.3f} s; ratio "
+          f"{full_peak / k1_peak:.1f}; one (B, T, Nx) state tensor "
+          f"{state_mb:.1f} MB; words x 4 bytes x B: naive "
+          f"{backprop.storage_words_naive(cfg, t) * 4 * b / 1e6:.1f} MB, "
+          f"truncated "
+          f"{backprop.storage_words_truncated(cfg, t) * 4 * n / 1e6:.1f} MB")
+
+
+def memory_phase(card: str, cfg, data, fit: dict) -> None:
+    """The paper's memory algorithms at ARAB's full width (phase 6c), from
+    phase 6's fitted model and parameters."""
+    train = data[0]
+    model, params = fit["model"], fit["params"]
+    Bb = table8_phase(card, cfg, model, data, params)
+    for row in fig9_runtime_ratio(device="cuda"):
+        print(f"  Fig. 9: {json.dumps(row)}")
+        check(all(row[k] > 0 for k in ("gaussian_us", "cholesky_us",
+                                       "packed_us")), "Fig. 9: no time")
+    packed_update_phase(card, cfg, model, train, params, Bb)
+    gradients_phase(card, cfg, model, train, params)
+    table7_phase(card, cfg, model, train, params)
 
 
 def autotuner_phase(card: str, cfg, arrays) -> None:
@@ -2437,6 +2718,9 @@ def main() -> int:
     print("[6b] the hyperparameter search at full width: grid searches, the "
           "population, the paper's Table 5")
     population_phase(card, cfg, data, fit)
+    print("[6c] the paper's memory algorithms at full width: Table 8, Fig. "
+          "9, the packed update, the gradient paths, Table 7")
+    memory_phase(card, cfg, data, fit)
     print("[7] training path agreement, card vs CPU")
     training_agreement_phase(cfg, data)
     print(f"[8] the LM main path at full width: {LM_ARCH}, "

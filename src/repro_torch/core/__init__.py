@@ -8,6 +8,7 @@ core, and core reaches them inside its functions."""
 from repro_torch.core.types import (  # noqa: F401
     DFRConfig,
     DFRParams,
+    RegressionBatch,
     RidgeState,
     TimeSeriesBatch,
 )
@@ -15,6 +16,7 @@ from repro_torch.core.masking import make_mask, apply_mask  # noqa: F401
 from repro_torch.core.reservoir import (  # noqa: F401
     run_reservoir,
     reservoir_step,
+    reservoir_step_naive,
     ring_matrix,
     ring_powers,
 )
@@ -27,11 +29,18 @@ from repro_torch.core.ridge import (  # noqa: F401
     ridge_solve,
     ridge_solve_batched,
     ridge_gaussian,
+    ridge_cholesky_packed,
     ridge_cholesky_blocked,
     ridge_cholesky_batched,
     accumulate_ab,
     regularize,
+    cholupdate_dense,
+    cholupdate_dense_batched,
+    cholupdate_dense_t,
+    cholupdate_window,
     cholupdate_window_t,
+    ridge_solve_from_factor,
+    ridge_solve_from_factor_batched,
     ridge_solve_from_factor_t,
     ridge_solve_from_factor_t_batched,
     seed_factor,
@@ -39,6 +48,8 @@ from repro_torch.core.ridge import (  # noqa: F401
 from repro_torch.core.backprop import (  # noqa: F401
     forward,
     grads_truncated,
+    grads_truncated_manual,
+    grads_full_bptt,
     loss_from_logits,
 )
 from repro_torch.core.dfr import DFRModel  # noqa: F401

@@ -1,6 +1,6 @@
-"""Truncated backpropagation through the DFR (paper Sec. 3.2-3.5), in PyTorch.
+"""Backpropagation through the DFR (paper Sec. 3.2-3.5), in PyTorch.
 
-The counterpart of ``repro.core.backprop`` on the serving path:
+The counterpart of ``repro.core.backprop``:
 
 * ``forward`` - reservoir scan -> DPRR -> readout, plus the truncation
   boundary x(T), x(T-1), j(T).
@@ -16,6 +16,11 @@ The counterpart of ``repro.core.backprop`` on the serving path:
   states and DPRR come from ``kernels.ops.reservoir_states`` (K6) and
   ``kernels.ops.dprr_features`` (K7).  The truncation cuts the gradient
   through that forward, so neither kernel needs a backward.
+* ``grads_truncated_manual`` - the paper's hand-derived Eq. 25-26 and
+  33-36 over ``forward``, with no autograd; its (p, q) part is the same
+  code as K1's backward (``_grads_pq``).
+* ``grads_full_bptt`` - autograd through all T steps (Eq. 29-32), the
+  baseline whose storage grows with T; ``storage_words_*`` count Table 7.
 
 Parameters may carry leading system axes *P (the stream server's slots):
 ``p``/``q`` are (*P), ``W`` (*P, Ny, Nr), ``b`` (*P, Ny), and the data
@@ -32,7 +37,7 @@ import torch
 
 from repro_torch.core import dprr as dprr_mod
 from repro_torch.core import reservoir as res_mod
-from repro_torch.core.types import DFRParams, Nonlinearity, Tensor
+from repro_torch.core.types import DFRConfig, DFRParams, Nonlinearity, Tensor
 
 
 class ForwardAux(NamedTuple):
@@ -217,6 +222,69 @@ def grads_truncated(
     return grads_truncated_from_aux(params, aux, onehot, f, loss_fn)
 
 
+def _grads_pq(dr: Tensor, q: Tensor, x_last: Tensor, x_prev: Tensor,
+              j_last: Tensor, f: Nonlinearity) -> Tuple[Tensor, Tensor]:
+    """The truncated (dL/dp, dL/dq) per system (*P) from dL/dr and the
+    boundary x(T), x(T-1), j(T) of each sample (*P, B, ...): the closed form
+    of Eq. 33-36, summed over each system's samples and nodes.  K1's
+    backward and ``grads_truncated_manual`` both run it."""
+    n_nodes = x_last.shape[-1]
+    # Eq. 33: bpv_n = sum_j x(T-1)_j dL/dr_{(n-1)Nx+j} + dL/dr_{Nx^2+n}
+    dr_outer = dr[..., : n_nodes * n_nodes].reshape(
+        *dr.shape[:-1], n_nodes, n_nodes)
+    dr_sum = dr[..., n_nodes * n_nodes:]
+    bpv = (dr_outer @ x_prev[..., None])[..., 0] + dr_sum
+    # Eq. 34: reversed ring recurrence, dx_m = sum_n q^(n-m) bpv_n
+    dx = bpv @ res_mod.ring_matrix(q, n_nodes, bpv.dtype)
+    # Eq. 35: dL/dp = sum_n f(j(T)_n + x(T-1)_n) dL/dx(T)_n
+    grad_p = (f(j_last + x_prev) * dx).sum(dim=(-2, -1))
+    # Eq. 36: dL/dq = sum_n x(T)_{n-1} dL/dx(T)_n, x(T)_0 = x(T-1)_{Nx}
+    x_shift = torch.cat([x_prev[..., -1:], x_last[..., :-1]], dim=-1)
+    grad_q = (x_shift * dx).sum(dim=(-2, -1))
+    return grad_p, grad_q
+
+
+def _as_batch(j_seq: Tensor, onehot: Tensor, lengths: Optional[Tensor]):
+    """One sample (T, Nx) as a batch of one; a batch (B, T, Nx) as it is."""
+    if j_seq.ndim == 3:
+        return j_seq, onehot, lengths
+    return (j_seq[None], onehot[None],
+            None if lengths is None else torch.as_tensor(lengths).reshape(1))
+
+
+def grads_truncated_manual(
+    params: DFRParams,
+    j_seq: Tensor,
+    onehot: Tensor,
+    f: Nonlinearity,
+    f_prime: Callable[[Tensor], Tensor],
+    lengths: Optional[Tensor] = None,
+) -> Tuple[Tensor, DFRParams]:
+    """The paper's truncated gradients written out, Eq. 25-26 and 33-36,
+    over ``forward`` (the plain scan), with no autograd.
+
+    j_seq (T, Nx) or (B, T, Nx) of one system.  Returns (loss, grads):
+    batched inputs give the *summed* loss and gradients (divide by the
+    batch for the mean).  ``f_prime`` is the reference's argument and is
+    not read: Eq. 35 needs f, not its derivative.
+    """
+    del f_prime
+    j_seq, onehot, lengths = _as_batch(j_seq, onehot, lengths)
+    with torch.no_grad():
+        aux = forward(params, j_seq, f, lengths)
+        dlogits = aux.probs - onehot                       # Eq. 25
+        grad_b = dlogits.sum(dim=-2)                       # Eq. 26
+        grad_W = dlogits.mT @ aux.r
+        dr = dlogits @ params.W                            # Eq. 26
+        grad_p, grad_q = _grads_pq(dr, params.q, aux.x_last, aux.x_prev,
+                                   aux.j_last, f)
+        loss = loss_from_logits(aux.logits, onehot).sum(dim=-1)
+    return loss, DFRParams(p=grad_p.to(params.p.dtype),
+                           q=grad_q.to(params.q.dtype),
+                           W=grad_W.to(params.W.dtype),
+                           b=grad_b.to(params.b.dtype))
+
+
 class _FusedFeatures(torch.autograd.Function):
     """K1's outputs with the closed-form truncated backward.
 
@@ -239,19 +307,7 @@ class _FusedFeatures(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dr, *_unused):
         q, x_last, x_prev, j_last = ctx.saved_tensors
-        n_nodes = x_last.shape[-1]
-        # Eq. 33: bpv_n = sum_j x(T-1)_j dL/dr_{(n-1)Nx+j} + dL/dr_{Nx^2+n}
-        dr_outer = dr[..., : n_nodes * n_nodes].reshape(
-            *dr.shape[:-1], n_nodes, n_nodes)
-        dr_sum = dr[..., n_nodes * n_nodes:]
-        bpv = (dr_outer @ x_prev[..., None])[..., 0] + dr_sum
-        # Eq. 34: reversed ring recurrence, dx_m = sum_n q^(n-m) bpv_n
-        dx = bpv @ res_mod.ring_matrix(q, n_nodes, bpv.dtype)
-        # Eq. 35 / Eq. 36, summed over each system's samples and nodes
-        f_T = ctx.f(j_last + x_prev)
-        grad_p = (f_T * dx).sum(dim=(-2, -1))
-        x_shift = torch.cat([x_prev[..., -1:], x_last[..., :-1]], dim=-1)
-        grad_q = (x_shift * dx).sum(dim=(-2, -1))
+        grad_p, grad_q = _grads_pq(dr, q, x_last, x_prev, j_last, ctx.f)
         return grad_p, grad_q, None, None, None, None
 
 
@@ -289,6 +345,41 @@ def grads_truncated_fused(
         lambda prm: loss_fn(forward_fused(prm, j_seq, f, lengths,
                                           backend=backend).logits,
                             onehot).sum(dim=-1),
+        params)
+
+
+# ---------------------------------------------------------------------------
+# Full BPTT: autograd through the whole plain forward, nothing detached - the
+# reference the truncation approximates (Eq. 29-32), whose stored states
+# grow with T.
+# ---------------------------------------------------------------------------
+
+
+def _full_loss(
+    params: DFRParams,
+    j_seq: Tensor,
+    onehot: Tensor,
+    f: Nonlinearity,
+    lengths: Optional[Tensor] = None,
+    loss_fn: Callable[[Tensor, Tensor], Tensor] = loss_from_logits,
+) -> Tensor:
+    aux = forward(params, j_seq, f, lengths)
+    return loss_fn(aux.logits, onehot).sum(dim=-1)
+
+
+def grads_full_bptt(
+    params: DFRParams,
+    j_seq: Tensor,
+    onehot: Tensor,
+    f: Nonlinearity,
+    lengths: Optional[Tensor] = None,
+    loss_fn: Callable[[Tensor, Tensor], Tensor] = loss_from_logits,
+) -> Tuple[Tensor, DFRParams]:
+    """Loss and gradients of one system (j_seq (T, Nx) or (B, T, Nx)) by
+    autograd through ``run_reservoir`` and ``compute_dprr``."""
+    j_seq, onehot, lengths = _as_batch(j_seq, onehot, lengths)
+    return _value_and_grad(
+        lambda prm: _full_loss(prm, j_seq, onehot, f, lengths, loss_fn),
         params)
 
 
@@ -341,3 +432,20 @@ def apply_sgd(
         W=params.W - _lead(lr_out, g.W) * g.W,
         b=params.b - _lead(lr_out, g.b) * g.b,
     )
+
+
+# ---------------------------------------------------------------------------
+# Storage accounting for the truncation (paper Table 7).
+# ---------------------------------------------------------------------------
+
+
+def storage_words_naive(cfg: DFRConfig, t_len: int) -> int:
+    """(T+1) reservoir states + reservoir representation + output weights."""
+    return ((t_len + 1) * cfg.n_nodes + cfg.n_rep
+            + cfg.n_classes * (cfg.n_rep + 1))
+
+
+def storage_words_truncated(cfg: DFRConfig, t_len: int) -> int:
+    """Only x(T-1), x(T) are kept (+ representation + output weights)."""
+    del t_len
+    return 2 * cfg.n_nodes + cfg.n_rep + cfg.n_classes * (cfg.n_rep + 1)

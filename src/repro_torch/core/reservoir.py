@@ -12,10 +12,14 @@ Parameters may be batched: ``p`` and ``q`` broadcast against the batch shape
 of the inputs (everything but the last axis of ``j_k``, or the last two of
 ``j_seq``), so one call serves many systems with their own (p, q) - the
 stream server's slot axis.
+
+Beside the matrix form: ``reservoir_step_naive``, the node-by-node loop in
+the paper's order of operations (the oracle), and ``run_reservoir_legacy``,
+the pre-modular digital DFR of Eq. (8)-(9) that the paper compares against.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -54,6 +58,24 @@ def _node_axis(v: Tensor) -> Tensor:
     """A per-system scalar (batch shape) made to broadcast over nodes."""
     v = torch.as_tensor(v)
     return v[..., None] if v.ndim else v
+
+
+def reservoir_step_naive(
+    p: Tensor, q: Tensor, f: Nonlinearity, j_k: Tensor, x_prev: Tensor
+) -> Tensor:
+    """One time step, sequential over nodes (the paper's order):
+    x(k)_n = p f(j(k)_n + x(k-1)_n) + q x(k)_{n-1}, x(k)_0 = x(k-1)_{Nx}.
+
+    j_k, x_prev: (Nx,) -> x_k: (Nx,)
+    """
+    n_nodes = x_prev.shape[-1]
+    a = p * f(j_k + x_prev)  # the nonlinear branch, from step k-1 only
+    x_k = torch.zeros_like(x_prev)
+    ring = x_prev[..., n_nodes - 1]
+    for n in range(n_nodes):
+        ring = a[..., n] + q * ring
+        x_k[..., n] = ring
+    return x_k
 
 
 def reservoir_step(
@@ -106,5 +128,37 @@ def run_reservoir(
         if lengths is not None:
             x_k = torch.where((k < lengths)[..., None], x_k, x)
         x = x_k
+        xs.append(x)
+    return torch.stack(xs, dim=-2)
+
+
+def run_reservoir_legacy(
+    eta: Tensor,
+    gamma: Tensor,
+    theta: float,
+    j_seq: Tensor,
+    f: Callable[[Tensor, Tensor], Tensor],
+) -> Tensor:
+    """Pre-modular digital DFR, Eq. (8)-(9):
+
+        x(k)_1 = x(k-1)_{Nx} e^-theta + (1-e^-theta) f(x(k-1)_1, j(k)_1)
+        x(k)_n = x(k)_{n-1}  e^-theta + (1-e^-theta) f(x(k-1)_n, j(k)_n)
+
+    For the baseline comparison; f(x, j) = eta * mg(x + gamma j) carries
+    ``eta`` and ``gamma`` itself.  The same ring recurrence with the decay
+    e^-theta in q's role.  j_seq: (T, Nx) or (B, T, Nx) -> states of the
+    same shape, from x(0) = 0.
+    """
+    del eta, gamma  # inside f
+    decay = torch.exp(-torch.as_tensor(theta, dtype=j_seq.dtype,
+                                       device=j_seq.device))
+    n_nodes = j_seq.shape[-1]
+    L = ring_matrix(decay, n_nodes, j_seq.dtype)
+    qpow = ring_powers(decay, n_nodes, j_seq.dtype)
+    x = torch.zeros_like(j_seq[..., 0, :])
+    xs = []
+    for k in range(j_seq.shape[-2]):
+        a = (1.0 - decay) * f(x, j_seq[..., k, :])
+        x = (L @ a[..., None])[..., 0] + x[..., -1:] * qpow
         xs.append(x)
     return torch.stack(xs, dim=-2)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -291,6 +292,25 @@ class RequestPool:
             label=_zeros((n_slots, capacity), torch.int32, device),
             n=_zeros((n_slots,), torch.int32, device),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class RegressionBatch:
+    """Input series with continuous targets, as numpy arrays (the
+    population engine's NRMSE batches, e.g. ``data.make_narma10``).
+
+    u:       (B, T_max, n_in) float32 inputs, zero padded past `length`.
+    length:  (B,) int32 true lengths.
+    y:       (B, n_out) float32 regression targets.
+    """
+
+    u: np.ndarray
+    length: np.ndarray
+    y: np.ndarray
+
+    @property
+    def batch(self) -> int:
+        return self.u.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)

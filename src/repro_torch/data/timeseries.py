@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.types import TimeSeriesBatch
+from repro_torch.core.types import RegressionBatch, TimeSeriesBatch  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,24 +131,6 @@ def load(name: str, seed: int = 0, size_cap: int | None = None):
     """Load a paper dataset by Table 4 name (synthetic; see module doc)."""
     return make_dataset(PAPER_DATASETS[name.upper()], seed=seed,
                         size_cap=size_cap)
-
-
-@dataclasses.dataclass(frozen=True)
-class RegressionBatch:
-    """Input series with continuous targets, as numpy arrays.
-
-    u:       (B, T_max, n_in) float32 inputs, zero padded past `length`.
-    length:  (B,) int32 true lengths.
-    y:       (B, n_out) float32 regression targets.
-    """
-
-    u: np.ndarray
-    length: np.ndarray
-    y: np.ndarray
-
-    @property
-    def batch(self) -> int:
-        return self.u.shape[0]
 
 
 # ---------------------------------------------------------------------------

@@ -233,3 +233,16 @@ def test_load_is_byte_identical_to_reference(name, cap):
             w = np.asarray(getattr(want, field))
             assert g.dtype == w.dtype and g.shape == w.shape
             assert g.tobytes() == w.tobytes(), field
+
+
+def test_core_exports_every_reference_name_but_the_multi_device_readout():
+    """Every public name of ``repro.core`` has its counterpart in
+    ``repro_torch.core``, except the multi-device readout (ROADMAP Queue 1
+    item 10)."""
+    import repro.core as rcore
+    import repro_torch.core as core
+
+    names = {n for n in dir(rcore) if not n.startswith("_")
+             and not type(getattr(rcore, n)).__name__ == "module"}
+    assert names - set(dir(core)) == {"DistributedDFRReadout",
+                                      "ReadoutConfig"}

@@ -40,7 +40,11 @@ Tolerances:
     of the largest, greedy tokens equal;
   * the population's features (K1 with the member axis leading): rtol
     1e-4 / atol 1e-4, as K1; a tuned episode through the captured round
-    (and pipelined, blocked) against the eager one: bit for bit.
+    (and pipelined, blocked) against the eager one: bit for bit;
+  * the packed ridge solve (plain PyTorch) on the card against its CPU
+    run: max |dW| <= 2e-4 max |W|; the manual truncated gradients against
+    K1's backward: rtol 1e-4 / atol 1e-5, the CPU tests' limit; the packed
+    rank-1 update against K3 at s = 931: max |dLt| <= 1e-5 max |Lt|.
 """
 import dataclasses
 
@@ -51,8 +55,8 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.core.dfr import DFRModel
 from repro_torch.core.online import OnlineDFR
-from repro_torch.core.types import (DFRConfig, Nonlinearity, TimeSeriesBatch,
-                                    map_leaves)
+from repro_torch.core.types import (DFRConfig, DFRParams, Nonlinearity,
+                                    TimeSeriesBatch, map_leaves)
 from repro_torch.kernels import cholesky as k_cholesky
 from repro_torch.kernels import cholupdate as k_cholupdate
 from repro_torch.kernels import dprr as k_dprr
@@ -1310,3 +1314,62 @@ def test_swap_keeps_every_leaf_in_place(dev):
                                + 0.1 * torch.eye(_TUNE_CFG.s, device=dev))
     srv.run_until_drained()
     assert [leaf.data_ptr() for leaf in _state_leaves(srv.states)] == ptrs
+
+
+# ---------------------------------------------------------------------------
+# The paper's memory algorithms on the card: plain PyTorch (no kernel of
+# their own), held against their CPU runs and against K1 and K3.
+# ---------------------------------------------------------------------------
+
+
+def test_packed_ridge_on_card_matches_cpu(dev):
+    """The packed in-place solve (Algorithms 2-4) on the card against its
+    CPU run: max |dW| <= 2e-4 max |W| (the same column steps, each dot
+    product summed in another order)."""
+    from repro_torch.core import ridge
+
+    s, ny = 241, 10
+    g = torch.Generator(device="cpu").manual_seed(s)
+    R = torch.randn(s, 2 * s, generator=g)
+    B = R @ R.T + 0.1 * torch.eye(s)
+    A = torch.randn(ny, s, generator=g)
+    want = ridge.ridge_cholesky_packed(A, B)
+    got = ridge.ridge_cholesky_packed(A.to(dev), B.to(dev)).cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+def test_grads_truncated_manual_matches_k1(dev):
+    """The paper's manual truncated gradients against K1's closed-form
+    backward on the card: rtol 1e-4 / atol 1e-5 (the CPU tests' limit)."""
+    from repro_torch.core import backprop
+
+    j, lens, p, q, W, bias = _operands(dev, 1, 64, 93, 30, 10, seed=5)
+    lens = lens[0].clamp(min=1)
+    params = DFRParams(p=p[0], q=0.3 * q[0], W=W[0], b=bias[0])
+    onehot = torch.nn.functional.one_hot(
+        torch.arange(64, device=dev) % 10, 10).float()
+    f = Nonlinearity("linear", 1.0)
+    loss, g = backprop.grads_truncated_manual(params, j[0], onehot, f, None,
+                                              lens)
+    k1_launches = k_train.KERNEL.launches
+    loss1, g1 = backprop.grads_truncated_fused(params, j[0], onehot, f, lens)
+    assert k_train.KERNEL.launches == k1_launches + 1
+    torch.testing.assert_close(loss, loss1, rtol=1e-4, atol=1e-5)
+    for name in ("p", "q", "W", "b"):
+        torch.testing.assert_close(getattr(g, name), getattr(g1, name),
+                                   rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_packed_update_matches_k3_at_931(dev):
+    """Four rows rotated into one packed factor at s = 931 against K3's
+    fold of the same rows on the same factor: max |dLt| <= 1e-5 max |Lt|."""
+    from repro_torch.core import ridge
+
+    s = 931
+    Lt, X = _k3_operands(dev, 1, 4, s, seed=23)
+    P = ridge.pack_lower(Lt[0].T.contiguous())
+    for row in X[0]:
+        ridge.cholupdate_packed(P, row, s)
+    want = ops.cholupdate_window_t(Lt, X, 1.0, backend="cuda")[0]
+    _assert_factor_close(ridge.unpack_lower(P, s).T, want)

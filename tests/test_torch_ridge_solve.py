@@ -194,10 +194,14 @@ def test_core_ridge_solve_methods_match_reference(method):
 
 
 def test_unported_and_unknown_ridge_methods_raise():
+    """'cholesky_packed', once unported, now solves (within the blocked
+    solve's limit of the reference's packed solve); an unknown method, and
+    the packed method on a batch (as in the reference), raise."""
     A, B = _system(20, ny=2)
     tA, tB = torch.from_numpy(A), torch.from_numpy(B)
-    with pytest.raises(NotImplementedError, match="Packed Cholesky ridge"):
-        ridge.ridge_solve(tA, tB, "cholesky_packed")
+    got = ridge.ridge_solve(tA, tB, "cholesky_packed")
+    want = rridge.ridge_cholesky_packed(jnp.asarray(A), jnp.asarray(B))
+    assert _rel_err(got, want) <= SOLVE_REL
     with pytest.raises(ValueError):
         ridge.ridge_solve(tA, tB, "lu")
     with pytest.raises(ValueError):
