@@ -49,6 +49,17 @@ Phases, each fatal on failure:
      version on each member's first 256 samples, entrywise at 16 stable
      (p, q) and to each sample's scale at the 4 x 4 grid's (whose corner
      diverges), and timed beside its byte bound and its chain bound.
+     The bf16 routes at the same shapes, each timed beside the fp32 call:
+     K1 and K2 on bf16 operands (the wrapper casts them to fp32 for the
+     same kernel and rounds its outputs to bf16 once), their fp32 results
+     within KERNEL_TOL and their bf16 outputs within one bf16 step of the
+     plain version's; K5 on the bf16 server's operands, accumulators equal
+     and fp32 logits within KERNEL_TOL; K3 on bf16 factors (read and
+     written as bf16 by the kernel, folded in fp32, each element rounded
+     once) with sign +1, the forget scale and a flagged downdate, and on a
+     window of 12 rows (two passes: folded into an fp32 copy), each bit
+     for bit equal to its plain version, flags too, and timed beside the
+     fp32 fold and beside the fp32-copy route at the server's window.
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
@@ -59,9 +70,15 @@ Phases, each fatal on failure:
      and read after it:
        fp32   - recompute refresh: K1 and K2 once per round;
        int8   - quantize='int8', refresh_mode='incremental': K1, K2, K5 and
-                K3 once per round.
+                K3 once per round;
+       bf16   - cfg.dtype bfloat16, refresh_mode='incremental' (no bf16
+                Cholesky in either package): K1, K2 and K3 once per round,
+                its live factor within BF16_FACTOR_REL of its statistics.
      Printed: samples/s, p50/p99 of a dispatch, graph replays and eager
      bodies a round, the server's peak memory (allocated and reserved).
+     After 4b, one profiled captured wave of the bf16 path, and its
+     samples/s, p50/p99, busy a round, peak memory and mean online
+     accuracy beside fp32's (no limit on the accuracy).
   4b. The measured wave of each path under torch.profiler, through the
      captured round, the eager round and the pipelined, blocked round: the
      device's busy time a round and idle share, the graph launches and the
@@ -72,7 +89,8 @@ Phases, each fatal on failure:
      the captured round at pipeline_depth=2, step_block=4, alternated
      (captured, eager, pipelined, pipelined, eager, captured): each run's
      numbers, and every run must serve the first captured run's
-     predictions and end with its final states bit for bit.
+     predictions and end with its final states bit for bit; the bf16 path
+     too.
   4d. The retirement modes at ARAB's full width, each with the incremental
      refresh on the same 64 streams (benchmarks/bench_stream.py's
      settings): forget at lambda 0.95, a window of half a stream (52 rows),
@@ -103,9 +121,21 @@ Phases, each fatal on failure:
      bad (p, q), the NARMA drift streams, 2 refresh cohorts) through the
      captured round: swaps, and at least 0.03 accuracy over the untuned
      episode.
+  4g. The calibrated planner (runtime/planner.py) at full width:
+     get_calibration(force=True) on the card into a temporary file (its
+     seconds and coefficients printed); Planner.search() for phase 4's fp32
+     and int8 servers (int8 incremental, as phase 4's); the captured
+     samples/s of every lattice point with cohorts = 1 (fp32: recompute and
+     incremental; int8: incremental; step_block 1, 2, 4, 8), the points
+     alternated over five measured waves each, their median; the gate,
+     fatal: the best point's rate at most GATE_RATIO (1.3) times the
+     plan's; the same rates through replay_bench_tables from a temporary
+     directory (printed); and a config='auto' server of each path serving
+     what an explicit server with its plan's knobs serves, bit for bit.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
      first 800 ARAB samples, same widths) served on the card and on the CPU;
-     each retirement path on the first 400; the population search (the
+     each retirement path on the first 400, and the bf16 path on the first
+     400 (at least BF16_AGREE of the predictions); the population search (the
      first 512 training samples, divs=3, one round; the cull's draws from
      the same CPU generator on both): the same best (p, q, beta), accuracy
      within one test sample.
@@ -135,7 +165,11 @@ Phases, each fatal on failure:
      profiled refinement of 32 steps (ms, launches and busy share a step);
      the features' peak memory; then the paper's Table 5 protocol,
      grid_search_until(target = phase 6's test accuracy, max_divs=8), its
-     total time beside the fit's wall time and their ratio.
+     total time beside the fit's wall time and their ratio.  Last,
+     PopulationTrainer(ckpt_dir=...) at the same population saves its
+     winner (checkpoint/), restored onto the card: its leaves and test
+     predictions equal the in-memory winner's bit for bit; the bytes on
+     disk and the save and restore times.
   6c. The paper's memory algorithms at full width, from phase 6's model
      and parameters.  Table 8: fit_ridge by Gauss-Jordan, the blocked
      solve (K4a, K4b) and the packed in-place Cholesky (Algorithms 2-4)
@@ -190,10 +224,13 @@ device or without the repository's sources.
 """
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -222,12 +259,15 @@ from repro_torch.kernels import ridge_solve as k_ridge  # noqa: E402
 from repro_torch.kernels import streaming as k_streaming  # noqa: E402
 from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
-from repro_torch.launch import chain_latency  # noqa: E402
+from repro_torch.launch import chain_latency, kernel_cost  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.models.lm import make_prefill_step  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
-from repro_torch.runtime import (Request, Server, StreamRequest,  # noqa: E402
-                                 StreamServer, WarmPoolAutotuner)
+from repro_torch.runtime import (PopulationTrainer,  # noqa: E402
+                                 PopulationTrainerConfig, Request, Server,
+                                 StreamRequest, StreamServer,
+                                 WarmPoolAutotuner, planner)
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import candidates  # noqa: E402
 from benchmarks_torch.bench_ridge import (card_line,  # noqa: E402
                                          fig9_runtime_ratio)
@@ -236,12 +276,25 @@ from repro_torch.core.grid_search import (grid_search,  # noqa: E402
                                           grid_search_serial,
                                           grid_search_until)
 
-PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
-PEAK_FP32_FLOP_S = 67e12   # H100 SXM fp32 outside the tensor cores
-PEAK_INT8_OP_S = 1979e12   # H100 SXM int8, dense
-PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# the H100's peak rates and the kernels' work counts: launch/kernel_cost.py,
+# which the planner (runtime/planner.py) prices a serving round from too
+PEAK_BYTES_S = kernel_cost.PEAK_BYTES_S
+PEAK_FP32_FLOP_S = kernel_cost.PEAK_FP32_FLOP_S
+PEAK_BF16_FLOP_S = kernel_cost.PEAK_BF16_FLOP_S
+bound_ms = kernel_cost.bound_ms
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # fp32 sums in another order
 K3_REL = 1e-4   # K3: max |dLt| <= K3_REL * max |Lt| (rotations divide)
+# bf16 outputs of K1 and K2 against their plain versions: both round fp32
+# results that differ in their last bits to bf16 once, so they are one bf16
+# step apart at most, and a step is at most 2^-7 of the value (8 bits of
+# significand); atol 1e-4 covers the outputs near 0
+BF16_STEP_TOL = dict(rtol=2 ** -7, atol=1e-4)
+# each DFR kernel's fp32 route, for the JSON record's route phrase
+KERNEL_ROUTES = {"K1 train_forward": "the fp32 kernel",
+                 "K2 streaming_logits": "the fp32 kernel",
+                 "K5 streaming_logits_q8": "the int8 kernel on fp32 codes "
+                                           "and scales",
+                 "K3 cholupdate_window_t": "the fp32 kernel on the factor"}
 # phase 3 at the server's shapes: slots, window, T, Nx, Ny for K1, K2 and
 # K5; factors, rows per window, s = Nx^2 + Nx + 1 for K3
 STREAM_SHAPE = (32, 4, 93, 30, 10)
@@ -349,6 +402,26 @@ PATHS = {
              ("K1 train_forward", "K2 streaming_logits",
               "K5 streaming_logits_q8", "K3 cholupdate_window_t")),
 }
+# the bf16 path (phases 4, 4c, 5): ARAB at full width with cfg.dtype
+# bfloat16 and the incremental refresh, the only one either package serves
+# in bf16 (no bf16 Cholesky); its state, pool and windows are bf16, and K3
+# folds its bf16 factors in fp32.  ``dtype`` is taken out of the knobs and
+# set on the config (``path_config``)
+BF16_PATHS = {
+    "bf16": (dict(refresh_mode="incremental", dtype=torch.bfloat16),
+             ("K1 train_forward", "K2 streaming_logits",
+              "K3 cholupdate_window_t")),
+}
+# a bf16 factor against its statistics: each of a stream's ~26 folding
+# rounds rounds Lt and B to bf16 once (2^-9 of an entry each), so the
+# invariant drifts to a few 1e-2 of max |B + beta I| at most
+BF16_FACTOR_REL = 0.1
+# card vs CPU on the bf16 path (phase 5): K1's and K2's fp32 sums in
+# another order round to neighbouring bf16 values now and then, and a bf16
+# episode carries each such step on; tests/test_torch_bf16.py measures the
+# reference's bf16 episode against its fp32 one at 0.9143 agreement and
+# holds the port's bf16 to the reference's at least that often
+BF16_AGREE = 0.95
 # how a server of a path runs its rounds: replayed from its CUDA graphs (the
 # default on the card), through the eager round (the captured round's
 # oracle, reached through the server's private ``_graphs``), and replayed
@@ -381,6 +454,17 @@ RETIRE_PATHS = {
 # BENCH_stream_drift.json): S4/N160/W4 at Nx 8 and 16, phase_steps=3,
 # refresh_every=2, incremental, lambda 0.95, a window of 40; each policy's
 # post-drift accuracy must beat the baseline's by DRIFT_GAIN
+# the planner at full width (phase 4g): the refresh modes measured for each
+# of phase 4's servers (the int8 server is incremental), each at
+# planner.DEFAULT_STEP_BLOCKS with cohorts = 1, over PLANNER_WAVES measured
+# waves alternated between the points, each after a garbage collection.
+# Five, not three: a host stall slows a wave by up to 5x (one dispatch of
+# 249 ms), and with three waves two slow ones made a point's median 0.53x
+# its rate on an H100 (fp32 recompute at step_block 2: 34,564.1, 21,609.6,
+# 21,356.0 samples/s)
+PLANNER_MODES = {"fp32": ("recompute", "incremental"),
+                 "int8": ("incremental",)}
+PLANNER_WAVES = 5
 DRIFT_NODES = (8, 16)
 DRIFT_STREAMS, DRIFT_SAMPLES, DRIFT_T, DRIFT_CLASSES = 4, 160, 16, 4
 DRIFT_POLICIES = {
@@ -500,24 +584,6 @@ def wall_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: int, flops: int, int_ops: int = 0) -> tuple:
-    """Least time for the given work: bytes at the memory rate against fp32
-    flops and int8 operations, each at its peak rate; the larger bounds."""
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FP32_FLOP_S + int_ops / PEAK_INT8_OP_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def bound(live_steps: int, n: int, nx: int, extra_bytes: int,
-          extra_flops: int) -> tuple:
-    """Least time for the work this run's inputs need: each live step of a
-    sample reads Nx inputs and does 3 Nx^2 + 7 Nx flops (nonlinearity, ring
-    matvec, DPRR update); frozen steps past a length need nothing."""
-    return bound_ms(live_steps * nx * 4 + n * 4 + extra_bytes,
-                    live_steps * (3 * nx * nx + 7 * nx) + extra_flops)
-
-
 def chain_bound(steps: int, cycles: float, what: str) -> str:
     """The least time of `steps` dependent steps of `cycles` each, at the
     card's maximum SM clock, as a printable phrase."""
@@ -541,8 +607,57 @@ def compare(name: str, got, want) -> float:
     return err
 
 
+def operands_as(variant: str, *ts):
+    """Phase 3's floating operands as ``variant``: 'fp32' as made, 'bf16'
+    rounded to bf16 (the bf16 server's dtype), 'up' rounded to bf16 and
+    upcast again (the fp32 values the bf16 route's kernel computes on)."""
+    if variant == "fp32":
+        return ts
+    out = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ts]
+    if variant == "up":
+        out = [t.to(torch.float32) if t.is_floating_point() else t
+               for t in out]
+    return out
+
+
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def bf16_route(name: str, fn, fp32_ms: float, work) -> str:
+    """The bf16 operand route of K1 or K2, ``fn(backend, variant)``: the
+    wrapper casts the bf16 operands to fp32, the fp32 kernel runs, and its
+    outputs are rounded to bf16 once, as the plain version's.  Held against
+    the plain version on the same bf16 operands twice: the fp32 results on
+    their values at phase 3's limits (KERNEL_TOL), and the bf16 outputs at
+    one bf16 step (BF16_STEP_TOL: two fp32 results that differ in their
+    last bits may round to neighbouring bf16 values).  Timed beside the
+    fp32 call; returns the JSON record's route phrase."""
+    compare(f"{name} on bf16 operands, fp32 before rounding",
+            as_tuple(fn("cuda", "up")), as_tuple(fn("torch", "up")))
+    got, want = as_tuple(fn("cuda", "bf16")), as_tuple(fn("torch", "bf16"))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        check(g.dtype == torch.bfloat16, f"{name}: bf16 route gave {g.dtype}")
+        e = float((g.float() - w.float()).abs().max())
+        print(f"  {name} bf16 outputs: max abs err {e:.3e} (tolerance one "
+              f"bf16 step: rtol {BF16_STEP_TOL['rtol']}, atol "
+              f"{BF16_STEP_TOL['atol']})")
+        check(torch.allclose(g.float(), w.float(), **BF16_STEP_TOL),
+              f"{name}: the bf16 route disagrees with its plain version")
+    ms = device_ms(lambda: fn("cuda", "bf16"))
+    bnd, by = work.bound()
+    print(f"  {name} bf16 operands: {ms:.4f} ms (device time, median of 50, "
+          f"the wrapper's casts included) beside fp32 {fp32_ms:.4f} ms; "
+          f"bound {bnd:.5f} ms ({by}) with 2-byte operands")
+    return (f"float32: {KERNEL_ROUTES[name]}, {fp32_ms:.4f} ms; bfloat16: "
+            f"the wrapper casts the operands to fp32 for the same kernel "
+            f"and rounds its outputs to bf16 once, {ms:.4f} ms")
+
+
 def kernel_phase(dev) -> dict:
-    """K1 and K2 against their plain versions at the server's shapes."""
+    """K1 and K2 against their plain versions at the server's shapes, on
+    fp32 and on bf16 operands."""
     S, W, T, nx, ny = STREAM_SHAPE
     n = S * W
     rng = np.random.default_rng(0)
@@ -558,45 +673,45 @@ def kernel_phase(dev) -> dict:
     j, lens, p, q, Wr, b = (t.to(dev) for t in (j, lens, p, q, Wr, b))
     f = DFRConfig(n_in=1, n_classes=ny, n_nodes=nx).f()
     live_steps = int(lengths.sum())
-    nr = nx * (nx + 1)
 
-    def k2(backend):
-        return ops.streaming_logits_slots(j, lens, p, q, Wr, b, nx, f=f,
+    def k2(backend, variant="fp32"):
+        jj, pp, qq, WW, bb = operands_as(variant, j, p, q, Wr, b)
+        return ops.streaming_logits_slots(jj, lens, pp, qq, WW, bb, nx, f=f,
                                           backend=backend)
 
-    def k1(backend):
-        return ops.train_forward(j, lens, p, q, nx, f=f, backend=backend)
+    def k1(backend, variant="fp32"):
+        jj, pp, qq = operands_as(variant, j, p, q)
+        return ops.train_forward(jj, lens, pp, qq, nx, f=f, backend=backend)
 
     records = []
-    for name, fn, src, replaces, extra_bytes, extra_flops in (
+    for name, fn, src, replaces, work, work16 in (
         ("K2 streaming_logits", k2, "src/repro_torch/kernels/csrc/streaming.cu",
          "src/repro/kernels/streaming.py:39",
-         8 * S + 4 * S * ny * nr + 4 * S * ny + 4 * n * ny,
-         n * ny * (2 * nr + 1)),
+         kernel_cost.streaming_logits(live_steps, S, n, nx, ny),
+         kernel_cost.streaming_logits(live_steps, S, n, nx, ny, in_bytes=2)),
         ("K1 train_forward", k1, "src/repro_torch/kernels/csrc/train.cu",
          "src/repro/kernels/train.py:69",
-         8 * S + 4 * n * (nr + 3 * nx), 0),
+         kernel_cost.train_forward(live_steps, S, n, nx),
+         kernel_cost.train_forward(live_steps, S, n, nx, in_bytes=2)),
     ):
-        got, want = fn("cuda"), fn("torch")
+        got, want = as_tuple(fn("cuda")), as_tuple(fn("torch"))
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
         err = compare(name, got, want)
         ms = device_ms(lambda: fn("cuda"))
         plain_ms = wall_ms(lambda: fn("torch"))
-        bound_ms, bound_by = bound(live_steps, n, nx, extra_bytes,
-                                   extra_flops)
+        bnd, by = work.bound()
         print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50), "
               f"plain {plain_ms:.3f} ms (back to back), bound "
-              f"{bound_ms:.5f} ms ({bound_by}) at B={n} T={T} Nx={nx} "
+              f"{bnd:.5f} ms ({by}) at B={n} T={T} Nx={nx} "
               f"Ny={ny}, {live_steps} live steps; "
               + chain_bound(int(lengths.max()),
                             CHAIN["step_cycles"]["K1/K2/K6 scan_step"],
                             "scan_step"))
         records.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None))
+                            plain_ms=plain_ms, bound_ms=bnd,
+                            bound_by=by, library_ms=None,
+                            routes=bf16_route(name, fn, ms, work16)))
     records.append(k5_record(j, lens, p, q, b, f, lengths))
     records.extend(k3_records(dev))
     return {r["name"]: r for r in records}
@@ -605,7 +720,9 @@ def kernel_phase(dev) -> dict:
 def k5_record(j, lens, p, q, b, f, lengths) -> dict:
     """K5 against its plain version on the K2 operands with int8 readout
     codes and per-slot scales (the last slot unarmed): the int32 DPRR
-    accumulators must be equal, the logits within KERNEL_TOL."""
+    accumulators must be equal, the logits within KERNEL_TOL; then on the
+    bf16 server's operands (the window, p, q and b in bf16; the scales
+    fp32), accumulators equal and logits fp32 within KERNEL_TOL."""
     name = "K5 streaming_logits_q8"
     S, W, T, nx = j.shape
     ny = b.shape[-1]
@@ -621,9 +738,10 @@ def k5_record(j, lens, p, q, b, f, lengths) -> dict:
         np.float32)).to(dev)
     w_scale[-1] = x_scale[-1] = 0.0
 
-    def k5(backend, acc=False):
+    def k5(backend, acc=False, variant="fp32"):
+        jj, pp, qq, bb = operands_as(variant, j, p, q, b)
         return ops.streaming_logits_slots_q8(
-            j, lens, p, q, Wq, w_scale, x_scale, b, nx, f=f,
+            jj, lens, pp, qq, Wq, w_scale, x_scale, bb, nx, f=f,
             backend=backend, return_acc=acc)
 
     (got, got_acc), (want, want_acc) = k5("cuda", True), k5("torch", True)
@@ -643,14 +761,7 @@ def k5_record(j, lens, p, q, b, f, lengths) -> dict:
         j, lens, p, q, Wq, w_scale, x_scale, b, f))
     plain_ms = wall_ms(lambda: k5("torch"))
     live = int(lengths.sum())
-    # bytes: live inputs, lengths, the ring codes and powers, the scales,
-    # the readout codes and bias, the logits; ops: per live step an int8
-    # ring dot (Nx^2 MACs) and DPRR update (Nx(Nx+1) MACs), about 12 fp32
-    # ops a node, and the fp32 readout
-    nbytes = (live * nx * 4 + n * 4 + S * (nx * nx + 4 * nx + 16 + ny * nr
-                                           + 4 * ny) + 4 * n * ny)
-    bnd, by = bound_ms(nbytes, live * 12 * nx + n * ny * (4 * nr + 1),
-                       live * 2 * (nx * nx + nx * (nx + 1)))
+    bnd, by = kernel_cost.streaming_logits_q8(live, S, n, nx, ny).bound()
     k5_cycles = sum(CHAIN["op_cycles"][op] * k
                     for op, k in K5_CHAIN_OPS.items())
     print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50; the "
@@ -659,25 +770,54 @@ def k5_record(j, lens, p, q, b, f, lengths) -> dict:
           f"B={n} T={T} Nx={nx} Ny={ny}, {live} live steps; "
           + chain_bound(int(lengths.max()), k5_cycles,
                         "K5's step, summed from its operations"))
+    (got, got_acc), (want, want_acc) = (k5("cuda", True, "bf16"),
+                                        k5("torch", True, "bf16"))
+    torch.cuda.synchronize()
+    differ = int((got_acc != want_acc).sum())
+    print(f"  {name} on bf16 operands: logits {got.dtype}; {differ} int32 "
+          f"accumulator cells differ from the plain version (0 required)")
+    check(differ == 0 and got.dtype == torch.float32,
+          f"{name}: the bf16 route differs from its plain version")
+    compare(f"{name} on bf16 operands", (got,), (want,))
+    wrap_ms = device_ms(lambda: k5("cuda"))
+    wrap16_ms = device_ms(lambda: k5("cuda", variant="bf16"))
+    bnd16, by16 = kernel_cost.streaming_logits_q8(live, S, n, nx, ny,
+                                                  in_bytes=2).bound()
+    print(f"  {name} bf16 operands: the wrapper (prep and kernel) "
+          f"{wrap16_ms:.4f} ms beside fp32's {wrap_ms:.4f} ms (device time, "
+          f"median of 50); bound {bnd16:.5f} ms ({by16}) with a 2-byte "
+          f"window")
     return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/streaming_q8.cu",
                 replaces="src/repro/kernels/streaming.py:106",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None,
+                routes=f"float32: {KERNEL_ROUTES[name]}, {wrap_ms:.4f} ms "
+                       f"with the prep; bfloat16: the prep casts the window, "
+                       f"p, q and b to fp32 for the same kernel, fp32 "
+                       f"logits, {wrap16_ms:.4f} ms with the prep")
+
+
+def k3_operands():
+    """K3's operands at the server's fold: random upper-triangular factors
+    with a positive diagonal, and rows with a dead (zero) sample."""
+    K, W, s = K3_SHAPE
+    g = torch.Generator().manual_seed(0)
+    Lt = torch.triu(0.05 * torch.randn(K, s, s, generator=g), diagonal=1)
+    Lt = Lt + torch.diag_embed(1.0 + torch.rand(K, s, generator=g))
+    X = 0.3 * torch.randn(K, W, s, generator=g)
+    X[:, 1] = 0.0   # a dead sample: zero rows are exact no-ops
+    return Lt, X
 
 
 def k3_records(dev) -> list:
     """K3 against its plain version at the server's fold: 32 factors of
     931 x 931 and windows of 4 rows; sign +1 on random upper-triangular
     factors, then sign -1 on the updated factors with one row that the
-    downdate guard must skip."""
+    downdate guard must skip; then on bf16 factors."""
     name = "K3 cholupdate_window_t"
     K, W, s = K3_SHAPE
-    g = torch.Generator().manual_seed(0)
-    Lt = torch.triu(0.05 * torch.randn(K, s, s, generator=g), diagonal=1)
-    Lt = (Lt + torch.diag_embed(1.0 + torch.rand(K, s, generator=g))).to(dev)
-    X = (0.3 * torch.randn(K, W, s, generator=g)).to(dev)
-    X[:, 1] = 0.0   # a dead sample: zero rows are exact no-ops
+    Lt, X = (t.to(dev) for t in k3_operands())
     err = 0.0
     up = None
     for sign in (1.0, -1.0):
@@ -707,11 +847,7 @@ def k3_records(dev) -> list:
     plain_ms = wall_ms(lambda: ops.cholupdate_window_t(Lt, X,
                                                        backend="torch"),
                        reps=2)
-    # the upper triangle of each factor (diagonal included) read once and
-    # written once, the rows read once; about 6 flops per factor element
-    # right of the diagonal per row
-    bnd, by = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4,
-                       6 * K * W * s * (s - 1) // 2)
+    bnd, by = kernel_cost.cholupdate(K, W, s).bound()
     chain_ms = s * W * K3_ROTATION_CYCLES / max_sm_clock_hz() * 1e3
     print(f"  {name}: kernel {ms:.4f} ms (device time, median of 50), plain "
           f"{plain_ms:.1f} ms (back to back), bound {bnd:.5f} ms ({by}); "
@@ -719,11 +855,77 @@ def k3_records(dev) -> list:
           f"{K3_ROTATION_CYCLES} cycles at the maximum SM clock) at K={K} "
           f"W={W} s={s}")
     k3_retirement_operands(Lt, X, up, ms)
+    ms16 = k3_bf16_factor(Lt, X, up, ms)
     return [dict(name=name, route="cuda",
                  source="src/repro_torch/kernels/csrc/cholupdate.cu",
                  replaces="src/repro/kernels/cholupdate.py:53",
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                 bound_by=by, library_ms=None)]
+                 bound_by=by, library_ms=None,
+                 routes=f"float32: {KERNEL_ROUTES[name]}, {ms:.4f} ms in "
+                        f"place; bfloat16: the kernel reads and writes the "
+                        f"bf16 factor in one pass (W <= 8 at s = 931), "
+                        f"folding in fp32, {ms16:.4f} ms in place; a longer "
+                        f"window folds into an fp32 copy")]
+
+
+def k3_bf16_factor(Lt, X, up, fp32_ms: float) -> float:
+    """K3 on the bf16 server's operands: bf16 factors and rows, sign +1,
+    with the forget scale, and as a flagged downdate that the guard skips
+    in factors 0, 5 and 17 (K3 reads and writes the bf16 factor itself, in
+    one pass), then a window of 12 rows on 4 factors (two passes: folded
+    into an fp32 copy); each bit for bit equal to its plain version (which
+    folds a bf16 factor in fp32 too), flags too.  The in-place fold is
+    timed beside the fp32 one and beside the fp32-copy route on the same
+    operands.  Returns its time."""
+    name = "K3 cholupdate_window_t"
+    K, W, s = K3_SHAPE
+    L16, X16, up16 = (t.to(torch.bfloat16) for t in (Lt, X, up))
+    scale = torch.where(X.abs().sum(dim=-1) > 0, K3_FORGET ** 0.5,
+                        1.0).to(torch.float32)
+    D = (0.05 * X).to(torch.bfloat16)
+    trip = (0, 5, 17)
+    for i in trip:
+        D[i, -1, s // 2] = 3.0 * up16[i, s // 2, s // 2].float()
+    for what, base, rows, sign, sc, flagged in (
+            ("sign +1", L16, X16, 1.0, None, False),
+            (f"the forget scale sqrt({K3_FORGET})", L16, X16, 1.0, scale,
+             False),
+            ("a flagged downdate", up16, D, -1.0, None, True),
+            ("a window of 12 rows on 4 factors", L16[:4],
+             torch.cat([X16[:4]] * 3, dim=1), 1.0, None, False)):
+        flags = (torch.full((base.shape[0],), 7, dtype=torch.int32,
+                            device=X.device) if flagged else None)
+        plain_flags = flags.clone() if flagged else None
+        got = base.clone()
+        ops.cholupdate_window_t(got, rows, sign, scale=sc, flags=flags,
+                                out=got, backend="cuda")
+        want = ops.cholupdate_window_t(base, rows, sign, scale=sc,
+                                       flags=plain_flags, backend="torch")
+        torch.cuda.synchronize()
+        equal = (got.dtype == torch.bfloat16 and torch.equal(got, want)
+                 and (not flagged or (
+                     flags.tolist() == plain_flags.tolist()
+                     and [i for i, f in enumerate(flags.tolist()) if f]
+                     == list(trip))))
+        print(f"  {name} bf16 factor, {what}: equal to its plain version "
+              f"bit for bit{' (flags too)' if flagged else ''}: {equal}")
+        check(equal, f"{name}: the bf16 route differs from its plain "
+                     f"version ({what})")
+    ms16 = device_ms(lambda dst: ops.cholupdate_window_t(
+        dst, X16, out=dst, backend="cuda"), setup=L16.clone)
+
+    def copy_route(dst):
+        U = dst.to(torch.float32)
+        ops.cholupdate_window_t(U, X16, out=U, backend="cuda")
+        dst.copy_(U)
+
+    copy_ms = device_ms(copy_route, setup=L16.clone)
+    bnd, by = kernel_cost.cholupdate(K, W, s, in_bytes=2).bound()
+    print(f"  {name} bf16 factor: {ms16:.4f} ms in place (device time, "
+          f"median of 50) beside fp32 {fp32_ms:.4f} ms and the fp32-copy "
+          f"route {copy_ms:.4f} ms; bound {bnd:.5f} ms ({by}) with 2-byte "
+          f"factors at K={K} W={W} s={s}")
+    return ms16
 
 
 def k3_retirement_operands(Lt, X, up, unscaled_ms: float) -> None:
@@ -766,12 +968,8 @@ def k3_retirement_operands(Lt, X, up, unscaled_ms: float) -> None:
         dst, X, scale=scale, out=dst, backend="cuda"), setup=Lt.clone)
     down_ms = device_ms(lambda dst: ops.cholupdate_window_t(
         dst, D, -1.0, flags=flags, out=dst, backend="cuda"), setup=up.clone)
-    # as the unscaled fold's bound, plus the scales read and one multiply an
-    # element a row (scaled), or the flags written (flagged)
-    bnd_s, by_s = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4 + K * W * 4,
-                           7 * K * W * s * (s - 1) // 2)
-    bnd_d, by_d = bound_ms(K * s * (s + 1) * 4 + K * W * s * 4 + K * 4,
-                           6 * K * W * s * (s - 1) // 2)
+    bnd_s, by_s = kernel_cost.cholupdate(K, W, s, scaled=True).bound()
+    bnd_d, by_d = kernel_cost.cholupdate(K, W, s, flagged=True).bound()
     print(f"  {name}: scaled {scaled_ms:.4f} ms ({scaled_ms / unscaled_ms:.3f}"
           f" x the unscaled {unscaled_ms:.4f} ms), bound {bnd_s:.5f} ms "
           f"({by_s}); flagged downdate {down_ms:.4f} ms, bound {bnd_d:.5f} ms "
@@ -1066,8 +1264,10 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
     before the first wave; its rounds and swaps in the measured wave are
     returned with its stats.  The peak memory is the server's over both
     waves, above what the process held before it: allocated, and reserved
-    (the graphs' pool is reserved, and a replay allocates nothing)."""
-    knobs = {**{**PATHS, **RETIRE_PATHS}[path][0], **KINDS[kind]}
+    (the graphs' pool is reserved, and a replay allocates nothing).  Each
+    wave starts from a collected heap."""
+    cfg, knobs = path_config(cfg, path)
+    knobs = {**knobs, **KINDS[kind]}
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 64)
     knobs = window_capacity(knobs, per_stream)
@@ -1080,6 +1280,9 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
         srv._graphs = None   # the eager round: the captured round's oracle
     if tuner is not None:
         srv.attach_autotuner(WarmPoolAutotuner(srv, **{"seed": 0, **tuner}))
+    # earlier servers (their graphs hold each other in reference cycles) are
+    # freed here, not by a collection inside a timed wave
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base_alloc = torch.cuda.memory_allocated()
@@ -1101,6 +1304,7 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
     step0, int8_0 = srv.global_step, srv.served_int8
     tuned0 = srv._autotuner.stats() if tuner is not None else None
     reset_launches()
+    gc.collect()
     with profile if profile is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
         for s in streams:
@@ -1125,6 +1329,16 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
         served_int8=srv.served_int8 - int8_0,
         peak_alloc=torch.cuda.max_memory_allocated() - base_alloc,
         peak_reserved=torch.cuda.max_memory_reserved() - base_reserved)
+
+
+def path_config(cfg, path: str) -> tuple:
+    """(config, server knobs) of a path of PATHS, RETIRE_PATHS or
+    BF16_PATHS: a ``dtype`` knob goes onto the config."""
+    knobs = dict({**PATHS, **RETIRE_PATHS, **BF16_PATHS}[path][0])
+    dtype = knobs.pop("dtype", None)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, knobs
 
 
 def window_capacity(knobs: dict, per_stream: int) -> dict:
@@ -1154,7 +1368,7 @@ def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
     """The main path ``path`` through the captured round (the default on
     the card): one measured wave with every kernel's launch count set to 0
     just before it and read just after."""
-    knobs, on_path = PATHS[path]
+    knobs, on_path = {**PATHS, **BF16_PATHS}[path]
     res = serving_run(cfg, arrays, path, "captured")
     srv, done, rounds = res["srv"], res["done"], res["rounds"]
     launches, served = res["launches"], res["served"]
@@ -1188,15 +1402,17 @@ def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
               f"stream {r.rid}: prediction out of range")
     if knobs.get("refresh_mode") == "incremental":
         # the live factor still factors the accumulated statistics
+        tol = BF16_FACTOR_REL if "dtype" in knobs else 1e-4
         st = max(done.values(), key=lambda r: r.n_samples).final_state
         Lt = st.ridge.Lt.double()
         Bb = st.ridge.B.double() + float(st.ridge.factor_beta) * torch.eye(
             cfg.s, dtype=torch.float64, device=Lt.device)
         rel = float((Lt.T @ Lt - Bb).abs().max() / Bb.abs().max())
         print(f"  {tag}: max |Lt^T Lt - (B + beta I)| / max |B + beta I| "
-              f"{rel:.3e} (tolerance 1e-4)")
-        check(rel <= 1e-4, "the live factor no longer factors B + beta I")
-    return {name: launches[name] for name in on_path}
+              f"{rel:.3e} (tolerance {tol:g})")
+        check(rel <= tol, "the live factor no longer factors B + beta I")
+    res["acc"] = acc
+    return res
 
 
 def profile_phase(card: str, cfg, arrays, path: str, kind: str,
@@ -1401,8 +1617,9 @@ def drift_phase(card: str) -> None:
             ("forget", "window", "adaptive")) + f" (at least {DRIFT_GAIN})")
 
 
-def agreement_phase(cfg, arrays, path: str, n_samples: int = 800) -> None:
-    knobs = {**PATHS, **RETIRE_PATHS}[path][0]
+def agreement_phase(cfg, arrays, path: str, n_samples: int = 800,
+                    agree_min: float = 0.98) -> None:
+    cfg, knobs = path_config(cfg, path)
     t_max = arrays[0].shape[1]
     streams, per_stream = make_streams(arrays, 8, n_samples=n_samples)
     knobs = window_capacity(knobs, per_stream)
@@ -1421,10 +1638,11 @@ def agreement_phase(cfg, arrays, path: str, n_samples: int = 800) -> None:
             diffs[k] = max(diffs[k], float(d))
     frac = agree / total
     print(f"  {path}: card vs CPU: {agree}/{total} predictions agree "
-          f"({frac:.4f}); "
+          f"({frac:.4f}, at least {agree_min}); "
           f"largest final |dp| {diffs['p']:.3e}, |dq| {diffs['q']:.3e}, "
           f"|dW| {diffs['W']:.3e}")
-    check(frac >= 0.98, f"{path}: card and CPU agree on {frac:.4f} < 0.98")
+    check(frac >= agree_min,
+          f"{path}: card and CPU agree on {frac:.4f} < {agree_min}")
 
 
 def timed(obj, name: str, log: list) -> None:
@@ -1665,7 +1883,7 @@ def k1_population_phase(cfg, train, mask) -> None:
     the same sums in another order agree to each sample's scale and not
     entrywise: held at |dr| <= 1e-4 max |r of the sample| + 1e-4."""
     dev = torch.device("cuda")
-    nx, nr, f = cfg.n_nodes, cfg.n_rep, cfg.f()
+    nx, f = cfg.n_nodes, cfg.f()
     k, n = POP_DIVS ** 2, train.batch
     rng = np.random.default_rng(0)
     stable = tuple(torch.from_numpy((10.0 ** rng.uniform(lo, -0.5, k)).astype(
@@ -1705,7 +1923,7 @@ def k1_population_phase(cfg, train, mask) -> None:
     plain_ms = wall_ms(lambda: k1(jk[:, :sub], lk[:, :sub], grid, "torch"),
                        reps=3)
     live = int(lk.sum())
-    bnd, by = bound(live, k * n, nx, 8 * k + 4 * k * n * (nr + 3 * nx), 0)
+    bnd, by = kernel_cost.train_forward(live, k, k * n, nx).bound()
     print(f"  K1 at the population's shape, K={k} x B={n} = {k * n} samples "
           f"(T={train.t_max}, Nx={nx}, {live} live steps, inputs "
           f"{jk.numel() * 4 / 2**20:.1f} MiB expanded): kernel "
@@ -1957,6 +2175,54 @@ def population_phase(card: str, cfg, data, fit: dict) -> None:
           f"{until['total_time_s'] / fit['wall']:.4f}; peak memory above "
           f"the data {peak / 2**30:.2f} GiB")
     check(np.isfinite(until["acc"]), "grid_search_until gave no accuracy")
+
+
+def checkpoint_phase(card: str, cfg, data) -> None:
+    """PopulationTrainer(ckpt_dir=...) at phase 6b's population (phase
+    6b): the winner saved to a temporary directory and restored onto the
+    card, its test predictions equal to the in-memory winner's bit for bit;
+    the bytes on disk and the save and restore times."""
+    train, test = data
+    save_s = []
+    original = CheckpointManager.save
+    timed(CheckpointManager, "save", save_s)
+    try:
+        with tempfile.TemporaryDirectory(prefix="ckpt_") as tmp:
+            t0 = time.perf_counter()
+            pt = PopulationTrainer(PopulationTrainerConfig(
+                divs=POP_DIVS, ckpt_dir=tmp, **POP_REFINE))
+            res = pt.fit(cfg, train, test, device="cuda")
+            fit_s = time.perf_counter() - t0
+            ckpt = CheckpointManager(tmp)
+            nbytes = sum(p.stat().st_size
+                         for p in Path(tmp).rglob("*") if p.is_file())
+            t0 = time.perf_counter()
+            got = ckpt.restore_latest(res.best_params, device="cuda")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(got is not None, "the saved winner did not restore")
+            tree, step, meta = got
+            model = DFRModel.create(cfg, device="cuda")
+            want = model.predict(test, res.best_params)
+            preds = model.predict(test, tree)
+            same = all(torch.equal(getattr(tree, k),
+                                   getattr(res.best_params, k))
+                       for k in ("p", "q", "W", "b"))
+            acc = float((preds.cpu() == test.label).float().mean())
+            print(f"  [{card}] PopulationTrainer(divs={POP_DIVS}, "
+                  f"{POP_REFINE}, ckpt_dir=...): {fit_s:.3f} s with the save; "
+                  f"saved step {step} in {sum(save_s):.4f} s, {nbytes} bytes "
+                  f"on disk ({len(list(Path(tmp).rglob('*.npy')))} .npy "
+                  f"files and the manifest), metadata {meta}; restored onto "
+                  f"the card in {restore_s:.4f} s; leaves equal bit for bit: "
+                  f"{same}; test predictions equal: "
+                  f"{bool(torch.equal(preds, want))} (accuracy {acc:.4f}, "
+                  f"{test.batch} samples)")
+            check(same and torch.equal(preds, want) and step
+                  == POP_REFINE["rounds"],
+                  "the restored winner differs from the one in memory")
+    finally:
+        CheckpointManager.save = original
 
 
 def rel_diff(got, want) -> float:
@@ -2268,6 +2534,176 @@ def autotuner_phase(card: str, cfg, arrays) -> None:
                   f"after the swaps: largest |Lt^T Lt - (B + beta I)| "
                   f"{worst:.3e} (allclose at rtol = atol = {TUNER_TOL})")
     tuner_episode(card)
+
+
+def bf16_phase(card: str, main_runs: dict, profiles: dict) -> None:
+    """The bf16 path beside fp32 (phase 4's captured waves, one profiled
+    captured wave each): samples/s, dispatch p50/p99, device busy a round,
+    peak memory and the mean rolling online accuracy (no limit on the
+    accuracy: bf16 statistics are the reference's semantics)."""
+    for path in ("fp32", "bf16"):
+        res, prof = main_runs[path], profiles[path, "captured"]
+        lat = res["lat"]
+        print(f"  [{card}] {path} captured: {res['served'] / res['wall']:.1f} "
+              f"samples/s, dispatch p50 {lat['p50_ms']:.3f} ms, p99 "
+              f"{lat['p99_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+              f"a round (idle {prof['idle']:.1f}%), peak memory allocated "
+              f"{res['peak_alloc'] / 2**20:.1f} MiB, reserved "
+              f"{res['peak_reserved'] / 2**20:.1f} MiB, mean rolling online "
+              f"accuracy {res['acc']:.4f}"
+              + (f" ({PATHS['fp32'][0] or 'recompute'})" if path == "fp32"
+                 else " (incremental)"))
+
+
+def lattice_server(cfg, arrays, knobs: dict) -> StreamServer:
+    """A captured ARAB server of phase 4's shape with ``knobs``, after its
+    warm-up wave (the kernels' loads, the graphs' capture)."""
+    t_max = arrays[0].shape[1]
+    streams, per_stream = make_streams(arrays, 64)
+    srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
+                       phase_steps=phase_steps_for(per_stream, 4),
+                       refresh_every=5, device="cuda",
+                       pool_capacity=max(s.n_samples for s in streams),
+                       **knobs)
+    for s in streams:
+        srv.submit(s)
+    srv.run_until_drained(strict=True)
+    srv.sched.completed.clear()   # the warm-up's snapshots (wave_rate)
+    return srv
+
+
+def wave_rate(srv: StreamServer, arrays) -> tuple:
+    """(samples/s, completed streams) of one wave of the 64 streams, timed
+    from a collected heap.  The server's list of completed streams is
+    emptied after the wave: each stream keeps its final state's snapshot
+    (7 MB at s = 931), so twelve servers keeping every wave's would take
+    gigabytes more of the card's memory each wave, and the allocator's new
+    blocks would slow the later waves."""
+    streams, _ = make_streams(arrays, 64)
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in streams:
+        srv.submit(s)
+    done = srv.run_until_drained(strict=True)[-len(streams):]
+    torch.cuda.synchronize()
+    rate = sum(s.n_samples for s in streams) / (time.perf_counter() - t0)
+    srv.sched.completed.clear()
+    return rate, done
+
+
+def planner_phase(card: str, cfg, arrays) -> None:
+    """The calibrated planner at full width (phase 4g): a forced
+    calibration on the card into a temporary file; the plan of phase 4's
+    fp32 and int8 servers; the captured samples/s of every lattice point
+    with cohorts = 1 (refresh modes x step blocks; int8 incremental only,
+    as phase 4's int8 server), the points alternated over PLANNER_WAVES
+    measured waves each, their median; the gate (fatal): the best point's
+    rate at most GATE_RATIO times the plan's; the same rates through
+    replay_bench_tables from a temporary directory; and config='auto'
+    serving what an explicit server with the plan's knobs serves, bit for
+    bit."""
+    t_max = arrays[0].shape[1]
+    with tempfile.TemporaryDirectory(prefix="planner_") as tmp:
+        os.environ[planner.CAL_ENV] = os.path.join(tmp,
+                                                   planner.DEFAULT_CAL_FILE)
+        try:
+            t0 = time.perf_counter()
+            cal = planner.get_calibration(force=True)
+            cal_s = time.perf_counter() - t0
+            coeffs = {k: v for k, v in dataclasses.asdict(cal).items()
+                      if k.startswith("c_")}
+            print(f"  [{card}] calibration in {cal_s:.2f} s: " + ", ".join(
+                f"{k} {v:.4e}" for k, v in coeffs.items())
+                + f"; fingerprint {cal.fingerprint}")
+            check(all(np.isfinite(v) and v > 0 for v in coeffs.values()),
+                  f"calibration: a coefficient is not positive: {coeffs}")
+            plans, points = {}, []
+            for path, modes in PLANNER_MODES.items():
+                knobs = PATHS[path][0]
+                pl = planner.Planner(
+                    cfg.n_nodes, 32, 4, t_max, n_classes=cfg.n_classes,
+                    refresh_every=5,
+                    quantize=knobs.get("quantize", "none"), cal=cal)
+                plans[path] = plan = pl.search(refresh_modes=modes)
+                print(f"  {path}: plan {plan.knobs()}, predicted "
+                      f"{plan.predicted_samples_per_s:.1f} samples/s, refresh "
+                      f"spike {1e3 * plan.predicted_refresh_spike_s:.3f} ms; "
+                      f"predicted samples/s at cohorts 1: " + ", ".join(
+                          f"{m} b{b} {1.0 / pl.predict(m, 1, b):.1f}"
+                          for m in modes
+                          for b in planner.DEFAULT_STEP_BLOCKS))
+                points += [(path, m, b) for m in modes
+                           for b in planner.DEFAULT_STEP_BLOCKS]
+            t0 = time.perf_counter()
+            servers = {pt: lattice_server(cfg, arrays, dict(
+                PATHS[pt[0]][0], refresh_mode=pt[1], step_block=pt[2],
+                refresh_cohorts=1)) for pt in points}
+            warm_s = time.perf_counter() - t0
+            rates = {pt: [] for pt in points}
+            for wave in range(PLANNER_WAVES):
+                for pt in (points if wave % 2 == 0 else points[::-1]):
+                    rates[pt].append(wave_rate(servers[pt], arrays)[0])
+            del servers
+            med = {pt: statistics.median(r) for pt, r in rates.items()}
+            print(f"  lattice servers built and warmed in {warm_s:.1f} s; "
+                  f"captured samples/s, median of {PLANNER_WAVES} alternated "
+                  f"waves:")
+            for pt in points:
+                print(f"    {pt[0]} {pt[1]} step_block {pt[2]}: "
+                      f"{med[pt]:.1f} (" + ", ".join(
+                          f"{x:.1f}" for x in rates[pt]) + ")")
+            for path, plan in plans.items():
+                mine = [pt for pt in points if pt[0] == path]
+                best = max(mine, key=med.get)
+                pick = (path, plan.refresh_mode, plan.step_block)
+                ratio = med[best] / med[pick]
+                print(f"  [{card}] {path}: planner's pick {pick[1]} "
+                      f"step_block {pick[2]} measured {med[pick]:.1f} "
+                      f"samples/s; best {best[1]} step_block {best[2]} "
+                      f"{med[best]:.1f}; best / pick {ratio:.3f} (gate "
+                      f"{planner.GATE_RATIO})")
+                check(ratio <= planner.GATE_RATIO,
+                      f"{path}: the planner's pick is {ratio:.3f}x below the "
+                      f"best measured point")
+            row = {"table": "stream-quant", "t_len": t_max,
+                   "cell": f"S32/Nx{cfg.n_nodes}/W4"}
+            for name, (path, b) in (("fp32", ("fp32", 1)),
+                                    ("int8", ("int8", 1)),
+                                    ("fp32_b4", ("fp32", 4)),
+                                    ("int8_b4", ("int8", 4))):
+                row[f"{name}_samples_per_s"] = med[(path, "incremental", b)]
+            with open(os.path.join(tmp, "BENCH_stream_quant.json"),
+                      "w") as fh:
+                json.dump({"bench": "stream_quant", "rows": [row]}, fh)
+            for r in planner.replay_bench_tables(tmp, cal=cal):
+                print(f"  replay_bench_tables on these rates (incremental, "
+                      f"fp32/int8 x step_block 1/4; the reference's "
+                      f"n_classes=4 pricing): {r}")
+            for path in PATHS:
+                auto = lattice_server(cfg, arrays, dict(
+                    {k: v for k, v in PATHS[path][0].items()}, config="auto"))
+                knobs = dict(PATHS[path][0], refresh_mode=auto.refresh_mode,
+                             step_block=auto.step_block,
+                             refresh_cohorts=auto.cohorts.n_cohorts)
+                explicit = lattice_server(cfg, arrays, knobs)
+                a = dict(srv=auto, done={r.rid: r for r in
+                                         wave_rate(auto, arrays)[1]})
+                b = dict(srv=explicit, done={r.rid: r for r in
+                                             wave_rate(explicit, arrays)[1]})
+                preds, states = same_serving(a, b)
+                print(f"  {path}: config='auto' (plan {auto.plan.knobs()}) "
+                      f"against an explicit server with "
+                      f"{ {k: knobs[k] for k in ('refresh_mode', 'step_block', 'refresh_cohorts')} }: "
+                      f"predictions {'equal' if preds else 'DIFFER'}, final "
+                      f"states {'equal bit for bit' if states else 'DIFFER'}")
+                check(preds and states, f"{path}: config='auto' serves "
+                                        f"another episode")
+                del auto, explicit, a, b
+        finally:
+            del os.environ[planner.CAL_ENV]
+            planner._CAL_CACHE.clear()
+        torch.cuda.empty_cache()
 
 
 def tuned_invariant(res: dict) -> float:
@@ -2683,20 +3119,37 @@ def main() -> int:
     k1_population_phase(cfg, data[0], masking.make_mask(
         torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes, cfg.n_in,
         cfg.dtype))
-    print("[4] main paths: StreamServer on ARAB at full width")
-    launches = {}
-    for path in PATHS:
+    print("[4] main paths: StreamServer on ARAB at full width (fp32, "
+          "int8 and bf16)")
+    launches, main_runs = {}, {}
+    for path in {**PATHS, **BF16_PATHS}:
+        t0 = time.perf_counter()
+        main_runs[path] = res = main_path_phase(card, cfg, arrays, path)
+        if path in BF16_PATHS:
+            print(f"  bf16 path in {time.perf_counter() - t0:.1f} s")
+            continue
         # each kernel reports the launches of the first path it is on
-        for name, count in main_path_phase(card, cfg, arrays, path).items():
-            launches.setdefault(name, count)
+        for name in PATHS[path][1]:
+            launches.setdefault(name, res["launches"][name])
     print("[4b] where the server's time goes (torch.profiler)")
+    profiles = {}
     for path in PATHS:
         for kind in KINDS:
-            profile_phase(card, cfg, arrays, path, kind)
+            profiles[path, kind] = profile_phase(card, cfg, arrays, path,
+                                                 kind)
+    print("[4] the bf16 path beside fp32: one profiled captured wave")
+    t0 = time.perf_counter()
+    profiles["bf16", "captured"] = profile_phase(card, cfg, arrays, "bf16",
+                                                 "captured")
+    bf16_phase(card, main_runs, profiles)
+    print(f"  in {time.perf_counter() - t0:.1f} s")
     print("[4c] captured, eager, and pipelined and blocked rounds, "
           "alternated")
-    for path in PATHS:
+    for path in {**PATHS, **BF16_PATHS}:
+        t0 = time.perf_counter()
         rounds_phase(card, cfg, arrays, path)
+        if path in BF16_PATHS:
+            print(f"  bf16 path in {time.perf_counter() - t0:.1f} s")
     print("[4d] the retirement modes at full width: captured, eager, and "
           "pipelined and blocked rounds, alternated")
     for path in RETIRE_PATHS:
@@ -2706,9 +3159,17 @@ def main() -> int:
     print("[4f] the warm-pool autotuner on phase 4's servers, and the "
           "reference's tuner episode")
     autotuner_phase(card, cfg, arrays)
+    print("[4g] the calibrated planner at full width")
+    t0 = time.perf_counter()
+    planner_phase(card, cfg, arrays)
+    print(f"  phase 4g in {time.perf_counter() - t0:.1f} s")
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)
+    t0 = time.perf_counter()
+    agreement_phase(cfg, arrays, "bf16", n_samples=RETIRE_AGREE_SAMPLES,
+                    agree_min=BF16_AGREE)
+    print(f"  bf16 path in {time.perf_counter() - t0:.1f} s")
     for path in RETIRE_PATHS:
         agreement_phase(cfg, arrays, path, n_samples=RETIRE_AGREE_SAMPLES)
     population_agreement_phase(cfg, data)
@@ -2718,6 +3179,9 @@ def main() -> int:
     print("[6b] the hyperparameter search at full width: grid searches, the "
           "population, the paper's Table 5")
     population_phase(card, cfg, data, fit)
+    t0 = time.perf_counter()
+    checkpoint_phase(card, cfg, data)
+    print(f"  the checkpoint in {time.perf_counter() - t0:.1f} s")
     print("[6c] the paper's memory algorithms at full width: Table 8, Fig. "
           "9, the packed update, the gradient paths, Table 7")
     memory_phase(card, cfg, data, fit)

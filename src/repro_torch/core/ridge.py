@@ -322,7 +322,12 @@ def cholesky_or_nan(B: Tensor) -> Tensor:
     """Lower Cholesky factor of (..., s, s), NaN where a system is not
     positive definite, as ``jnp.linalg.cholesky`` gives it in the reference
     (``torch.linalg.cholesky`` would raise instead, and reading its status
-    would stall the device queue)."""
+    would stall the device queue).  A bf16 B raises: there is no bf16
+    Cholesky, and the reference's XLA Cholesky refuses bf16 too."""
+    if B.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "no bfloat16 Cholesky: factor in float32, or keep a live factor "
+            "(refresh_mode='incremental')")
     C, info = torch.linalg.cholesky_ex(B)
     return torch.where((info == 0)[..., None, None], C,
                        torch.full((), float("nan"), dtype=C.dtype,
@@ -395,10 +400,15 @@ def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0,
     The plain version of K3 and the reference's sample-by-sample sweep
     (``repro.core.ridge.cholupdate_window_t``), batched over the leading
     axes.  Rotation k touches only row k of Lt (its part right of the
-    diagonal) and the tail of x.  Returns a new tensor."""
+    diagonal) and the tail of x.  Returns a new tensor in Lt's dtype.
+
+    A bf16 factor is folded in fp32, as K3 folds it: read into fp32,
+    rotated, and rounded back once at the end.  (The reference folds a
+    bf16 factor in bf16 arithmetic.)"""
     if sign not in (1.0, -1.0):
         raise ValueError(f"sign must be +1 or -1, got {sign!r}")
-    U = Lt.clone()
+    U = Lt.to(torch.float32 if Lt.dtype == torch.bfloat16 else Lt.dtype,
+              copy=True)
     s = U.shape[-1]
     bad_any = torch.zeros(U.shape[:-2], dtype=torch.bool, device=U.device)
     upper = torch.ones(s, s, dtype=torch.bool, device=U.device).triu()
@@ -419,7 +429,7 @@ def cholupdate_window_t(Lt: Tensor, X: Tensor, sign: float = 1.0,
             U[..., k, k] = r
     if flags is not None:
         flags.copy_(bad_any)
-    return U
+    return U.to(Lt.dtype)
 
 
 def ridge_solve_from_factor_t(A: Tensor, Lt: Tensor) -> Tensor:
@@ -432,9 +442,14 @@ def ridge_solve_from_factor_t_batched(A: Tensor, Lt: Tensor) -> Tensor:
     """Refresh from live transposed factors: W~ = A (Lt^T Lt)^-1 for
     A (K, Ny, s), Lt (K, s, s) - two triangular substitutions, no
     factorization.  (The reference runs blocked substitutions in XLA; here
-    ``solve_triangular`` takes both.)"""
+    ``solve_triangular`` takes both.)  A bf16 system is solved in fp32 and
+    returned in A's dtype: ``solve_triangular`` has no bf16 kernel, on the
+    CPU or the card."""
+    dt = A.dtype
+    if dt == torch.bfloat16:
+        A, Lt = A.to(torch.float32), Lt.to(torch.float32)
     Y = torch.linalg.solve_triangular(Lt.mT, A.mT, upper=False)  # Lt^T Y = A^T
-    return torch.linalg.solve_triangular(Lt, Y, upper=True).mT
+    return torch.linalg.solve_triangular(Lt, Y, upper=True).mT.to(dt)
 
 
 def ridge_solve_from_factor(A: Tensor, L: Tensor) -> Tensor:

@@ -60,6 +60,15 @@
 // shared memory.
 // Shared memory: about 4 s (rows + 9) bytes; passes of 8 rows up to
 // s = 3400, fewer above (5 at s = 4096).
+//
+// A bf16 factor folds in one pass (W at most the pass's rows): its rows
+// are read as bf16 (the diagonals into fp32 shared memory, the rest by the
+// same bulk copies at half the bytes), every rotation runs in fp32 as
+// above, and each element is rounded to bf16 once, where it is written -
+// its plain version's fold of the upcast factor, rounded at the end.  More
+// rows would take more passes, each rounding the factor, so the wrapper
+// folds such a window into an fp32 copy instead.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -81,14 +90,28 @@ struct alignas(16) Coef {
 // coefficients of two steps, their two flags, the ring's barriers
 constexpr size_t kHeader = 2 * kChunk * sizeof(Coef) + 16 + 8 * kRing;
 
-// a ring slot: a row's elements from q + 3 on, from the 16-byte boundary
-// at or before it, in whole 16-byte units
-__host__ __device__ constexpr int slot_floats(int s) { return (s + 11) & ~3; }
+// the factor's elements as fp32, whatever their storage type
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
+// a ring slot: a row's elements from q + 3 on, from the 16-byte boundary
+// at or before it, in whole 16-byte units (kVec elements of T)
+template <typename T>
+__host__ __device__ constexpr int slot_elems(int s) {
+  return (s + 3 * (16 / static_cast<int>(sizeof(T))) - 1) &
+         ~(16 / static_cast<int>(sizeof(T)) - 1);
+}
+
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int s, int rows) {
-  return kHeader + sizeof(float) * (static_cast<size_t>(s) * (rows + 3) +
-                                    static_cast<size_t>(kRing) *
-                                        slot_floats(s));
+  return kHeader + sizeof(float) * static_cast<size_t>(s) * (rows + 3) +
+         sizeof(T) * static_cast<size_t>(kRing) * slot_elems<T>(s);
 }
 
 // ---- bulk copies (the tensor memory accelerator) and their barriers ----
@@ -103,7 +126,7 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
 
 // One copy of `bytes` (a multiple of 16, both ends 16-byte aligned) that
 // completes the barrier's current phase when it lands.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, uint64_t* bar) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
@@ -124,19 +147,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // Row q's elements j >= q + 3 as the ring holds them: the copy starts
-// `head` floats before element q + 3, at a 16-byte boundary, and ends at
-// one past the row's end (rows q <= s - 4 only, so inside the factor).
+// `head` elements before element q + 3, at a 16-byte boundary, and ends
+// at the 16-byte boundary at or after one past the row's end (rows
+// q <= s - 4 only, so inside the factor).
+template <typename T>
 struct RowCopy {
-  const float* src;
+  const T* src;
   int head;
   unsigned bytes;
 };
 
-__device__ __forceinline__ RowCopy row_copy(const float* lt, int s, int q) {
-  const float* const first = lt + static_cast<size_t>(q) * s + q + 3;
-  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(first) >> 2) & 3;
+template <typename T>
+__device__ __forceinline__ RowCopy<T> row_copy(const T* lt, int s, int q) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* const first = lt + static_cast<size_t>(q) * s + q + 3;
+  const int head = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(first) / sizeof(T)) & (kVec - 1));
   const int n = s - (q + 3) + head;
-  return {first - head, head, static_cast<unsigned>((n + 3) & ~3) * 4u};
+  return {first - head, head,
+          static_cast<unsigned>((n + kVec - 1) & ~(kVec - 1)) *
+              static_cast<unsigned>(sizeof(T))};
 }
 
 // The rotations of one column for the WC rows of a pass, in stream order,
@@ -221,20 +251,22 @@ __device__ __forceinline__ int first_owned(int jt, int lo) {
   return lo <= jt ? jt : jt + (lo - jt + kTrail - 1) / kTrail * kTrail;
 }
 
+template <typename T>
 struct Smem {
   Coef (*coef)[kChunk];   // [2][kChunk]: steps t and t - 1
   int* cbad;              // [2]: a c of the step outside the divide range
   uint64_t* bar;          // [kRing]: a ring slot's row has landed
-  float *xs, *diag, *sup1, *sup2, *ring;
-  int slot;               // floats a ring slot
+  float *xs, *diag, *sup1, *sup2;
+  T* ring;
+  int slot;               // elements a ring slot
 };
 
 // One pass: the WC sample rows in xs rotated into lt, steps 0 .. s - 1,
 // each after its scale in scg (kScale); the chain ORs the guard's skips
 // into `guard`.
-template <int WC, bool kScale>
-__device__ void fold_pass(float* lt, int s, float sign,
-                          const float* __restrict__ scg, const Smem& sm,
+template <int WC, bool kScale, typename T>
+__device__ void fold_pass(T* lt, int s, float sign,
+                          const float* __restrict__ scg, const Smem<T>& sm,
                           unsigned& phases, bool& guard) {
   const int tid = threadIdx.x;
   const int jt = tid - 32;  // a trailing thread's elements: jt (mod kTrail)
@@ -294,14 +326,14 @@ __device__ void fold_pass(float* lt, int s, float sign,
         for (int r = 0; r < WC; ++r) sm.coef[t & 1][r] = cf[r];
         sm.cbad[t & 1] = cbad;
         sm.diag[t] = dnew;
-        lt[static_cast<size_t>(t) * s + t] = dnew;
+        st(lt + static_cast<size_t>(t) * s + t, dnew);
         if (step_b) {
           sm.sup2[t - 1] = vb;
-          lt[static_cast<size_t>(t - 1) * s + t + 1] = vb;
+          st(lt + static_cast<size_t>(t - 1) * s + t + 1, vb);
         }
         if (next) {
           sm.sup1[t] = vc;
-          lt[static_cast<size_t>(t) * s + t + 1] = vc;
+          st(lt + static_cast<size_t>(t) * s + t + 1, vc);
         }
       }
 #pragma unroll
@@ -315,16 +347,16 @@ __device__ void fold_pass(float* lt, int s, float sign,
       const bool cbad = sm.cbad[q & 1];
       mbar_wait(sm.bar + slot, (phases >> slot) & 1);
       phases ^= 1u << slot;
-      const float* const lrow =
+      const T* const lrow =
           sm.ring + slot * sm.slot + row_copy(lt, s, q).head - (q + 3);
-      float* const grow = lt + static_cast<size_t>(q) * s;
+      T* const grow = lt + static_cast<size_t>(q) * s;
       for (int j = first_owned(jt, t + 2); j < s; j += 2 * kTrail) {
         // two elements at once; past the end, j again (not stored)
         const int j1 = j + kTrail < s ? j + kTrail : j;
         float xa[WC], xb[WC];
         load_column<WC>(sm.xs, s, j, xa);
         load_column<WC>(sm.xs, s, j1, xb);
-        const float va0 = lrow[j], vb0 = lrow[j1];
+        const float va0 = ld(lrow + j), vb0 = ld(lrow + j1);
         bool bad = cbad;
         float va = rotate<WC, false, kScale>(va0, xa, xa, cf, sc, bad);
         float vb = rotate<WC, false, kScale>(vb0, xb, xb, cf, sc, bad);
@@ -336,11 +368,11 @@ __device__ void fold_pass(float* lt, int s, float sign,
         }
 #pragma unroll
         for (int r = 0; r < WC; ++r) sm.xs[r * s + j] = xa[r];
-        grow[j] = va;
+        st(grow + j, va);
         if (j1 != j) {
 #pragma unroll
           for (int r = 0; r < WC; ++r) sm.xs[r * s + j1] = xb[r];
-          grow[j1] = vb;
+          st(grow + j1, vb);
         }
       }
     }
@@ -352,10 +384,11 @@ __device__ void fold_pass(float* lt, int s, float sign,
 
 // Every pass of one factor: the sample rows in passes of `rows`, each
 // pass's scales from scg (kScale).
-template <bool kScale>
-__device__ void fold_all(float* lt, const float* __restrict__ xg,
+template <bool kScale, typename T>
+__device__ void fold_all(T* lt, const float* __restrict__ xg,
                          const float* __restrict__ scg, int s, int w,
-                         int rows, float sign, const Smem& sm, bool& guard) {
+                         int rows, float sign, const Smem<T>& sm,
+                         bool& guard) {
   const int tid = threadIdx.x;
   unsigned phases = 0;  // bit i: the parity of ring slot i's next phase
   for (int w0 = 0; w0 < w; w0 += rows) {
@@ -365,44 +398,45 @@ __device__ void fold_all(float* lt, const float* __restrict__ xg,
     __syncthreads();
     const float* const sc = kScale ? scg + w0 : nullptr;
     switch (wc) {  // uniform across the block
-      case 1: fold_pass<1, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 2: fold_pass<2, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 3: fold_pass<3, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 4: fold_pass<4, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 5: fold_pass<5, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 6: fold_pass<6, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      case 7: fold_pass<7, kScale>(lt, s, sign, sc, sm, phases, guard); break;
-      default: fold_pass<8, kScale>(lt, s, sign, sc, sm, phases, guard); break;
+      case 1: fold_pass<1, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 2: fold_pass<2, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 3: fold_pass<3, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 4: fold_pass<4, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 5: fold_pass<5, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 6: fold_pass<6, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      case 7: fold_pass<7, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
+      default: fold_pass<8, kScale, T>(lt, s, sign, sc, sm, phases, guard); break;
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cholupdate_kernel(float* Lt, const float* __restrict__ X,
+cholupdate_kernel(T* Lt, const float* __restrict__ X,
                   const float* __restrict__ scale, int* __restrict__ flags,
                   int s, int w, int rows, float sign) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Smem sm;
+  Smem<T> sm;
   sm.coef = reinterpret_cast<Coef(*)[kChunk]>(smem);
   sm.cbad = reinterpret_cast<int*>(smem + 2 * kChunk * sizeof(Coef));
   sm.bar = reinterpret_cast<uint64_t*>(smem + 2 * kChunk * sizeof(Coef) + 16);
-  sm.slot = slot_floats(s);
-  sm.ring = reinterpret_cast<float*>(smem + kHeader);  // 16-byte aligned
-  sm.xs = sm.ring + kRing * sm.slot;
+  sm.slot = slot_elems<T>(s);
+  sm.ring = reinterpret_cast<T*>(smem + kHeader);  // 16-byte aligned
+  sm.xs = reinterpret_cast<float*>(sm.ring + kRing * sm.slot);
   sm.diag = sm.xs + static_cast<size_t>(rows) * s;
   sm.sup1 = sm.diag + s;
   sm.sup2 = sm.sup1 + s;
   const int tid = threadIdx.x;
   if (tid < kRing) mbar_init(sm.bar + tid);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  float* const lt = Lt + static_cast<size_t>(blockIdx.x) * s * s;
+  T* const lt = Lt + static_cast<size_t>(blockIdx.x) * s * s;
   const float* const xg = X + static_cast<size_t>(blockIdx.x) * w * s;
 
   for (int k = tid; k < s; k += kThreads) {
-    const float* const row = lt + static_cast<size_t>(k) * s + k;
-    sm.diag[k] = row[0];
-    sm.sup1[k] = k + 1 < s ? row[1] : 0.0f;
-    sm.sup2[k] = k + 2 < s ? row[2] : 0.0f;
+    const T* const row = lt + static_cast<size_t>(k) * s + k;
+    sm.diag[k] = ld(row);
+    sm.sup1[k] = k + 1 < s ? ld(row + 1) : 0.0f;
+    sm.sup2[k] = k + 2 < s ? ld(row + 2) : 0.0f;
   }
   bool guard = false;  // the chain's: a rotation the guard skipped
   if (scale != nullptr)  // uniform across the grid
@@ -413,29 +447,55 @@ cholupdate_kernel(float* Lt, const float* __restrict__ X,
   if (flags != nullptr && tid == 0) flags[blockIdx.x] = guard;
 }
 
-}  // namespace
-
-// scale (n_sys, w) and flags (n_sys,) may be null: no scaling, no flags.
-extern "C" int dfr_cholupdate_window_t(float* Lt, const float* X,
-                                       const float* scale, int* flags,
-                                       int n_sys, int s, int w, float sign,
-                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// the sample rows a pass folds for factors of s, and its shared memory
+template <typename T>
+int pass_rows(int s) {
   int rows = kChunk;
-  while (rows > 1 && smem_bytes(s, rows) > kMaxSmem) --rows;
-  const size_t smem = smem_bytes(s, rows);
+  while (rows > 1 && smem_bytes<T>(s, rows) > kMaxSmem) --rows;
+  return rows;
+}
+
+template <typename T>
+int launch(T* Lt, const float* X, const float* scale, int* flags, int n_sys,
+           int s, int w, float sign, cudaStream_t stream) {
+  const int rows = pass_rows<T>(s);
+  const size_t smem = smem_bytes<T>(s, rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(cholupdate_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        cholupdate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cholupdate_kernel<<<n_sys, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  cholupdate_kernel<T><<<n_sys, kThreads, smem, stream>>>(
       Lt, X, scale, flags, s, w, rows, sign);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The sample rows one pass folds into factors of s (bf16: whether a window
+// of W rows folds in one pass, which a bf16 factor needs).
+extern "C" int dfr_cholupdate_pass_rows(int s, int bf16) {
+  return bf16 ? pass_rows<__nv_bfloat16>(s) : pass_rows<float>(s);
+}
+
+// Lt is float, or bf16 when bf16 != 0 (then w at most the pass's rows).
+// scale (n_sys, w) and flags (n_sys,) may be null: no scaling, no flags.
+extern "C" int dfr_cholupdate_window_t(void* Lt, const float* X,
+                                       const float* scale, int* flags,
+                                       int n_sys, int s, int w, float sign,
+                                       int bf16, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (!bf16)
+    return launch(static_cast<float*>(Lt), X, scale, flags, n_sys, s, w,
+                  sign, strm);
+  if (w > pass_rows<__nv_bfloat16>(s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(static_cast<__nv_bfloat16*>(Lt), X, scale, flags, n_sys, s,
+                w, sign, strm);
 }
 
 extern "C" const char* dfr_error_string(int err) {

@@ -32,6 +32,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ridge_solve as kridge
 from repro_torch.kernels._build import resolve_backend
 from repro_torch.kernels.cholupdate import cholupdate_window_t_cuda
+from repro_torch.kernels.cholupdate import pass_rows as cholupdate_pass_rows
 from repro_torch.kernels.dprr import dprr_features_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.reservoir import reservoir_states_cuda
@@ -354,7 +355,14 @@ def cholupdate_window_t(
     int32) receives, per factor, whether the downdate guard skipped any
     rotation.  ``out`` (contiguous, Lt's shape) receives the result and may
     be ``Lt`` itself: the stream server folds its (S, s, s) factors in
-    place."""
+    place.
+
+    A bf16 factor is folded in fp32 and rounded to bf16 once, as K3's
+    plain version folds it: K3 reads and writes it as bf16 when the window
+    fits one of its passes (``kernels.cholupdate.pass_rows``; 8 rows at
+    s = 931); a longer window is folded into an fp32 copy, rounded back
+    into ``out`` at the end (the copy a temporary: under a graph capture it
+    lives in the graph's pool)."""
     be = resolve_backend(backend, Lt)
     *lead, s, s2 = Lt.shape
     w = X.shape[-2]
@@ -377,14 +385,21 @@ def cholupdate_window_t(
                                              flags=flags)
         return res if out is None else out.copy_(res)
     k = int(torch.Size(lead).numel())
-    if out is None:
-        out = Lt.clone(memory_format=torch.contiguous_format)
-    elif out.data_ptr() != Lt.data_ptr():
-        out.copy_(Lt)
+    if Lt.dtype == torch.bfloat16 and w > cholupdate_pass_rows(s, True):
+        U = _flat(Lt, (k, s, s), torch.float32)
+    else:
+        if out is None:
+            out = Lt.clone(memory_format=torch.contiguous_format)
+        elif out.data_ptr() != Lt.data_ptr():
+            out.copy_(Lt)
+        U = out
     cholupdate_window_t_cuda(
-        out.view(k, s, s), _flat(X, (k, w, s), torch.float32), sign,
+        U.view(k, s, s), _flat(X, (k, w, s), torch.float32), sign,
         scale=None if scale is None else _flat(scale, (k, w), torch.float32),
         flags=None if flags is None else flags.view(k))
+    if U is not out:
+        U = U.view(Lt.shape).to(Lt.dtype)
+        out = U if out is None else out.copy_(U)
     return out
 
 

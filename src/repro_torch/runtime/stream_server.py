@@ -57,6 +57,7 @@ from repro_torch.core.types import (DFRConfig, RequestPool, RidgeState,
                                     resolve_device, unported)
 from repro_torch.kernels import ops
 from repro_torch.runtime.graphs import PinnedRing, RoundGraphs, run_if
+from repro_torch.runtime.planner import Planner
 from repro_torch.runtime.scheduler import RefreshCohorts, SlotScheduler
 
 
@@ -416,9 +417,22 @@ class StreamServer:
     ``attach_autotuner`` takes a ``runtime.autotuner.WarmPoolAutotuner``,
     which the server calls after each round.
 
-    Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``devices > 1``, ``config='auto'`` and a non-float32
-    ``cfg.dtype``.
+    ``config='auto'`` fills ``refresh_mode``, ``refresh_cohorts``,
+    ``step_block`` and ``chunk_t``, where the caller left them unset, from
+    ``runtime.planner.Planner.search()`` (kept as ``self.plan``): the
+    calibrated cost model of the server's device, measured once per device
+    into ``.planner_calibration_torch.json``.  The planner does not see
+    ``cfg.dtype``, as in the reference.
+
+    ``cfg.dtype`` may be float32 or bfloat16.  A bf16 server keeps its
+    state, its staged pool and its window batches in bf16, as the
+    reference's; the kernels compute in fp32 and return bf16 (K3 folds a
+    bf16 factor in fp32), and the int8 scales stay fp32.  bf16 needs
+    ``refresh_mode='incremental'``: there is no bf16 Cholesky for the
+    recompute refresh, in either package.
+
+    Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+    item: ``devices > 1``.
     """
 
     def __init__(
@@ -455,8 +469,26 @@ class StreamServer:
     ):
         if config not in (None, "auto"):
             raise ValueError(f"unknown config: {config!r} (None or 'auto')")
+        self.device = resolve_device(device, "StreamServer")
+        # config='auto': the calibrated planner (runtime.planner) fills the
+        # performance knobs left unset; explicit knobs win, and retirement,
+        # quantize, staging and devices are constraints, never choices
+        self.plan = None
         if config == "auto":
-            raise unported("config='auto'", "Planner")
+            self.plan = Planner(
+                cfg.n_nodes, max_streams, window, t_max,
+                n_classes=cfg.n_classes, refresh_every=refresh_every,
+                retirement=retirement, quantize=quantize, staging=staging,
+                device=self.device,
+            ).search()
+            if refresh_mode is None:
+                refresh_mode = self.plan.refresh_mode
+            if refresh_cohorts is None:
+                refresh_cohorts = self.plan.refresh_cohorts
+            if step_block is None:
+                step_block = self.plan.step_block
+            if chunk_t is None:
+                chunk_t = self.plan.chunk_t
         refresh_mode = "recompute" if refresh_mode is None else refresh_mode
         if refresh_mode not in ("recompute", "incremental"):
             raise ValueError(f"unknown refresh_mode: {refresh_mode!r}")
@@ -495,8 +527,15 @@ class StreamServer:
             raise ValueError(f"devices must be >= 1, got {devices!r}")
         if devices > 1:
             raise unported("devices > 1", "Multi-device")
-        if cfg.dtype != torch.float32:
-            raise unported(f"cfg.dtype={cfg.dtype}", "bf16")
+        if cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"cfg.dtype must be float32 or bfloat16, got "
+                             f"{cfg.dtype}")
+        if cfg.dtype == torch.bfloat16 and refresh_mode == "recompute":
+            raise ValueError(
+                "a bfloat16 cfg.dtype needs refresh_mode='incremental': the "
+                "recompute refresh factors B + beta I, and there is no bf16 "
+                "Cholesky (the reference's XLA Cholesky refuses bf16 too, at "
+                "its first refresh)")
         if staging not in ("device", "host"):
             raise ValueError(f"unknown staging: {staging!r}")
         if quantize == "int8" and staging != "device":
@@ -512,7 +551,6 @@ class StreamServer:
                 f"latency_window must be >= 1, got {latency_window!r}")
         if chunk_t is not None and chunk_t < 1:
             raise ValueError(f"chunk_t must be None or >= 1, got {chunk_t!r}")
-        self.device = resolve_device(device, "StreamServer")
         del donate, chunk_t  # see the docstring
 
         self.cfg = cfg
@@ -621,6 +659,8 @@ class StreamServer:
         if cap > self.pool.capacity:
             self._grow_pool(cap)
         cap = self.pool.capacity
+        # numpy has no bf16: stage in float32 and round once on upload
+        # (to nearest even, as the reference's ml_dtypes staging rounds)
         u = np.zeros((cap, self.t_max, self.cfg.n_in), np.float32)
         u[: req.n_samples] = req.u
         length = np.ones((cap,), np.int32)
@@ -629,7 +669,8 @@ class StreamServer:
         label[: req.n_samples] = req.label
         dev = self.device
         self._staged[id(req)] = (
-            torch.from_numpy(u).to(dev), torch.from_numpy(length).to(dev),
+            torch.from_numpy(u).to(dev, self.cfg.dtype),
+            torch.from_numpy(length).to(dev),
             torch.from_numpy(label).to(dev), req.n_samples, cap,
         )
 
@@ -849,6 +890,7 @@ class StreamServer:
             u, length, label, weight = (
                 torch.from_numpy(a).to(self.device)
                 for a in (u, length, label, weight))
+            u, weight = u.to(self.cfg.dtype), weight.to(self.cfg.dtype)
 
         self.states, preds, armed = _step_core(
             self.cfg, self.mask, self.states, self._fresh_row, fresh_rows,

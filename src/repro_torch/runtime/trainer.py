@@ -2,16 +2,15 @@
 
 The counterpart of ``PopulationTrainerConfig`` and ``PopulationTrainer`` in
 ``repro.runtime.trainer``.  The LM ``Trainer`` of that module is not ported
-yet (ROADMAP Queue 1, 'LM optimizers, Trainer and launch'), and neither is
-saving the winning member (``ckpt_dir``, 'Checkpoints').
+yet (ROADMAP Queue 1, 'LM optimizers, Trainer and launch').
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import population
-from repro_torch.core.types import unported
 from repro_torch.data.timeseries import RegressionBatch
 
 
@@ -25,7 +24,7 @@ class PopulationTrainerConfig:
     minibatch: int = 4
     survive_frac: float = 0.5
     jitter: float = 0.15
-    ckpt_dir: Optional[str] = None  # save the winning member (not ported)
+    ckpt_dir: Optional[str] = None  # save the winning member when set
 
 
 class PopulationTrainer:
@@ -34,11 +33,12 @@ class PopulationTrainer:
     batch type: ``data.RegressionBatch`` pairs run the NRMSE regression
     path, ``TimeSeriesBatch`` pairs the classification path.  ``device``
     (and any other ``train_population`` keyword) passes through ``fit``'s
-    overrides."""
+    overrides.  With ``ckpt_dir`` set, the winning member's parameters are
+    saved there (``checkpoint.CheckpointManager``, keep 1, step = rounds)
+    with its scores and hyperparameters as metadata, as the reference
+    saves them."""
 
     def __init__(self, cfg: PopulationTrainerConfig):
-        if cfg.ckpt_dir is not None:
-            raise unported("PopulationTrainer(ckpt_dir=...)", "Checkpoints")
         self.cfg = cfg
         self.metrics_log: list = []
 
@@ -59,4 +59,17 @@ class PopulationTrainer:
         kwargs.update(overrides)
         result = runner(dfr_cfg, train, evalb, **kwargs)
         self.metrics_log = list(result.history)
+        if self.cfg.ckpt_dir is not None:
+            ckpt = CheckpointManager(self.cfg.ckpt_dir, keep=1)
+            ckpt.save(
+                result.best_params,
+                step=kwargs["rounds"],
+                metadata={
+                    "best_nrmse": result.best_nrmse,
+                    "best_acc": result.best_acc,
+                    "best_beta": result.best_beta,
+                    "best_p": result.best_p,
+                    "best_q": result.best_q,
+                },
+            )
         return result

@@ -1373,3 +1373,169 @@ def test_packed_update_matches_k3_at_931(dev):
         ridge.cholupdate_packed(P, row, s)
     want = ops.cholupdate_window_t(Lt, X, 1.0, backend="cuda")[0]
     _assert_factor_close(ridge.unpack_lower(P, s).T, want)
+
+
+# -- bf16 operands, the planner's calibration, checkpoints -------------------
+
+
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)   # one bf16 step of the output
+
+
+def _bf16(*ts):
+    return [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ts]
+
+
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+def test_k1_k2_bf16_operands_match_plain(dev, n_sys, b, t, nx, ny):
+    """K1 and K2 on bf16 operands: the wrapper upcasts, the kernel computes
+    in fp32 and the result is rounded to bf16 once, as the plain version's;
+    the two fp32 results differ in their last bits, so the bf16 outputs are
+    one bf16 step apart at most."""
+    j, lens, p, q, W, bias = _bf16(*_operands(dev, n_sys, b, t, nx, ny, 11))
+    f = Nonlinearity("linear", 1.0)
+    got = ops.train_forward(j, lens, p, q, nx, f=f, backend="cuda")
+    want = ops.train_forward(j, lens, p, q, nx, f=f, backend="torch")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), **BF16_TOL)
+    got = ops.streaming_logits_slots(j, lens, p, q, W, bias, nx, f=f,
+                                     backend="cuda")
+    want = ops.streaming_logits_slots(j, lens, p, q, W, bias, nx, f=f,
+                                      backend="torch")
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+def test_k5_bf16_inputs_match_plain_bit_for_bit(dev, n_sys, b, t, nx, ny):
+    """K5 on a bf16 window: fp32 logits, and int32 accumulators equal to the
+    plain version's."""
+    j, lens, p, q, Wq, ws, xs, bias = _q8_operands(dev, n_sys, b, t, nx, ny,
+                                                   12)
+    j = j.to(torch.bfloat16)
+    f = Nonlinearity("linear", 1.0)
+    got, acc = ops.streaming_logits_slots_q8(
+        j, lens, p, q, Wq, ws, xs, bias, nx, f=f, backend="cuda",
+        return_acc=True)
+    want, want_acc = ops.streaming_logits_slots_q8(
+        j, lens, p, q, Wq, ws, xs, bias, nx, f=f, backend="torch",
+        return_acc=True)
+    assert got.dtype == torch.float32
+    assert torch.equal(acc, want_acc)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+# one pass (K3 reads and writes the bf16 factor: W <= 8) and several (W of
+# 9 and 17: folded into an fp32 copy), s up to 4096
+@pytest.mark.parametrize("w,s", [(1, 31), (4, 931), (9, 200), (17, 31),
+                                 (4, 4096)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_k3_bf16_factor_bit_for_bit(dev, w, s, sign):
+    """K3 on a bf16 factor (folded in fp32 and rounded once), with the
+    forget scale and with guard flags, in place: bit for bit equal to its
+    plain version, flags too."""
+    Lt, X = _k3_operands(dev, 3, w, s, seed=13)
+    Lt, X = Lt.to(torch.bfloat16), X.to(torch.bfloat16)
+    if sign < 0:
+        X[1, -1] = 0.0
+        X[1, -1, s // 2] = 3.0 * Lt[1, s // 2, s // 2].float()
+    scale = torch.where(X.float().abs().sum(-1) > 0, 0.95 ** 0.5, 1.0).to(
+        torch.float32)
+    for sc in (None, scale):
+        flags = torch.zeros(3, dtype=torch.int32, device=dev)
+        plain_flags = flags.clone()
+        out = Lt.clone()
+        ops.cholupdate_window_t(out, X, sign, scale=sc, flags=flags,
+                                out=out, backend="cuda")
+        want = ops.cholupdate_window_t(Lt, X, sign, scale=sc,
+                                       flags=plain_flags, backend="torch")
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, want)
+        assert torch.equal(flags, plain_flags)
+
+
+def test_k3_bf16_route_takes_one_pass(dev):
+    """The launcher takes a bf16 factor only for a window of one pass (8
+    rows up to s = 4096); the wrapper folds a longer one into an fp32
+    copy."""
+    assert k_cholupdate.pass_rows(931, True) == 8
+    assert k_cholupdate.pass_rows(4096, True) == 8
+    Lt, X = _k3_operands(dev, 2, 9, 64, seed=3)
+    with pytest.raises(ValueError, match="rows a launch"):
+        k_cholupdate.cholupdate_window_t_cuda(Lt.to(torch.bfloat16), X, 1.0)
+    n = k_cholupdate.KERNEL.launches
+    k_cholupdate.cholupdate_window_t_cuda(Lt.to(torch.bfloat16),
+                                          X[:, :8].contiguous(), 1.0)
+    assert k_cholupdate.KERNEL.launches == n + 1
+
+
+def test_bf16_server_captured_is_the_eager_episode(dev):
+    """A bf16 server (incremental, and int8) on the card: the captured and
+    the pipelined, blocked rounds serve the eager round's episode bit for
+    bit, with bf16 state."""
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=8, dtype=torch.bfloat16)
+    for kw in (dict(refresh_mode="incremental"),
+               dict(refresh_mode="incremental", quantize="int8")):
+        runs = []
+        for eager, extra in ((True, {}), (False, {}),
+                             (False, dict(pipeline_depth=2, step_block=2))):
+            rng = np.random.default_rng(0)
+            mask = np.sign(rng.normal(size=(8, 2))).astype(np.float32)
+            srv = StreamServer(cfg, t_max=16, max_streams=3, window=2,
+                               phase_steps=2, refresh_every=3, mask=mask,
+                               device="cuda", **kw, **extra)
+            if eager:
+                srv._graphs = None
+            for rid, n in enumerate((12, 6, 10, 4, 9)):
+                r = np.random.default_rng(rid)
+                srv.submit(StreamRequest(
+                    rid=rid, u=r.normal(size=(n, 16, 2)).astype(np.float32),
+                    length=r.integers(4, 17, n).astype(np.int32),
+                    label=r.integers(0, 3, n).astype(np.int32)))
+            srv.run_until_drained(strict=True)
+            assert srv.states.ridge.Lt.dtype == torch.bfloat16
+            runs.append(srv)
+        assert runs[1]._graphs.replays > 0
+        for srv in runs[1:]:
+            _assert_same_serving(srv, runs[0])
+
+
+def test_calibration_on_the_card(dev, tmp_path):
+    """calibrate() on the card: every coefficient positive and finite, the
+    fingerprint naming the card; get_calibration publishes it and reads it
+    back without measuring again."""
+    from repro_torch.runtime import planner
+
+    cal = planner.calibrate(device=dev)
+    for name in ("c_dispatch", "c_flop", "c_byte", "c_rot", "c_sub",
+                 "c_chol", "c_quant"):
+        v = getattr(cal, name)
+        assert np.isfinite(v) and v > 0, name
+    assert cal.backend == "cuda"
+    assert cal.fingerprint["device"] == torch.cuda.get_device_name(0)
+    assert cal.fingerprint["power_limit"]
+    path = str(tmp_path / "cal.json")
+    planner._CAL_CACHE.pop(path, None)
+    first = planner.get_calibration(path)
+    planner._CAL_CACHE.pop(path, None)
+    assert planner.get_calibration(path) == first
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    """A tree saved from the CPU restores onto the card equal, bf16 too."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"p": DFRParams(p=torch.tensor(0.3), q=torch.tensor(-0.2),
+                           W=torch.randn(10, 930, generator=g),
+                           b=torch.randn(10, generator=g)),
+            "emb": torch.randn(7, 5, generator=g).to(torch.bfloat16),
+            "step": torch.tensor(4, dtype=torch.int32)}
+    save_checkpoint(tmp_path / "ck", tree, step=3)
+    got, step, _ = restore_checkpoint(tmp_path / "ck", tree)
+    assert step == 3
+    assert got["p"].W.device.type == "cuda"
+    for a, b in ((got["p"].p, tree["p"].p), (got["p"].W, tree["p"].W),
+                 (got["p"].b, tree["p"].b), (got["emb"], tree["emb"]),
+                 (got["step"], tree["step"])):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

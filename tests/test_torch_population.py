@@ -525,6 +525,25 @@ def test_population_trainer_regression_path():
     assert result.history == direct.history
 
 
-def test_population_trainer_checkpoints_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PopulationTrainer(PopulationTrainerConfig(ckpt_dir="ckpt"))
+def test_population_trainer_checkpoints_not_ported(tmp_path):
+    """``ckpt_dir`` as the reference's test_population_trainer_runtime_
+    wrapper holds it (tests/test_torch_checkpoint.py holds the format): the
+    winning member is saved with its scores and restores to the same
+    parameters."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    train, test = make_narma10(n_train=120, n_test=60, t_len=24, seed=0)
+    cfg = DFRConfig(n_in=1, n_classes=1, n_nodes=6)
+    pt = PopulationTrainer(PopulationTrainerConfig(
+        divs=2, rounds=1, steps_per_round=1, minibatch=16,
+        ckpt_dir=str(tmp_path / "pop_ckpt")))
+    result = pt.fit(cfg, train, test, seed=0, device="cpu")
+    assert len(pt.metrics_log) == 2
+    restored = CheckpointManager(tmp_path / "pop_ckpt").restore_latest(
+        result.best_params, device="cpu")
+    assert restored is not None
+    tree, step, meta = restored
+    assert step == 1
+    assert torch.equal(tree.W, result.best_params.W)
+    assert float(tree.p) == float(result.best_params.p)
+    assert meta["best_nrmse"] == pytest.approx(result.best_nrmse)

@@ -149,18 +149,46 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("kw", [
     {"devices": 2},
-    {"config": "auto"},
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamServer(CFG, t_max=16, device="cpu", **kw)
 
 
+def test_config_auto_plans_the_unset_knobs(monkeypatch):
+    """config='auto' is ported (tests/test_torch_planner.py): the unset
+    knobs come from the planner's search on the server's calibration,
+    explicit ones win."""
+    from repro_torch.runtime import planner
+
+    cal = planner.Calibration(
+        c_dispatch=1e-3, c_flop=1e-9, c_byte=1e-9, c_rot=1e-12, c_sub=1e-9,
+        c_chol=1e-6, c_quant=1e-9)
+    monkeypatch.setattr(planner, "get_calibration", lambda *a, **k: cal)
+    srv = StreamServer(CFG, t_max=16, device="cpu", config="auto")
+    assert (srv.refresh_mode, srv.step_block) == ("incremental", 8)
+    assert srv.plan.knobs()["refresh_mode"] == "incremental"
+    srv = StreamServer(CFG, t_max=16, device="cpu", config="auto",
+                       step_block=2, refresh_mode="recompute")
+    assert (srv.refresh_mode, srv.step_block) == ("recompute", 2)
+
+
 def test_unported_dtype_and_autotuner_raise():
-    # the autotuner is ported (tests/test_torch_autotuner.py); bf16 is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamServer(DFRConfig(n_in=2, n_classes=3, n_nodes=8,
-                               dtype=torch.bfloat16), t_max=16, device="cpu")
+    """bf16 and the autotuner are ported (tests/test_torch_bf16.py,
+    tests/test_torch_autotuner.py): a bf16 server serves in bf16 with the
+    incremental refresh and refuses the recompute refresh (no bf16
+    Cholesky, in either package)."""
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="incremental"):
+        StreamServer(cfg, t_max=16, device="cpu")
+    srv = StreamServer(cfg, t_max=16, device="cpu",
+                       refresh_mode="incremental", max_streams=2, window=2,
+                       phase_steps=1, refresh_every=2)
+    u, length, label = _stream_arrays(6, seed=0)
+    srv.submit(StreamRequest(rid=0, u=u, length=length, label=label))
+    (done,) = srv.run_until_drained()
+    assert len(done.preds) == 6
+    assert srv.states.ridge.Lt.dtype == srv.pool.u.dtype == torch.bfloat16
 
 
 def test_int8_needs_device_staging():
