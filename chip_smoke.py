@@ -132,6 +132,19 @@ Phases, each fatal on failure:
      plan's; the same rates through replay_bench_tables from a temporary
      directory (printed); and a config='auto' server of each path serving
      what an explicit server with its plan's knobs serves, bit for bit.
+  4h. Multi-device serving on one card: phase 4's fp32, int8 and window
+     servers (each captured) split into 2 and 4 slot blocks on a mesh that
+     repeats cuda:0, each block replaying its own graphs, every kernel of
+     the path launched its count a round in each block; each run held
+     against the one-block captured run bit for bit, or, for a path that
+     runs a batched library call found to round differently for a batch
+     of S/N than within one of S (a probe of the round's calls at phase
+     4's shapes prints which), to the server parity limits (SERVE_TOL,
+     SERVE_AGREE; int8 codes within one); fp32 pipelined and blocked on 2
+     blocks likewise; samples/s for 1, 2 and 4 blocks (on one card,
+     overhead, not scaling).  With two cards, 2 blocks on the default mesh
+     with each block's tensors on its own card; with one, a line says real
+     placement was not exercised.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
      first 800 ARAB samples, same widths) served on the card and on the CPU;
      each retirement path on the first 400, and the bf16 path on the first
@@ -203,6 +216,17 @@ Phases, each fatal on failure:
      since decode attention is plain in both packages.  One wave of 8 short
      requests under torch.profiler: the device's busy share of the decode
      steps, their launches a step, the top kernels and host ops.
+  8b. The LM-feature readout at full width: smollm-135m's trunk (K8 once
+     a layer) turns a synthetic token task (examples_torch/lm_readout.py's
+     recipe, 1024 sequences of 64 tokens) into (B, T, 576) hidden states;
+     DistributedDFRReadout (Nx = 30, s = 931) accumulates (K6, K7), solves
+     at beta 1e-2 (the blocked solve, K4a, K4b), predicts and takes an SGD
+     step (K1) on the card, launch counts set to 0 before and read after;
+     against the same readout on the CPU (W within the larger of 2e-4 and
+     the float64 W's move under a 1e-6 relative perturbation of B,
+     predictions equal on 0.98); then two gloo ranks on the card, one
+     process each, each with half the batch and one all_reduce of (A, B):
+     both ranks' W equal, within the same limit of one rank's.
   9. Card against CPU for the LM at full width: a prefill of B=2, T=256
      (|dlogits| <= 1e-3 max |logits| in fp32, 2e-2 in bf16, argmax equal
      in both) and the Server on 4 requests (greedy tokens equal on >= 0.98
@@ -240,11 +264,14 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dfr_paper import paper_dfr_config  # noqa: E402
 from repro_torch.core import backprop, dprr, masking, ridge  # noqa: E402
 from repro_torch.core.dfr import DFRModel  # noqa: E402
 from repro_torch.core.online import OnlineDFR  # noqa: E402
+from repro_torch.core.readout import (DistributedDFRReadout,  # noqa: E402
+                                      ReadoutConfig)
 from repro_torch.core.types import (DFRConfig, TimeSeriesBatch,  # noqa: E402
                                     map_leaves)
 from repro_torch.data import (drift_segment_bounds, load,  # noqa: E402
@@ -532,6 +559,36 @@ MEM_UPDATE_REL = 1e-5
 MEM_GRAD_SAMPLES = 256
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)     # the truncated paths
 FULL_WB_TOL = dict(rtol=1e-4, atol=1e-6)  # full BPTT's W and b
+# phase 4h: phase 4's servers split into blocks of a slot mesh that repeats
+# cuda:0, each held against its one-block run; on one card more blocks add
+# dispatch work and overlap nothing, so their samples/s measure overhead
+SHARD_BLOCKS = (2, 4)
+SHARD_PATHS = ("fp32", "int8", "window")
+# a path that runs a batched library call which rounds differently for a
+# batch of S/N than for one of S is held to the server's parity limits
+# (tests/test_torch_stream_server.py) instead of bit for bit
+SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+SERVE_AGREE = 0.98
+# the batched library calls of a round, at phase 4's shapes, and the paths
+# that run each: the (A, B) products, the recompute refresh's factorization,
+# the refreshes' triangular solves, and one per-slot reduction
+BATCH_CALLS = {"bmm dA": ("fp32", "int8", "window"),
+               "bmm dB": ("fp32", "int8", "window"),
+               "cholesky_ex": ("fp32",),
+               "solve_triangular": ("fp32", "int8", "window"),
+               "sum over a slot's window": ("fp32", "int8", "window")}
+# phase 8b: smollm-135m's hidden states of a synthetic token task
+# (examples_torch/lm_readout.py:synth_task) through DistributedDFRReadout
+# at the paper's Nx; more sequences than s = 931 keep B + beta I
+# well-posed.  W is held to READOUT_REL of max |W|, or to the spread two
+# fp32 solves of the system may show (fp64_sensitivity) where larger
+READOUT_TASK = dict(n=1024, seq=64, classes=4)
+READOUT_NODES = 30
+READOUT_BETA = 1e-2
+READOUT_REL = 2e-4
+READOUT_AGREE = 0.98
+READOUT_ON_PATH = ("K1 train_forward", "K6 reservoir_states",
+                   "K7 dprr_features", "K4a chol_tile", "K4b trsm_tile")
 
 
 class SmokeFailure(RuntimeError):
@@ -1251,8 +1308,16 @@ def serve(cfg, streams, t_max, per_stream, max_streams, device, **kw):
     return srv, {r.rid: r for r in done}
 
 
+def graph_calls(srv) -> tuple:
+    """(graph replays, eager bodies, whether any block captures) summed
+    over the server's blocks."""
+    graphs = [blk.graphs for blk in srv.blocks if blk.graphs is not None]
+    return (sum(g.replays for g in graphs),
+            sum(g.eager_calls for g in graphs), bool(graphs))
+
+
 def serving_run(cfg, arrays, path: str, kind: str, profile=None,
-                tuner=None) -> dict:
+                tuner=None, devices: int = 1, device="cuda") -> dict:
     """One full-width ARAB server of ``path`` (see PATHS) and ``kind`` (see
     KINDS) serving two waves of the same 64 streams on its 32 slots.  The
     first is the warm-up: each kernel's first load, the libraries' set-up
@@ -1265,7 +1330,10 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
     returned with its stats.  The peak memory is the server's over both
     waves, above what the process held before it: allocated, and reserved
     (the graphs' pool is reserved, and a replay allocates nothing).  Each
-    wave starts from a collected heap."""
+    wave starts from a collected heap.  ``devices`` splits the slots into
+    that many blocks on a mesh that repeats ``device`` (None: the default
+    mesh, the first ``devices`` cards); graph replays and eager bodies are
+    summed over the blocks."""
     cfg, knobs = path_config(cfg, path)
     knobs = {**knobs, **KINDS[kind]}
     t_max = arrays[0].shape[1]
@@ -1273,7 +1341,7 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
     knobs = window_capacity(knobs, per_stream)
     srv = StreamServer(cfg, t_max=t_max, max_streams=32, window=4,
                        phase_steps=phase_steps_for(per_stream, 4),
-                       refresh_every=5, device="cuda",
+                       refresh_every=5, device=device, devices=devices,
                        pool_capacity=max(s.n_samples for s in streams),
                        **knobs)
     if kind == "eager":
@@ -1298,9 +1366,7 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
     streams, _ = make_streams(arrays, 64)
     for rec in (srv.step_times_s, srv.dispatch_times_s, srv.drain_times_s):
         rec.clear()
-    graphs = srv._graphs
-    replays0 = graphs.replays if graphs else 0
-    eager0 = graphs.eager_calls if graphs else 0
+    replays0, eager0, graphs = graph_calls(srv)
     step0, int8_0 = srv.global_step, srv.served_int8
     tuned0 = srv._autotuner.stats() if tuner is not None else None
     reset_launches()
@@ -1313,6 +1379,7 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rounds = srv.global_step - step0
+    replays, eager_calls, _ = graph_calls(srv)
     tuned = {}
     if tuner is not None:
         stats = srv._autotuner.stats()
@@ -1323,8 +1390,8 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
         srv=srv, done={r.rid: r for r in done[-len(streams):]}, wall=wall,
         warm_s=warm_s, rounds=rounds, dispatches=len(srv.step_times_s),
         launches=read_launches(), lat=srv.latency_percentiles_ms(),
-        replays=(graphs.replays - replays0) if graphs else 0,
-        eager_calls=(graphs.eager_calls - eager0) if graphs else rounds,
+        replays=replays - replays0,
+        eager_calls=(eager_calls - eager0) if graphs else rounds,
         served=sum(r.n_samples for r in streams),
         served_int8=srv.served_int8 - int8_0,
         peak_alloc=torch.cuda.max_memory_allocated() - base_alloc,
@@ -2706,6 +2773,170 @@ def planner_phase(card: str, cfg, arrays) -> None:
         torch.cuda.empty_cache()
 
 
+def batch_rounding_probe(cfg, device="cuda") -> dict:
+    """Whether each batched library call of a round (BATCH_CALLS) gives the
+    same bits for the first S/N problems of a batch of S as for a batch of
+    S/N alone, at phase 4's shapes (S = 32 slots, windows of 4, s = 931),
+    for N in SHARD_BLOCKS.  Returns {call: True where every N agrees}."""
+    S, W, s, ny = 32, 4, cfg.s, cfg.n_classes
+    g = torch.Generator(device=device).manual_seed(0)
+    rt = torch.randn(S, W, s, device=device, generator=g)
+    oh = torch.randn(S, W, ny, device=device, generator=g)
+    X = torch.randn(S, s, 64, device=device, generator=g) / 8
+    M = X @ X.mT + torch.eye(s, device=device)
+    L = torch.linalg.cholesky(M)
+    A = torch.randn(S, ny, s, device=device, generator=g)
+    calls = {
+        "bmm dA": lambda k: oh[:k].mT @ rt[:k],
+        "bmm dB": lambda k: rt[:k].mT @ rt[:k],
+        "cholesky_ex": lambda k: torch.linalg.cholesky_ex(M[:k])[0],
+        "solve_triangular": lambda k: torch.linalg.solve_triangular(
+            L[:k], A[:k].mT, upper=False),
+        "sum over a slot's window": lambda k: rt[:k, :, :30].sum(
+            dim=(-2, -1)),
+    }
+    same = {}
+    for name, fn in calls.items():
+        full = fn(S)
+        same[name] = all(torch.equal(full[:S // n], fn(S // n))
+                         for n in SHARD_BLOCKS)
+    torch.cuda.synchronize()
+    return same
+
+
+def per_round_launches(path: str) -> dict:
+    """Each kernel's launches a round of a one-block server of ``path``."""
+    if path in RETIRE_PATHS:
+        return RETIRE_PATHS[path][1]
+    return {name: 1 for name in {**PATHS, **BF16_PATHS}[path][1]}
+
+
+def near_serving(a: dict, b: dict) -> tuple:
+    """(the share of equal predictions, whether the final states agree, the
+    worst leaf and its max |d| / max |leaf|) of two runs' measured waves
+    and servers: every leaf within SERVE_TOL, the int8 codes within one
+    code (tests/test_torch_quant.py's episode limits)."""
+    pairs = [(x, y) for rid, r in b["done"].items()
+             for x, y in zip(a["done"][rid].preds, r.preds)]
+    agree = sum(x == y for x, y in pairs) / len(pairs)
+    trees = [(a["done"][rid].final_state, r.final_state)
+             for rid, r in b["done"].items()]
+    trees.append((a["srv"].states, b["srv"].states))
+    named = [(convert.state_leaves(x), convert.state_leaves(y))
+             for x, y in trees]
+    if a["srv"].win is not None:
+        named.append((convert.window_leaves(a["srv"].win),
+                      convert.window_leaves(b["srv"].win)))
+    close, worst = True, ("", 0.0)
+    for la, lb in named:
+        for name, x in la.items():
+            x, y = x.astype(np.float64), lb[name].astype(np.float64)
+            if name == "quant_Wq":
+                close &= bool(np.abs(x - y).max() <= 1)
+                continue
+            close &= bool(np.allclose(y, x, **SERVE_TOL))
+            rel = float(np.abs(x - y).max() / max(np.abs(x).max(), 1e-30))
+            if rel > worst[1]:
+                worst = (name, rel)
+    return agree, close, worst
+
+
+def sharded_phase(card: str, cfg, arrays, main_runs: dict) -> None:
+    """Multi-device serving at full width on one card (phase 4h): each of
+    SHARD_PATHS served captured by phase 4's server split into 2 and 4
+    blocks on a mesh that repeats cuda:0, each block replaying its own
+    graphs; every run must serve the one-block captured run's predictions
+    and end with its final states bit for bit (a path that runs a batched
+    library call that rounds by batch size: within SERVE_TOL, with at least
+    SERVE_AGREE of the predictions equal), with every kernel of the path
+    launched its count a round in each block; then fp32 pipelined and
+    blocked (pipeline_depth=2, step_block=4) on 2 blocks, and, with two
+    cards, 2 blocks on the default mesh with each block's tensors on its own
+    card."""
+    same = batch_rounding_probe(cfg)
+    print("  batched library calls, batch of S/N against the first S/N of "
+          "a batch of S (N in " + ", ".join(map(str, SHARD_BLOCKS)) + "): "
+          + ", ".join(f"{k} {'same bits' if v else 'DIFFER'}"
+                      for k, v in same.items()))
+    exact = {path: all(v for k, v in same.items() if path in BATCH_CALLS[k])
+             for path in SHARD_PATHS}
+
+    def held(path, base, res, what):
+        preds, states = same_serving(base, res)
+        if exact[path]:
+            print(f"  {what}: predictions {'equal' if preds else 'DIFFER'}, "
+                  f"final states {'equal bit for bit' if states else 'DIFFER'}"
+                  f" against the one-block captured run")
+            check(preds and states, f"{what} serves another episode")
+            return
+        agree, close, (leaf, rel) = near_serving(base, res)
+        print(f"  {what}: bit for bit {preds and states}; {agree:.4f} of "
+              f"the predictions equal (limit {SERVE_AGREE}), final states "
+              f"within rtol {SERVE_TOL['rtol']} / atol {SERVE_TOL['atol']} "
+              f"(int8 codes within 1): {close}, the largest max |d| / max "
+              f"|leaf| {rel:.3e} ({leaf}) (a batched library call of the "
+              f"path rounds by batch size)")
+        check(agree >= SERVE_AGREE and close, f"{what} serves another "
+                                              f"episode")
+
+    for path in SHARD_PATHS:
+        base = main_runs.get(path)
+        if base is None:
+            base = serving_run(cfg, arrays, path, "captured")
+        rates = {1: base["served"] / base["wall"]}
+        per_round = per_round_launches(path)
+        for n in SHARD_BLOCKS:
+            res = serving_run(cfg, arrays, path, "captured", devices=n)
+            srv, rounds = res["srv"], res["rounds"]
+            check(len(srv.blocks) == n and {
+                blk.states.step.device for blk in srv.blocks} == {
+                torch.device("cuda", 0)}, f"{path}: {n} blocks not all on "
+                                          f"cuda:0")
+            print(f"  [{card}] {path} captured, {n} blocks on cuda:0: "
+                  + run_line(res))
+            held(path, base, res, f"{path} on {n} blocks")
+            for name, count in res["launches"].items():
+                want = rounds * n * per_round.get(name, 0)
+                check(count == want, f"{path} on {n} blocks: {name}: {count} "
+                                     f"launches over {rounds} rounds ({want} "
+                                     f"expected)")
+            print(f"  {path} on {n} blocks: launches " + ", ".join(
+                f"{name.split()[0]} {c}" for name, c in
+                res["launches"].items() if c) + f" over {rounds} rounds "
+                f"({n} a round for each kernel of a one-block round)")
+            rates[n] = res["served"] / res["wall"]
+            del res, srv
+        print(f"  [{card}] {path}: samples/s by blocks on one card: "
+              + ", ".join(f"{n} {r:.1f}" for n, r in rates.items())
+              + " (one card: the blocks share its device and its host "
+              "thread, so this is the blocks' dispatch overhead, not "
+              "scaling)")
+        gc.collect()
+    res = serving_run(cfg, arrays, "fp32", "pipelined", devices=2)
+    print(f"  [{card}] fp32 pipelined and blocked, 2 blocks on cuda:0: "
+          + run_line(res))
+    held("fp32", main_runs["fp32"], res, "fp32 pipelined on 2 blocks")
+    del res
+    if torch.cuda.device_count() >= 2:
+        res = serving_run(cfg, arrays, "fp32", "captured", devices=2,
+                          device=None)
+        for d, blk in enumerate(res["srv"].blocks):
+            leaves = []
+            for tree in (blk.states, blk.pool):
+                map_leaves(leaves.append, tree)
+            check(all(x.device == torch.device("cuda", d) for x in leaves),
+                  f"block {d}'s tensors are not all on cuda:{d}")
+        print(f"  [{card}] fp32 captured, 2 blocks on cuda:0 and cuda:1: "
+              + run_line(res))
+        held("fp32", main_runs["fp32"], res, "fp32 on two cards")
+        del res
+    else:
+        print("  real placement over cards NOT exercised: this machine has "
+              "one CUDA device (the blocks above all share cuda:0)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def tuned_invariant(res: dict) -> float:
     """Check every live factor (factor_beta > 0) of the server and of the
     streams' final states against its statistics; return the largest
@@ -3056,6 +3287,160 @@ def lm_agreement_phase() -> None:
         del models
 
 
+def synth_task(rng: np.random.Generator, n: int, t: int, vocab: int,
+               n_classes: int) -> tuple:
+    """examples_torch/lm_readout.py's task: class c = sequences biased
+    toward token block c."""
+    labels = rng.integers(0, n_classes, n)
+    block = vocab // n_classes
+    base = rng.integers(0, vocab, (n, t))
+    biased = block * labels[:, None] + rng.integers(0, block, (n, t))
+    toks = np.where(rng.random((n, t)) < 0.6, biased, base)
+    return toks.astype(np.int32), labels.astype(np.int32)
+
+
+def readout_rank(rank: int, world: int, path: str, device: str) -> None:
+    """One gloo rank of phase 8b on ``device`` (cuda:0 for both ranks): its
+    half of the features through accumulate and the distributed solve (one
+    all_reduce of (A, B)); writes its W and b."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{path}/pg",
+                            world_size=world, rank=rank)
+    try:
+        data = torch.load(f"{path}/features.pt")
+        h, labels = data["h"], data["labels"]
+        b = h.shape[0] // world
+        sl = slice(rank * b, (rank + 1) * b)
+        ro = DistributedDFRReadout(
+            ReadoutConfig(feature_dim=h.shape[-1],
+                          n_classes=READOUT_TASK["classes"],
+                          n_nodes=READOUT_NODES),
+            group=dist.group.WORLD, mask=data["mask"], device=device)
+        params, rs = ro.init()
+        rs = ro.accumulate(rs, params, h[sl], labels[sl])
+        fit = ro.solve(rs, params, READOUT_BETA)
+        torch.save({"W": fit.W.cpu(), "b": fit.b.cpu()},
+                   f"{path}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def readout_phase(card: str) -> None:
+    """The LM-feature readout at full width (phase 8b): smollm-135m's trunk
+    (K8 a layer) turns READOUT_TASK's tokens into (B, T, 576) hidden
+    states; DistributedDFRReadout at Nx = 30 accumulates, solves at
+    READOUT_BETA, predicts and takes one SGD step on the card, with the
+    launch counts set to 0 before and read after (K6, K7, K4a, K4b, K1);
+    the same readout on the CPU: W within the tolerance, predictions equal
+    on READOUT_AGREE; then two gloo ranks on the one card, each with half
+    the batch: equal W on both, within the tolerance of the one-rank W."""
+    import torch.multiprocessing as mp
+
+    model = lm_model(torch.bfloat16, "cuda")
+    cfg = model.cfg
+    n, t, classes = (READOUT_TASK[k] for k in ("n", "seq", "classes"))
+    toks, labels = synth_task(np.random.default_rng(1), n, t, cfg.vocab,
+                              classes)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = model._trunk(model._embed(toks))[0].float()
+    torch.cuda.synchronize()
+    trunk_s = time.perf_counter() - t0
+    k8 = read_launches()["K8 flash_attention"]
+    print(f"  [{card}] {LM_ARCH} trunk on {n} x {t} tokens: hidden states "
+          f"{tuple(h.shape)} in {trunk_s:.3f} s; K8 launches {k8}")
+    check(k8 == cfg.n_layers and bool(torch.isfinite(h).all()),
+          f"the trunk launched K8 {k8} times, or its states are not finite")
+    del model
+    torch.cuda.empty_cache()
+
+    rcfg = ReadoutConfig(feature_dim=cfg.d_model, n_classes=classes,
+                         n_nodes=READOUT_NODES)
+    lab = torch.from_numpy(labels)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ro = DistributedDFRReadout(
+            rcfg, device=device,
+            mask=None if device == "cuda" else runs["cuda"]["mask"])
+        hd = h.to(ro.device)
+        if device == "cuda":
+            reset_launches()
+        times = {}
+        t0 = time.perf_counter()
+        params, rs = ro.init()
+        rs = ro.accumulate(rs, params, hd, lab)
+        times["accumulate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fit = ro.solve(rs, params, READOUT_BETA)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times["solve"] = time.perf_counter() - t0
+        preds = ro.predict(fit, hd).cpu()
+        new, loss = ro.sgd_step(params, hd, lab, 0.1, 0.1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check_launches("8b readout on the card", read_launches(),
+                           READOUT_ON_PATH)
+        acc = float((preds == lab).float().mean())
+        print(f"  [{device}] readout Nx={READOUT_NODES} s={rcfg.dfr().s}: "
+              f"accumulate {times['accumulate']:.4f} s, solve "
+              f"{times['solve']:.4f} s; train accuracy {acc:.4f} over "
+              f"{classes} classes; SGD step loss {float(loss):.4f}")
+        check(bool(torch.isfinite(fit.W).all())
+              and bool(torch.isfinite(new.W).all()),
+              f"{device}: the readout's W is not finite")
+        runs[device] = dict(mask=ro.mask.cpu(), rs=rs, W=fit.W.cpu(),
+                            preds=preds, fit=fit, ro=ro)
+    sens, _ = fp64_sensitivity(runs["cpu"]["rs"].A, runs["cpu"]["rs"].B,
+                               READOUT_BETA)
+    tol = max(READOUT_REL, sens)
+    rel_ab = max(rel_diff(getattr(runs["cuda"]["rs"], k).cpu(),
+                          getattr(runs["cpu"]["rs"], k)) for k in ("A", "B"))
+    rel = rel_diff(runs["cuda"]["W"], runs["cpu"]["W"])
+    agree = float((runs["cuda"]["preds"] == runs["cpu"]["preds"])
+                  .float().mean())
+    print(f"  card vs CPU: (A, B) within {rel_ab:.3e} of their largest; "
+          f"|dW| / max |W| {rel:.3e} (limit {tol:.3e}: the larger of "
+          f"{READOUT_REL} and the float64 W's move under a "
+          f"{MEM_FP32_NOISE} relative perturbation of B, {sens:.3e}); "
+          f"{agree:.4f} of the predictions equal (limit {READOUT_AGREE})")
+    check(rel <= tol and agree >= READOUT_AGREE,
+          "the card's readout is not the CPU's")
+
+    with tempfile.TemporaryDirectory() as path:
+        torch.save({"h": h.cpu(), "labels": lab,
+                    "mask": runs["cuda"]["mask"]}, f"{path}/features.pt")
+        t0 = time.perf_counter()
+        mp.spawn(readout_rank, args=(2, path, str(h.device)), nprocs=2,
+                 join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{path}/rank{r}.pt") for r in range(2)]
+    same = all(torch.equal(ranks[0][k], ranks[1][k]) for k in ("W", "b"))
+    rel2 = rel_diff(ranks[0]["W"], runs["cuda"]["W"])
+    ro, fit = runs["cuda"]["ro"], runs["cuda"]["fit"]
+    fit2 = dataclasses.replace(fit, W=ranks[0]["W"].to(ro.device),
+                               b=ranks[0]["b"].to(ro.device))
+    preds2 = ro.predict(fit2, h).cpu()
+    acc2 = float((preds2 == lab).float().mean())
+    agree2 = float((preds2 == runs["cuda"]["preds"]).float().mean())
+    print(f"  [{card}] 2 gloo ranks on cuda:0 (processes started, features "
+          f"loaded, solved in {wall:.2f} s): W equal on both ranks {same}; "
+          f"|dW| / max |W| against one rank {rel2:.3e} (limit {tol:.3e}); "
+          f"train accuracy {acc2:.4f}, {agree2:.4f} of the one-rank "
+          f"predictions")
+    check(same and rel2 <= tol and agree2 >= READOUT_AGREE,
+          "the two-rank readout is not the one-rank readout")
+    if torch.cuda.device_count() < 2:
+        print("  NCCL not exercised: it refuses two ranks on one device, "
+              "and this machine has one")
+    del runs, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3163,6 +3548,11 @@ def main() -> int:
     t0 = time.perf_counter()
     planner_phase(card, cfg, arrays)
     print(f"  phase 4g in {time.perf_counter() - t0:.1f} s")
+    print("[4h] multi-device serving: phase 4's servers on 2 and 4 slot "
+          "blocks of one card")
+    t0 = time.perf_counter()
+    sharded_phase(card, cfg, arrays, main_runs)
+    print(f"  phase 4h in {time.perf_counter() - t0:.1f} s")
     print("[5] agreement, card vs CPU")
     for path in PATHS:
         agreement_phase(cfg, arrays, path)
@@ -3190,6 +3580,11 @@ def main() -> int:
     print(f"[8] the LM main path at full width: {LM_ARCH}, "
           f"attn_impl='pallas', bf16")
     launches.update(lm_phase(card))
+    t0 = time.perf_counter()
+    print(f"[8b] the LM-feature readout at full width: {LM_ARCH}'s hidden "
+          f"states through DistributedDFRReadout, 1 rank and 2 gloo ranks")
+    readout_phase(card)
+    print(f"  phase 8b in {time.perf_counter() - t0:.1f} s")
     print("[9] the LM at full width, card vs CPU")
     lm_agreement_phase()
 

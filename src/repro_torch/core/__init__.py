@@ -1,6 +1,6 @@
 """Core DFR math: types, masking, reservoir, DPRR, backprop, ridge, online,
-the offline classifier (dfr), and the hyperparameter search (candidates,
-population, grid_search).
+the offline classifier (dfr), the hyperparameter search (candidates,
+population, grid_search) and the LM-feature readout (readout).
 
 The reference's public names that are ported, re-exported as
 ``repro.core`` exports them.  Nothing here imports the kernels: they import
@@ -65,6 +65,10 @@ from repro_torch.core.online import (  # noqa: F401
     refresh_output,
     refresh_output_batched,
     reset_statistics,
+)
+from repro_torch.core.readout import (  # noqa: F401
+    DistributedDFRReadout,
+    ReadoutConfig,
 )
 from repro_torch.core.population import (  # noqa: F401
     PopulationEval,

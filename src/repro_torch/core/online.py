@@ -17,21 +17,22 @@ The counterpart of the parts of ``repro.core.online`` the port runs:
   (``online_logits``, ``online_infer``, ``online_step``,
   ``refresh_output``, ``reset_statistics``) on one unbatched state, with
   the features from K6 and K7 and the full refresh from the blocked ridge
-  solve (K4a, K4b) on the card.
+  solve (K4a, K4b) on the card; ``online_step`` sums its update over the
+  ranks of a ``torch.distributed`` process group (``all_reduce_sum``).
 * ``OnlineEnsemble``: K such systems on one stream, stacked on a member
   axis, with the population engine's cull.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import backprop, dprr, masking, ridge
 from repro_torch.core.types import (DFRConfig, DFRParams, QuantParams,
                                     RidgeState, Tensor, map_leaves,
-                                    resolve_device, unported)
+                                    resolve_device)
 
 
 @dataclasses.dataclass
@@ -240,18 +241,22 @@ def online_step(
     label: Tensor,    # (B,) int
     lr_res,
     lr_out,
-    axis_names: Sequence[str] = (),
+    group=None,
     weight: Optional[Tensor] = None,
 ) -> Tuple[OnlineState, Dict[str, Tensor]]:
     """One online training step of one system: truncated-BP SGD update,
     then (A, B) accumulation with the updated reservoir parameters.
 
+    With ``group`` (a ``torch.distributed`` process group; None is one
+    process) each rank passes its share of the window, and the loss, the
+    grads, the (A, B) increments, the live count and the hits are summed
+    over the ranks with ``all_reduce`` (the reference's psum over
+    ``axis_names``), so every rank applies the same global update: the sums
+    are associative (paper Eq. 38), so this is exact, not an approximation.
+
     ``weight`` is an optional (B,) 0/1 live-sample mask: dead samples add
-    nothing to the loss, the grads, the statistics or the count.  The
-    reduction over device axes (``axis_names``) is not ported yet.
+    nothing to the loss, the grads, the statistics or the count.
     """
-    if tuple(axis_names):
-        raise unported("online_step(axis_names=...)", "Multi-device")
     f = cfg.f()
     j_seq = masking.apply_mask(mask, u)
     onehot = torch.nn.functional.one_hot(
@@ -269,7 +274,10 @@ def online_step(
         n_live = weight.sum()
     loss, g = backprop.grads_truncated(state.params, j_seq, onehot, f,
                                        lengths=length, loss_fn=loss_fn)
-    inv = 1.0 / torch.clamp(n_live, min=1.0)
+    loss, g_p, g_q, g_W, g_b, n_all = all_reduce_sum(
+        [loss, g.p, g.q, g.W, g.b, n_live], group)
+    g = DFRParams(p=g_p, q=g_q, W=g_W, b=g_b)
+    inv = 1.0 / torch.clamp(n_all, min=1.0)
     params = backprop.apply_sgd(state.params, g, lr_res, lr_out,
                                 inv_batch=inv)
     # streaming sufficient statistics with the *updated* reservoir params
@@ -281,12 +289,17 @@ def online_step(
     dA, dB = ridge.accumulate_ab(torch.zeros_like(state.ridge.A),
                                  torch.zeros_like(state.ridge.B), rt_acc,
                                  onehot)
+    logits = r @ params.W.T + params.b
+    hits = (logits.argmax(dim=-1) == label).to(torch.float32)
+    if weight is not None:
+        hits = hits * weight
+    dA, dB, n_hits = all_reduce_sum([dA, dB, hits.sum()], group)
     new = OnlineState(
         params=params,
         ridge=RidgeState(
             A=state.ridge.A + dA,
             B=state.ridge.B + dB,
-            count=state.ridge.count + n_live.to(state.ridge.count.dtype),
+            count=state.ridge.count + n_all.to(state.ridge.count.dtype),
             # B moved without rotating a factor: any live one is stale
             Lt=state.ridge.Lt,
             factor_beta=torch.zeros_like(state.ridge.factor_beta),
@@ -297,14 +310,29 @@ def online_step(
         loss_fast=state.loss_fast,
         loss_slow=state.loss_slow,
     )
-    logits = r @ params.W.T + params.b
-    hits = (logits.argmax(dim=-1) == label).to(torch.float32)
-    if weight is not None:
-        hits = hits * weight
     metrics = {"loss": loss * inv,
-               "acc": hits.sum() / torch.clamp(n_live, min=1.0).to(
-                   torch.float32)}
+               "acc": n_hits.to(torch.float32) / torch.clamp(
+                   n_all, min=1.0).to(torch.float32)}
     return new, metrics
+
+
+def all_reduce_sum(tensors: Sequence[Tensor], group=None) -> List[Tensor]:
+    """The sums of ``tensors`` over the ranks of ``group`` (a
+    ``torch.distributed`` process group), as new tensors of their shapes and
+    dtypes; with ``group=None`` the tensors themselves.  One ``all_reduce``
+    carries them all, packed in float32: float32 leaves sum exactly as
+    their own ``all_reduce`` would."""
+    if group is None:
+        return list(tensors)
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
 
 
 def online_serve_step(
@@ -558,6 +586,27 @@ def fold_quant_rows(
     return dataclasses.replace(state, quant=quant)
 
 
+def slot_logical_axes() -> OnlineState:
+    """``OnlineState``-shaped tree of logical-axes tuples of the stream
+    server's slot-batched state: every leaf leads with ``slot`` (slots are
+    independent streams), its own dims replicated.  For
+    ``repro_torch.distributed.sharding``."""
+    lead = ("slot",)
+    return OnlineState(
+        params=DFRParams(p=lead, q=lead, W=lead + (None, None),
+                         b=lead + (None,)),
+        ridge=RidgeState(A=lead + (None, None), B=lead + (None, None),
+                         count=lead, Lt=lead + (None, None),
+                         factor_beta=lead),
+        step=lead,
+        loss_ema=lead,
+        quant=QuantParams(Wq=lead + (None, None), w_scale=lead,
+                          x_scale=lead, x_absmax=lead),
+        loss_fast=lead,
+        loss_slow=lead,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Single-stream wrapper (the paper's one-device system)
 # ---------------------------------------------------------------------------
@@ -590,13 +639,12 @@ class OnlineDFR:
         return init_state(self.cfg, self.device)
 
     def step(self, state: OnlineState, u, length, label, lr_res, lr_out,
-             axis_names: Sequence[str] = ()
-             ) -> Tuple[OnlineState, Dict[str, Tensor]]:
-        """One online training step: SGD update + (A, B) accumulation."""
+             group=None) -> Tuple[OnlineState, Dict[str, Tensor]]:
+        """One online training step: SGD update + (A, B) accumulation,
+        summed over the ranks of ``group`` (``online_step``)."""
         return online_step(self.cfg, self.mask, state,
                            self._dev(u).to(self.cfg.dtype), self._dev(length),
-                           self._dev(label), lr_res, lr_out,
-                           axis_names=axis_names)
+                           self._dev(label), lr_res, lr_out, group=group)
 
     def infer(self, state: OnlineState, u, length) -> Tensor:
         """Inference on a window: class predictions (B,)."""

@@ -256,6 +256,14 @@ class WindowState:
             pos=_zeros((), torch.int32, device),
         )
 
+    @classmethod
+    def slot_axes(cls) -> "WindowState":
+        """Logical axes of the slot-batched rings (leaves ``(S, ...)``):
+        ``slot`` leads, so each slot's ring lives with its slot's block
+        (``repro_torch.distributed.sharding``)."""
+        return cls(rows=("slot", None, None), onehot=("slot", None, None),
+                   pos=("slot",))
+
 
 @dataclasses.dataclass
 class RequestPool:
@@ -292,6 +300,14 @@ class RequestPool:
             label=_zeros((n_slots, capacity), torch.int32, device),
             n=_zeros((n_slots,), torch.int32, device),
         )
+
+    @classmethod
+    def slot_axes(cls) -> "RequestPool":
+        """Logical axes of the staged pool: ``slot`` leads every leaf, so
+        each block of a slot mesh holds only its own slots' payloads and the
+        cursor gather never leaves its device."""
+        return cls(u=("slot", None, None, None), length=("slot", None),
+                   label=("slot", None), n=("slot",))
 
 
 @dataclasses.dataclass(frozen=True)

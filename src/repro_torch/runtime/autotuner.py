@@ -26,7 +26,7 @@ beta) while it serves:
     int8 slot disarms (``w_scale = 0``) and serves fp32 until its next
     refresh re-folds its scales; the adaptive detector's EMAs re-seed.
 
-The swap writes each row in place into the server's own state tensors, on
+The swap writes each row in place into the state tensors of the slot's block, on
 the server's stream and outside any graph capture: the server's captured
 round replays graphs that hold those tensors' addresses, so a rebuilt state
 tree would leave every later replay serving the old tensors.  Stream order
@@ -288,7 +288,8 @@ class WarmPoolAutotuner:
             req = live.get(slot)
             if req is None or req.rid != pend.rid:
                 continue  # the stream retired; the evaluation is stale
-            _swap_slot_row(srv.states, slot, pend.p, pend.q, pend.W, pend.b,
+            blk, row = srv._owner(slot)
+            _swap_slot_row(blk.states, row, pend.p, pend.q, pend.W, pend.b,
                            pend.beta,
                            maintain_factor=srv.refresh_mode == "incremental")
             self.swaps_applied += 1
@@ -339,9 +340,10 @@ class WarmPoolAutotuner:
         srv = self.server
         cfg, dev = srv.cfg, srv.device
         # the incumbent triple from the live slot row: one small read
-        st = srv.states
-        live = torch.stack([st.params.p[slot], st.params.q[slot],
-                            st.ridge.factor_beta[slot]]).cpu().numpy()
+        blk, row = srv._owner(slot)
+        st = blk.states
+        live = torch.stack([st.params.p[row], st.params.q[row],
+                            st.ridge.factor_beta[row]]).cpu().numpy()
         p0, q0 = float(live[0]), float(live[1])
         b0 = float(np.float32(srv.beta))   # the server's beta, as float32
         if srv.refresh_mode == "incremental" and float(live[2]) > 0:

@@ -25,6 +25,7 @@ whose body runs at a replay only when the flag is set on the device.
 from __future__ import annotations
 
 import ctypes
+import gc
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
@@ -124,17 +125,27 @@ class RoundGraphs:
             self._stream = torch.cuda.Stream()
         graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._stream), _build.tally_launches() as tally:
-            graph.capture_begin(pool=self.pool)
-            self.capturing = True
-            try:
-                outputs = body()
-            except BaseException:
-                _end_failed_capture(graph)
-                raise
-            finally:
-                self.capturing = False
-            graph.capture_end()
+        # no garbage collection inside a capture: one that frees another
+        # server's graphs (they sit in reference cycles) destroys a graph
+        # while this stream captures, which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self._stream), \
+                    _build.tally_launches() as tally:
+                graph.capture_begin(pool=self.pool)
+                self.capturing = True
+                try:
+                    outputs = body()
+                except BaseException:
+                    _end_failed_capture(graph)
+                    raise
+                finally:
+                    self.capturing = False
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream().wait_stream(self._stream)
         return _Graph(graph, outputs, dict(tally))
 

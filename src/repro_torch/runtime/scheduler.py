@@ -1,8 +1,9 @@
 """Continuous-batching slot scheduler of the stream server (host side).
 
-A copy of the numpy parts of ``repro.runtime.scheduler`` that the
-single-device server uses: the FIFO slot pool and the round-robin refresh
-cohorts.  Pure Python and numpy; nothing here touches a device.
+A copy of ``repro.runtime.scheduler``: the FIFO slot pool and the
+round-robin refresh cohorts, with the cohorts' shard-local schedule for a
+server whose slots are split into blocks.  Pure Python and numpy; nothing
+here touches a device.
 """
 from __future__ import annotations
 
@@ -81,6 +82,77 @@ class RefreshCohorts:
             return False, rows, ok
         rows, ok = fixed
         return True, rows, ok
+
+    def _sharded_fixed(
+        self, n_shards: int
+    ) -> Tuple[int, Dict[int, Tuple[np.ndarray, np.ndarray]]]:
+        """Per-shard fixed-shape cohort schedules for the slot-sharded
+        server: shard d owns the contiguous global slots ``[d * S/n, (d+1)
+        * S/n)`` and its row lists hold *local* indices, so a block's
+        refresh never indexes another block's slots.
+
+        Every (cohort, shard) row list is padded to one common width
+        ``r_loc`` (the max over cohorts and shards, so one refresh shape
+        serves every round) with DISTINCT local non-cohort indices flagged
+        ok=False, as ``due_rows_fixed`` pads.  Returns ``(r_loc, {phase:
+        (rows, ok)})`` with ``rows``/``ok`` the shard-concatenated
+        ``(n_shards * r_loc,)`` arrays.
+        """
+        if self.n_slots % n_shards:
+            raise ValueError(
+                f"{self.n_slots} slots not divisible by {n_shards} shards")
+        s_loc = self.n_slots // n_shards
+        members: Dict[Tuple[int, int], list] = {}
+        r_loc = 1
+        for c in range(self.n_cohorts):
+            for d in range(n_shards):
+                local = [i - d * s_loc for i in range(self.n_slots)
+                         if self.cohort_of_slot[i] == c
+                         and d * s_loc <= i < (d + 1) * s_loc]
+                members[(c, d)] = local
+                r_loc = max(r_loc, len(local))
+        fixed: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for c in range(self.n_cohorts):
+            rows_all, ok_all = [], []
+            for d in range(n_shards):
+                rows = list(members[(c, d)])
+                ok = [True] * len(rows)
+                pad_pool = [j for j in range(s_loc) if j not in set(rows)]
+                while len(rows) < r_loc:
+                    rows.append(pad_pool.pop(0) if pad_pool else 0)
+                    ok.append(False)
+                rows_all += rows
+                ok_all += ok
+            fixed[self.offsets[c]] = (
+                np.asarray(rows_all, np.int32), np.asarray(ok_all, bool))
+        return r_loc, fixed
+
+    def due_rows_fixed_sharded(
+        self, step: int, n_shards: int
+    ) -> Tuple[bool, np.ndarray, np.ndarray]:
+        """``due_rows_fixed`` for a slot axis split over ``n_shards``
+        contiguous blocks: the same ``(due, rows, ok)`` contract, but
+        ``rows`` holds shard-LOCAL indices, ``(n_shards * r_loc,)`` long
+        (shard d's block at ``[d * r_loc, (d+1) * r_loc)``).  The padded
+        rows write their own values back, so the refreshed slot set, and so
+        the served episode, is the unsharded schedule's."""
+        cache = getattr(self, "_sharded_cache", None)
+        if cache is None:
+            cache = self._sharded_cache = {}
+        hit = cache.get(n_shards)
+        if hit is None:
+            r_loc, fixed = self._sharded_fixed(n_shards)
+            s_loc = self.n_slots // n_shards
+            idle = (
+                np.tile(np.arange(r_loc, dtype=np.int32) % s_loc, n_shards),
+                np.zeros(n_shards * r_loc, bool),
+            )
+            hit = cache[n_shards] = (fixed, idle)
+        fixed, idle = hit
+        got = fixed.get(step % self.refresh_every)
+        if got is None:
+            return False, idle[0], idle[1]
+        return True, got[0], got[1]
 
 
 class SlotScheduler:

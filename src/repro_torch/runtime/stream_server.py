@@ -34,9 +34,23 @@ nodes of the step graph (``graphs.run_if``).  The eager round
 The host keeps a mirror of every slot's step count, so choosing between the
 training and the frozen step never waits for the device; the one blocking
 read per dispatch is the predictions, ``pipeline_depth`` dispatches later.
+
+With ``devices=N`` the slots split into N contiguous blocks of S/N, one per
+entry of a slot mesh (``launch.mesh.make_slot_mesh``), placed by the
+sharding rules (``distributed.sharding.shard_blocks``); a live slot never
+changes block.  One process drives every block: each round runs the same
+single-device round (eager or captured, a ``RoundGraphs`` a block) on each
+block's own tensors in turn, with the refresh rows of the cohorts'
+shard-local schedule.  Nothing crosses blocks, so blocks on different cards
+overlap, and every slot computes what it computes in one block.  The bits
+are the ``devices=1`` episode's wherever the library calls round alike for
+a batch of S/N and of S: on the CPU, and not at every shape on the card
+(the refresh's batched ``solve_triangular`` and PyTorch's per-slot
+reductions choose their kernels by batch size).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -51,11 +65,13 @@ from repro_torch.core.online import (OnlineState, adaptive_detect,
                                      anneal_ridge_, fold_quant_rows,
                                      init_state, online_serve_step,
                                      refresh_output_factor_rows,
-                                     refresh_output_rows)
+                                     refresh_output_rows, slot_logical_axes)
 from repro_torch.core.types import (DFRConfig, RequestPool, RidgeState,
                                     Tensor, WindowState, map_leaves,
-                                    resolve_device, unported)
+                                    resolve_device)
+from repro_torch.distributed.sharding import shard_blocks
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import SlotMesh, make_slot_mesh
 from repro_torch.runtime.graphs import PinnedRing, RoundGraphs, run_if
 from repro_torch.runtime.planner import Planner
 from repro_torch.runtime.scheduler import RefreshCohorts, SlotScheduler
@@ -431,8 +447,22 @@ class StreamServer:
     ``refresh_mode='incremental'``: there is no bf16 Cholesky for the
     recompute refresh, in either package.
 
-    Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-    item: ``devices > 1``.
+    ``devices=N`` (N > 1) splits the slots into N contiguous blocks of
+    ``max_streams / N`` (which must divide), each served on its entry of a
+    slot mesh: with ``device=None`` the first N CUDA devices (raising when
+    fewer exist), and with an explicit ``device`` that device N times (the
+    blocks then share it; the CPU tests and a one-card run use this).
+    Needs ``staging='device'``, as in the reference.  Every knob above
+    composes with it, and the episode is the ``devices=1`` episode
+    (predictions, snapshots and final states), bit for bit where the batched
+    library calls round alike for S/N and S slots (see the module
+    docstring).  The admission writes a
+    stream's payload on its owner's device only, and a pool growth regrows
+    every block.  ``blocks`` holds the blocks; ``states``, ``win`` and
+    ``pool`` are the one block's own tensors under ``devices=1`` and, under
+    N blocks, every block's slots gathered onto ``device`` (a copy, for
+    reading).  The planner of ``config='auto'`` takes ``devices`` as a
+    constraint and plans for all ``max_streams`` slots, as the reference's.
     """
 
     def __init__(
@@ -469,7 +499,27 @@ class StreamServer:
     ):
         if config not in (None, "auto"):
             raise ValueError(f"unknown config: {config!r} (None or 'auto')")
-        self.device = resolve_device(device, "StreamServer")
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices!r}")
+        if devices > 1:
+            if staging != "device":
+                raise ValueError(
+                    "slot sharding (devices > 1) requires staging='device' "
+                    "(the host-staged batch build uploads every step through "
+                    "one device)")
+            if max_streams % devices:
+                raise ValueError(
+                    f"max_streams={max_streams} must be divisible by "
+                    f"devices={devices} (contiguous equal slot blocks)")
+        self.devices = int(devices)
+        self.mesh: Optional[SlotMesh] = None
+        if self.devices > 1:
+            self.mesh = make_slot_mesh(
+                self.devices,
+                devices=None if device is None else [device] * self.devices)
+            self.device = self.mesh.devices[0]
+        else:
+            self.device = resolve_device(device, "StreamServer")
         # config='auto': the calibrated planner (runtime.planner) fills the
         # performance knobs left unset; explicit knobs win, and retirement,
         # quantize, staging and devices are constraints, never choices
@@ -523,10 +573,6 @@ class StreamServer:
         if pipeline_depth < 0:
             raise ValueError(
                 f"pipeline_depth must be >= 0, got {pipeline_depth!r}")
-        if devices < 1:
-            raise ValueError(f"devices must be >= 1, got {devices!r}")
-        if devices > 1:
-            raise unported("devices > 1", "Multi-device")
         if cfg.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"cfg.dtype must be float32 or bfloat16, got "
                              f"{cfg.dtype}")
@@ -604,48 +650,94 @@ class StreamServer:
         self._fresh_row = init_state(
             cfg, self.device,
             factor_beta=beta if refresh_mode == "incremental" else None)
-        self.states: OnlineState = map_leaves(
-            lambda leaf: leaf.expand(self.max_streams, *leaf.shape).clone(),
-            self._fresh_row)
+        S, n_blk = self.max_streams, self.devices
+
+        def stacked(tree):
+            return map_leaves(lambda leaf: leaf.expand(S, *leaf.shape), tree)
+
+        # every slot-batched tree split into the blocks by the sharding
+        # rules: the slot axis leads every leaf, so each leaf splits
+        mesh = self.mesh or make_slot_mesh(1, devices=[self.device])
+        states = shard_blocks(stacked(self._fresh_row), slot_logical_axes(),
+                              mesh)
         # window mode: each slot's ring of retained samples
-        self.win: Optional[WindowState] = None
+        wins = [None] * n_blk
         if retirement == "window":
-            self.win = map_leaves(
-                lambda leaf: leaf.expand(self.max_streams,
-                                         *leaf.shape).clone(),
-                WindowState.zeros(self.retire_window, cfg.s, cfg.n_classes,
-                                  cfg.dtype, self.device))
-        self.pool: Optional[RequestPool] = None
+            wins = shard_blocks(
+                stacked(WindowState.zeros(self.retire_window, cfg.s,
+                                          cfg.n_classes, cfg.dtype,
+                                          self.device)),
+                WindowState.slot_axes(), mesh)
+        pools = [None] * n_blk
         self._staged: Dict[int, Tuple] = {}
         if self.staging == "device":
             cap = self._round_capacity(pool_capacity or self.window)
-            self.pool = RequestPool.zeros(
-                self.max_streams, cap, self.t_max, cfg.n_in, cfg.dtype,
-                self.device)
-        S, W, ring = self.max_streams, self.window, self.pipeline_depth + 1
-        # the captured round (None: the eager round).  Its control vector
-        # per sub-step: cursors, the live mask, then the admitted rows
-        self._graphs: Optional[RoundGraphs] = (
-            RoundGraphs() if on_card and self.staging == "device" else None)
-        self._ctl = torch.zeros((3 * S,), dtype=torch.int64,
-                                device=self.device)
-        self._ctl_host = PinnedRing(ring, (self.step_block, 3 * S),
-                                    torch.int64, self.device)
-        # predictions (S * W) then the armed flags (S) of each sub-step
-        self._out_host = PinnedRing(ring, (self.step_block, S * W + S),
-                                    torch.int64, self.device)
+            pools = shard_blocks(
+                RequestPool.zeros(S, cap, self.t_max, cfg.n_in, cfg.dtype,
+                                  self.device),
+                RequestPool.slot_axes(), mesh)
+        # the captured round on the card (None: the eager round)
+        capture = on_card and self.staging == "device"
+        self.blocks: List[_Block] = [
+            _Block(self, d * (S // n_blk), S // n_blk, dev, states[d],
+                   wins[d], pools[d], capture)
+            for d, dev in enumerate(mesh.devices)]
         self._dispatches = 0
-        # in flight: (host predictions, copy event, sub-steps, meta)
+        # in flight: (host predictions a block, copy events, sub-steps, meta)
         self._inflight: Deque[Tuple] = deque()
         self._admitted_this_step: List[int] = []
-        self._mask_cache: Dict[bytes, Tensor] = {}
-        self._rows_cache: Dict[bytes, Tuple[Tensor, Tensor]] = {}
         self.global_step = 0
         self._autotuner = None   # optional WarmPoolAutotuner
         self.served_int8 = 0   # predictions served from armed int8 slots
         self.step_times_s: Deque[float] = deque(maxlen=latency_window)
         self.dispatch_times_s: Deque[float] = deque(maxlen=latency_window)
         self.drain_times_s: Deque[float] = deque(maxlen=latency_window)
+
+    # -- the blocks ----------------------------------------------------------
+
+    def _gathered(self, name: str):
+        trees = [getattr(blk, name) for blk in self.blocks]
+        if len(trees) == 1 or trees[0] is None:
+            return trees[0]
+        return map_leaves(
+            lambda *leaves: torch.cat([x.to(self.device) for x in leaves]),
+            *trees)
+
+    @property
+    def states(self) -> OnlineState:
+        """The slot-batched state (every slot's row; see the class
+        docstring for several blocks)."""
+        return self._gathered("states")
+
+    @property
+    def win(self) -> Optional[WindowState]:
+        """The window mode's slot-batched rings (None in other modes)."""
+        return self._gathered("win")
+
+    @property
+    def pool(self) -> Optional[RequestPool]:
+        """The staged request pool (None under host staging)."""
+        return self._gathered("pool")
+
+    @property
+    def _graphs(self) -> Optional[RoundGraphs]:
+        """The first block's captured round (None: the eager round)."""
+        return self.blocks[0].graphs
+
+    @_graphs.setter
+    def _graphs(self, graphs: Optional[RoundGraphs]) -> None:
+        """Set the one block's round; with several blocks only None (every
+        block eager), since each block captures its own graphs."""
+        if graphs is not None and len(self.blocks) > 1:
+            raise ValueError("each block needs its own RoundGraphs: set "
+                             "blocks[d].graphs")
+        for blk in self.blocks:
+            blk.graphs = graphs
+
+    def _owner(self, slot: int) -> Tuple["_Block", int]:
+        """The block that holds global slot ``slot``, and its row there."""
+        blk = self.blocks[slot // self.blocks[0].n]
+        return blk, slot - blk.lo
 
     # -- request lifecycle -------------------------------------------------
 
@@ -654,11 +746,12 @@ class StreamServer:
         return max(self.window, -(-int(n) // self.window) * self.window)
 
     def _stage_request(self, req: StreamRequest) -> None:
-        """Pad and upload the stream's full payload once, at submit."""
+        """Pad and upload the stream's full payload once, at submit (to
+        ``device``; the admission copies it to its owner's block)."""
         cap = self._round_capacity(req.n_samples)
-        if cap > self.pool.capacity:
+        if cap > self.blocks[0].pool.capacity:
             self._grow_pool(cap)
-        cap = self.pool.capacity
+        cap = self.blocks[0].pool.capacity
         # numpy has no bf16: stage in float32 and round once on upload
         # (to nearest even, as the reference's ml_dtypes staging rounds)
         u = np.zeros((cap, self.t_max, self.cfg.n_in), np.float32)
@@ -675,19 +768,21 @@ class StreamServer:
         )
 
     def _grow_pool(self, cap: int) -> None:
-        """Grow every slot row to ``cap`` samples (new longest stream), pad
-        values matching the staging defaults.  The graphs captured the old
-        pool's tensors, so they are captured again."""
-        pad = cap - self.pool.capacity
+        """Grow every slot row of every block to ``cap`` samples (new
+        longest stream), pad values matching the staging defaults.  The
+        graphs captured the old pools' tensors, so they are captured
+        again."""
         F = torch.nn.functional
-        self.pool = RequestPool(
-            u=F.pad(self.pool.u, (0, 0, 0, 0, 0, pad)),
-            length=F.pad(self.pool.length, (0, pad), value=1),
-            label=F.pad(self.pool.label, (0, pad)),
-            n=self.pool.n,
-        )
-        if self._graphs is not None:
-            self._graphs.reset()
+        for blk in self.blocks:
+            pad = cap - blk.pool.capacity
+            blk.pool = RequestPool(
+                u=F.pad(blk.pool.u, (0, 0, 0, 0, 0, pad)),
+                length=F.pad(blk.pool.length, (0, pad), value=1),
+                label=F.pad(blk.pool.label, (0, pad)),
+                n=blk.pool.n,
+            )
+            if blk.graphs is not None:
+                blk.graphs.reset()
 
     def attach_autotuner(self, tuner) -> None:
         """Attach a ``runtime.autotuner.WarmPoolAutotuner``: after every
@@ -712,48 +807,29 @@ class StreamServer:
 
     def _on_admit(self, i: int, req: StreamRequest) -> None:
         """Mark slot i for the fresh-state reset and write the staged
-        payload into its pool row."""
+        payload into its pool row, on its block's device."""
         self.slot_pos[i] = 0
         self._slot_steps[i] = 0
         self._admitted_this_step.append(i)
         if self.staging == "device":
+            blk, j = self._owner(i)
             staged = self._staged.pop(id(req), None)
-            if staged is None or staged[4] != self.pool.capacity:
+            if staged is None or staged[4] != blk.pool.capacity:
                 self._stage_request(req)  # the pool grew since submit
                 staged = self._staged.pop(id(req))
             u, length, label, n, _ = staged
-            self.pool.u[i] = u
-            self.pool.length[i] = length
-            self.pool.label[i] = label
-            self.pool.n[i] = n
+            with _on(blk.device):
+                blk.pool.u[j] = u
+                blk.pool.length[j] = length
+                blk.pool.label[j] = label
+                blk.pool.n[j] = n
 
     def _snapshot_row(self, i: int) -> OnlineState:
-        """Copy of slot i's state (the retiring stream's final model)."""
-        return map_leaves(lambda leaf: leaf[i].clone(), self.states)
-
-    def _cached_mask(self, mask_np: np.ndarray) -> Tensor:
-        """Device copy of a small (S,) bool control mask, cached by value."""
-        key = mask_np.tobytes()
-        hit = self._mask_cache.get(key)
-        if hit is None:
-            if len(self._mask_cache) > 64:   # bounded (masks cycle)
-                self._mask_cache.clear()
-            hit = self._mask_cache[key] = torch.from_numpy(
-                mask_np.copy()).to(self.device)
-        return hit
-
-    def _cached_rows(self, rows: np.ndarray,
-                     ok: np.ndarray) -> Tuple[Tensor, Tensor]:
-        """Device copies of a refresh cohort's rows and flags (one per
-        refresh phase), kept for the life of the server: a captured refresh
-        reads them at every replay."""
-        key = rows.tobytes() + ok.tobytes()
-        hit = self._rows_cache.get(key)
-        if hit is None:
-            hit = self._rows_cache[key] = (
-                torch.from_numpy(rows.astype(np.int64)).to(self.device),
-                torch.from_numpy(ok.copy()).to(self.device))
-        return hit
+        """Copy of slot i's state (the retiring stream's final model), on
+        its block's device."""
+        blk, j = self._owner(i)
+        with _on(blk.device):
+            return map_leaves(lambda leaf: leaf[j].clone(), blk.states)
 
     def _refreshed(self, st: OnlineState, rows_t: Tensor, ok_t: Tensor,
                    live: Tensor) -> OnlineState:
@@ -780,14 +856,15 @@ class StreamServer:
         ``step_block`` windows), refreshing the due cohort after each, then
         book-keep at lag ``pipeline_depth``.
 
-        The predictions enter the in-flight ring; entries deeper than
-        ``pipeline_depth`` are read (the only blocking device read) and
-        booked, so depth 0 is synchronous."""
+        Each round runs every block's round in turn.  The predictions enter
+        the in-flight ring; entries deeper than ``pipeline_depth`` are read
+        (the only blocking device read) and booked, so depth 0 is
+        synchronous."""
         t_start = time.perf_counter()
         self._admitted_this_step.clear()
         self.sched.admit(self._on_admit)
-        S, W = self.max_streams, self.window
-        live_np = np.zeros((S,), bool)
+        W = self.window
+        live_np = np.zeros((self.max_streams,), bool)
         slots = self.sched.live()
         meta: List[Tuple] = []
         for i, req in slots:
@@ -806,20 +883,31 @@ class StreamServer:
                     lo = int(self.slot_pos[i]) + t * W
                     meta.append((t, i, req, lo, min(W, req.n_samples - lo)))
 
-        out_host = self._out_host[self._dispatches]
-        ctl_host = self._ctl_host[self._dispatches]
+        out_host = [blk.out_host[self._dispatches] for blk in self.blocks]
+        ctl_host = [blk.ctl_host[self._dispatches] for blk in self.blocks]
         base = self.slot_pos.copy()
         for t in range(n_sub):
             cursor = base + t * W * live_np
+            # one choice for every block: each block runs the round the
+            # one-block server runs
             train = bool(np.any(live_np
                                 & (self._slot_steps < self.phase_steps)))
             fresh = self._admitted_this_step if t == 0 else []
-            if self._graphs is not None:
-                self._substep_graphs(cursor, live_np, fresh, train,
-                                     ctl_host[t], out_host[t])
-            else:
-                self._substep_eager(cursor, live_np, fresh, train, meta,
-                                    out_host[t])
+            self._slot_steps[live_np] += 1
+            self.global_step += 1
+            due, rows = self._due_rows(self.global_step)
+            for d, blk in enumerate(self.blocks):
+                sl = slice(blk.lo, blk.lo + blk.n)
+                own = [i - blk.lo for i in fresh if blk.lo <= i < sl.stop]
+                with _on(blk.device):
+                    if blk.graphs is not None:
+                        self._substep_graphs(blk, cursor[sl], live_np[sl],
+                                             own, train, ctl_host[d][t],
+                                             out_host[d][t], due, *rows[d])
+                    else:
+                        self._substep_eager(blk, cursor[sl], live_np[sl],
+                                            own, train, meta, out_host[d][t],
+                                            due, *rows[d])
             if self._autotuner is not None and t < n_sub - 1:
                 # the tuner follows every round, so a blocked dispatch makes
                 # the unblocked episode's swaps at the same steps; the clamp
@@ -828,10 +916,12 @@ class StreamServer:
                     if tt == t:
                         self.slot_pos[i] = lo + n
                 self._autotuner.on_step()
-        event = None
+        events = []
         if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+            for dev in dict.fromkeys(blk.device for blk in self.blocks):
+                with _on(dev):
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
 
         # the slot lifecycle is cursor-driven, so retirement and refill
         # never wait on the predictions; meta is sub-step-major, so a slot
@@ -841,7 +931,7 @@ class StreamServer:
             if self.slot_pos[i] >= req.n_samples:
                 req.final_state = self._snapshot_row(i)
                 self.sched.retire(i)   # continuous batching: slot refills
-        self._inflight.append((out_host, event, n_sub, meta))
+        self._inflight.append((out_host, events, n_sub, meta))
         self._dispatches += 1
         if self._autotuner is not None:
             self._autotuner.on_step()
@@ -850,34 +940,42 @@ class StreamServer:
             self._drain_one()
         self.step_times_s.append(time.perf_counter() - t_start)
 
-    def _after_step(self, live_np: np.ndarray) -> Tuple[bool, np.ndarray,
-                                                        np.ndarray]:
-        """Advance the step counters; return the refresh due after this
-        step as fixed-shape (due, rows, ok), host staging's rows unpadded."""
-        self._slot_steps[live_np] += 1
-        self.global_step += 1
-        if self.staging == "device":
-            return self.cohorts.due_rows_fixed(self.global_step)
-        due_slots = self.cohorts.due_slots(self.global_step)
-        rows = np.asarray(due_slots or [], np.int32)
-        return due_slots is not None, rows, np.ones(rows.shape, bool)
+    def _due_rows(self, step: int) -> Tuple[bool, List[Tuple]]:
+        """The refresh due after server step ``step``: (due, one (rows, ok)
+        pair a block), fixed-shape and block-local under device staging,
+        host staging's rows unpadded."""
+        if self.staging != "device":
+            due_slots = self.cohorts.due_slots(step)
+            rows = np.asarray(due_slots or [], np.int32)
+            return due_slots is not None, [(rows, np.ones(rows.shape, bool))]
+        n = len(self.blocks)
+        if n == 1:
+            due, rows, ok = self.cohorts.due_rows_fixed(step)
+            return due, [(rows, ok)]
+        due, rows, ok = self.cohorts.due_rows_fixed_sharded(step, n)
+        r = rows.shape[0] // n
+        return due, [(rows[d * r:(d + 1) * r], ok[d * r:(d + 1) * r])
+                     for d in range(n)]
 
-    def _substep_eager(self, cursor: np.ndarray, live_np: np.ndarray,
-                       fresh: List[int], train: bool, meta: List[Tuple],
-                       out_host: Tensor) -> None:
-        """One round through the eager ``_step_core`` (the CPU, host
-        staging, and the card's oracle for the captured round)."""
-        S, W = self.max_streams, self.window
-        live = self._cached_mask(live_np)
+    def _substep_eager(self, blk: "_Block", cursor: np.ndarray,
+                       live_np: np.ndarray, fresh: List[int], train: bool,
+                       meta: List[Tuple], out_host: Tensor, due: bool,
+                       rows: np.ndarray, ok: np.ndarray) -> None:
+        """One round of a block through the eager ``_step_core`` (the CPU,
+        host staging, and the card's oracle for the captured round)."""
+        W = self.window
+        live = blk.cached_mask(live_np)
         fresh_rows = None
         if fresh:
             fresh_rows = torch.tensor(fresh, dtype=torch.int64,
-                                      device=self.device)
+                                      device=blk.device)
         if self.staging == "device":
             u, length, label, weight = _gather_window(
-                self.pool, torch.from_numpy(cursor).to(self.device), live, W,
+                blk.pool, torch.from_numpy(cursor).to(blk.device), live, W,
                 self.cfg.dtype)
         else:
+            # host staging: one block of every slot
+            S = self.max_streams
             u = np.zeros((S, W, self.t_max, self.cfg.n_in), np.float32)
             length = np.ones((S, W), np.int32)  # dead samples: len 1, w 0
             label = np.zeros((S, W), np.int32)
@@ -888,92 +986,98 @@ class StreamServer:
                 label[i, :n] = req.label[lo:lo + n]
                 weight[i, :n] = 1.0
             u, length, label, weight = (
-                torch.from_numpy(a).to(self.device)
+                torch.from_numpy(a).to(blk.device)
                 for a in (u, length, label, weight))
             u, weight = u.to(self.cfg.dtype), weight.to(self.cfg.dtype)
 
-        self.states, preds, armed = _step_core(
-            self.cfg, self.mask, self.states, self._fresh_row, fresh_rows,
-            u, length, label, weight, live, self.lr, self.phase_steps,
+        blk.states, preds, armed = _step_core(
+            self.cfg, blk.mask, blk.states, blk.fresh, fresh_rows,
+            u, length, label, weight, live, blk.lr, self.phase_steps,
             all_live=bool(live_np.all()), train=train,
             fused_infer=self.fused_infer, fused=self.fused,
             maintain_factor=self.refresh_mode == "incremental",
-            quantize=self.quantize, retire=self.retire, win=self.win,
+            quantize=self.quantize, retire=blk.retire, win=blk.win,
         )
         out = _served(preds, armed)
         out_host[:out.numel()].copy_(out, non_blocking=True)
-        due, rows, ok = self._after_step(live_np)
         if due:
-            self.states = self._refreshed(
-                self.states, *self._cached_rows(rows, ok), live)
+            blk.states = self._refreshed(
+                blk.states, *blk.cached_rows(rows, ok), live)
 
-    def _substep_graphs(self, cursor: np.ndarray, live_np: np.ndarray,
-                        fresh: List[int], train: bool, ctl_host: Tensor,
-                        out_host: Tensor) -> None:
-        """One round from the captured graphs: the control vector up, the
-        admitted rows reset eagerly, the step graph, its predictions down,
-        then the due cohort's refresh graph."""
-        S, k = self.max_streams, len(fresh)
+    def _substep_graphs(self, blk: "_Block", cursor: np.ndarray,
+                        live_np: np.ndarray, fresh: List[int], train: bool,
+                        ctl_host: Tensor, out_host: Tensor, due: bool,
+                        rows_np: np.ndarray, ok_np: np.ndarray) -> None:
+        """One round of a block from its captured graphs: the control
+        vector up, the admitted rows reset eagerly, the step graph, its
+        predictions down, then the due cohort's refresh graph."""
+        S, k = blk.n, len(fresh)
         ctl = ctl_host.numpy()
         ctl[:S] = cursor
         ctl[S:2 * S] = live_np
         ctl[2 * S:2 * S + k] = fresh
-        self._ctl.copy_(ctl_host, non_blocking=True)
+        blk.ctl.copy_(ctl_host, non_blocking=True)
         if k:
             # the admission reset writes whole (s, s) rows, so it stays out
             # of the fixed-shape graph: a select over all S rows would read
             # and write every slot's statistics each round
-            rows = self._ctl[2 * S:2 * S + k]
+            rows = blk.ctl[2 * S:2 * S + k]
             map_leaves(lambda leaf, row: leaf.index_copy_(
                 0, rows, row.expand(k, *row.shape)),
-                self.states, self._fresh_row)
-            if self.win is not None:
-                _reset_window_rows(self.win, rows)
+                blk.states, blk.fresh)
+            if blk.win is not None:
+                _reset_window_rows(blk.win, rows)
         all_live = bool(live_np.all())
-        out = self._graphs.run(("step", self.retirement, train, all_live),
-                               lambda: self._step_body(train, all_live))
+        out = blk.graphs.run(("step", self.retirement, train, all_live),
+                             lambda: self._step_body(blk, train, all_live))
         out_host[:out.numel()].copy_(out, non_blocking=True)
-        due, rows_np, ok_np = self._after_step(live_np)
         if due:
-            rows, ok = self._cached_rows(rows_np, ok_np)
-            self._graphs.run(("refresh", rows_np.tobytes(), ok_np.tobytes()),
-                             lambda: self._refresh_body(rows, ok))
+            rows, ok = blk.cached_rows(rows_np, ok_np)
+            blk.graphs.run(("refresh", rows_np.tobytes(), ok_np.tobytes()),
+                           lambda: self._refresh_body(blk, rows, ok))
 
-    def _step_body(self, train: bool, all_live: bool) -> Tensor:
-        """The captured step: gather, serve and train every slot in place
-        on ``self.states``; returns the served predictions (and flags)."""
-        S = self.max_streams
-        cursor, live = self._ctl[:S], self._ctl[S:2 * S] != 0
+    def _step_body(self, blk: "_Block", train: bool,
+                   all_live: bool) -> Tensor:
+        """The captured step: gather, serve and train every slot of a block
+        in place on its state; returns the served predictions (and
+        flags)."""
+        S = blk.n
+        cursor, live = blk.ctl[:S], blk.ctl[S:2 * S] != 0
         u, length, label, weight = _gather_window(
-            self.pool, cursor, live, self.window, self.cfg.dtype)
+            blk.pool, cursor, live, self.window, self.cfg.dtype)
         new, preds, armed = _step_core(
-            self.cfg, self.mask, self.states, None, None, u, length, label,
-            weight, live, self.lr, self.phase_steps, all_live=all_live,
+            self.cfg, blk.mask, blk.states, None, None, u, length, label,
+            weight, live, blk.lr, self.phase_steps, all_live=all_live,
             train=train, fused_infer=self.fused_infer, fused=self.fused,
             maintain_factor=self.refresh_mode == "incremental",
-            quantize=self.quantize, stats_in_place=True, retire=self.retire,
-            win=self.win, graphs=self._graphs,
+            quantize=self.quantize, stats_in_place=True, retire=blk.retire,
+            win=blk.win, graphs=blk.graphs,
         )
-        _assign(self.states, new)
+        _assign(blk.states, new)
         return _served(preds, armed)
 
-    def _refresh_body(self, rows: Tensor, ok: Tensor) -> None:
-        """The captured cohort refresh, in place on ``self.states``."""
-        S = self.max_streams
-        live = self._ctl[S:2 * S] != 0
-        _assign(self.states, self._refreshed(self.states, rows, ok, live))
+    def _refresh_body(self, blk: "_Block", rows: Tensor, ok: Tensor) -> None:
+        """The captured cohort refresh, in place on a block's state."""
+        S = blk.n
+        live = blk.ctl[S:2 * S] != 0
+        _assign(blk.states, self._refreshed(blk.states, rows, ok, live))
 
     def _drain_one(self) -> None:
         """Read the oldest in-flight dispatch's predictions (the only
-        blocking device read: its copy's event) and book them."""
-        out_host, event, n_sub, meta = self._inflight.popleft()
+        blocking device read: its copies' events) and book them."""
+        out_host, events, n_sub, meta = self._inflight.popleft()
         t0 = time.perf_counter()
-        if event is not None:
+        for event in events:
             event.synchronize()   # blocks: the served predictions
         self.drain_times_s.append(time.perf_counter() - t0)
-        S, W = self.max_streams, self.window
-        out = out_host[:n_sub].numpy()
-        preds, armed = out[:, :S * W].reshape(n_sub, S, W), out[:, S * W:]
+        W = self.window
+        preds, armed = [], []
+        for blk, buf in zip(self.blocks, out_host):
+            out = buf[:n_sub].numpy()
+            preds.append(out[:, :blk.n * W].reshape(n_sub, blk.n, W))
+            armed.append(out[:, blk.n * W:blk.n * (W + 1)])
+        preds = np.concatenate(preds, axis=1)
+        armed = np.concatenate(armed, axis=1)
         for t, i, req, lo, n in meta:
             if self.quantize == "int8" and armed[t, i]:
                 self.served_int8 += n
@@ -1047,3 +1151,71 @@ def _served(preds: Tensor, armed: Optional[Tensor]) -> Tensor:
     if armed is None:
         return preds.reshape(-1)
     return torch.cat([preds.reshape(-1), armed.to(preds.dtype)])
+
+
+def _on(device: torch.device):
+    """Make a block's CUDA device current for its launches, captures and
+    events (a kernel launches on the current device's stream)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _Block:
+    """One contiguous block of a server's slots, ``[lo, lo + n)``, on one
+    device: the slots' state, window rings and staged pool, the server's
+    constants (the fresh row, mask, learning rate, retirement lambda) on
+    that device, the round's captured graphs (``graphs``, None for the
+    eager round), and the block's control and prediction buffers.  A
+    ``devices=1`` server is one block of every slot."""
+
+    def __init__(self, srv: StreamServer, lo: int, n: int,
+                 device: torch.device, states: OnlineState,
+                 win: Optional[WindowState], pool: Optional[RequestPool],
+                 capture: bool):
+        self.lo, self.n, self.device = lo, n, device
+        self.states, self.win, self.pool = states, win, pool
+        self.fresh = map_leaves(lambda leaf: leaf.to(device), srv._fresh_row)
+        self.mask = srv.mask.to(device)
+        self.lr = srv.lr.to(device)
+        self.retire = dataclasses.replace(srv.retire,
+                                          lam=srv.retire.lam.to(device))
+        with _on(device):
+            self.graphs: Optional[RoundGraphs] = (
+                RoundGraphs() if capture else None)
+        ring, W = srv.pipeline_depth + 1, srv.window
+        # the captured round's control vector per sub-step: cursors, the
+        # live mask, then the admitted rows
+        self.ctl = torch.zeros((3 * n,), dtype=torch.int64, device=device)
+        self.ctl_host = PinnedRing(ring, (srv.step_block, 3 * n),
+                                   torch.int64, device)
+        # predictions (n * W) then the armed flags (n) of each sub-step
+        self.out_host = PinnedRing(ring, (srv.step_block, n * W + n),
+                                   torch.int64, device)
+        self._mask_cache: Dict[bytes, Tensor] = {}
+        self._rows_cache: Dict[bytes, Tuple[Tensor, Tensor]] = {}
+
+    def cached_mask(self, mask_np: np.ndarray) -> Tensor:
+        """Device copy of a small (n,) bool control mask, cached by
+        value."""
+        key = mask_np.tobytes()
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            if len(self._mask_cache) > 64:   # bounded (masks cycle)
+                self._mask_cache.clear()
+            hit = self._mask_cache[key] = torch.from_numpy(
+                mask_np.copy()).to(self.device)
+        return hit
+
+    def cached_rows(self, rows: np.ndarray,
+                    ok: np.ndarray) -> Tuple[Tensor, Tensor]:
+        """Device copies of a refresh cohort's block-local rows and flags
+        (one per refresh phase), kept for the life of the server: a
+        captured refresh reads them at every replay."""
+        key = rows.tobytes() + ok.tobytes()
+        hit = self._rows_cache.get(key)
+        if hit is None:
+            hit = self._rows_cache[key] = (
+                torch.from_numpy(rows.astype(np.int64)).to(self.device),
+                torch.from_numpy(ok.copy()).to(self.device))
+        return hit

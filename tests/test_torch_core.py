@@ -237,12 +237,13 @@ def test_load_is_byte_identical_to_reference(name, cap):
 
 def test_core_exports_every_reference_name_but_the_multi_device_readout():
     """Every public name of ``repro.core`` has its counterpart in
-    ``repro_torch.core``, except the multi-device readout (ROADMAP Queue 1
-    item 10)."""
+    ``repro_torch.core``: since the multi-device readout is ported
+    (tests/test_torch_readout.py), the two export sets are equal."""
     import repro.core as rcore
     import repro_torch.core as core
 
-    names = {n for n in dir(rcore) if not n.startswith("_")
-             and not type(getattr(rcore, n)).__name__ == "module"}
-    assert names - set(dir(core)) == {"DistributedDFRReadout",
-                                      "ReadoutConfig"}
+    def exports(pkg):
+        return {n for n in dir(pkg) if not n.startswith("_")
+                and not type(getattr(pkg, n)).__name__ == "module"}
+
+    assert exports(core) == exports(rcore)

@@ -28,6 +28,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import dfr as rdfr
 from repro.core import online as ronline
@@ -211,7 +212,7 @@ def test_online_dfr_episode_matches_reference(jpvow):
     assert float((preds == rpreds).mean()) >= AGREE
 
 
-def test_online_step_weight_and_unported_knobs():
+def test_online_step_weight_and_unported_knobs(tmp_path):
     cfg = DFRConfig(n_in=3, n_classes=2, n_nodes=4)
     rcfg = RConfig(n_in=3, n_classes=2, n_nodes=4)
     rng = np.random.default_rng(4)
@@ -236,11 +237,22 @@ def test_online_step_weight_and_unported_knobs():
     for k in got:
         np.testing.assert_allclose(got[k], want[k], **TOL, err_msg=k)
     np.testing.assert_allclose(float(met["acc"]), float(rmet["acc"]), **TOL)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        online.online_step(cfg, torch.from_numpy(mask), st,
-                           torch.from_numpy(u), torch.from_numpy(length),
-                           torch.from_numpy(label), 0.3, 0.3,
-                           axis_names=("data",))
+    # the reduction over a process group is ported: over one gloo rank
+    # online_step is the step without a group, bit for bit (two ranks:
+    # tests/test_torch_distributed.py)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            world_size=1, rank=0)
+    try:
+        gnew, gmet = online.online_step(
+            cfg, torch.from_numpy(mask), st, torch.from_numpy(u),
+            torch.from_numpy(length), torch.from_numpy(label), 0.3, 0.3,
+            group=dist.group.WORLD, weight=torch.from_numpy(weight))
+    finally:
+        dist.destroy_process_group()
+    for k, leaf in convert.state_leaves(gnew).items():
+        np.testing.assert_array_equal(leaf, got[k], err_msg=k)
+    for k in met:
+        assert torch.equal(gmet[k], met[k]), k
     # the soft reset scales the statistics as the reference's does
     soft = convert.state_leaves(online.reset_statistics(new, forget=0.9))
     rsoft = convert.state_leaves(ronline.reset_statistics(rnew, forget=0.9))

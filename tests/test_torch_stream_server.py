@@ -151,8 +151,31 @@ def test_default_device_is_cuda_and_raises_without_it():
     {"devices": 2},
 ])
 def test_unported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamServer(CFG, t_max=16, device="cpu", **kw)
+    """Multi-device serving is ported (tests/test_torch_sharded.py): two
+    blocks of 2 slots on the CPU serve the one-block episode of 4 slots bit
+    for bit, predictions and final states."""
+    def episode(**extra):
+        srv = StreamServer(CFG, mask=_mask(), device="cpu",
+                           **{**SERVER, "max_streams": 4}, **extra)
+        for rid, n in enumerate(STREAM_SIZES):
+            u, length, label = _stream_arrays(n, seed=rid)
+            srv.submit(StreamRequest(rid=rid, u=u, length=length,
+                                     label=label))
+        return {r.rid: r for r in srv.run_until_drained()}, srv
+
+    one, srv1 = episode()
+    got, srv = episode(**kw)
+    assert len(srv.blocks) == kw["devices"] and len(srv1.blocks) == 1
+    assert {rid: r.preds for rid, r in got.items()} == {
+        rid: r.preds for rid, r in one.items()}
+    for rid, r in one.items():
+        w = convert.state_leaves(r.final_state)
+        g = convert.state_leaves(got[rid].final_state)
+        for name in w:
+            np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+    w, g = convert.state_leaves(srv1.states), convert.state_leaves(srv.states)
+    for name in w:
+        np.testing.assert_array_equal(g[name], w[name], err_msg=name)
 
 
 def test_config_auto_plans_the_unset_knobs(monkeypatch):
