@@ -227,15 +227,38 @@ Phases, each fatal on failure:
      predictions equal on 0.98); then two gloo ranks on the card, one
      process each, each with half the batch and one all_reduce of (A, B):
      both ranks' W equal, within the same limit of one rank's.
+  8c. The other LM families at their published widths, bf16,
+     attn_impl='pallas', parameters drawn on the card from a seeded CUDA
+     generator, one model at a time: llama4-scout (8 of its 48 layers, the
+     one depth cut), rwkv6-7b, zamba2-1.2b, whisper-small, qwen2-vl-7b and
+     gemma3-4b (llama4-maverick runs only reduced, in the CPU tests: one
+     full-width layer of its 128 experts is 32 GB).  Each: one prefill at
+     (1, 4096) (embeddings for qwen2-vl; whisper 1500 encoder frames and
+     BOS, as make_prefill_step gives it) with every launch count set to 0
+     before and read after: K8 once a self attention on the flash route,
+     so 8, 28, 6 (38 // 6 shared-block sites), 36 (12 encoder, 12 decoder,
+     12 cross), 0 for gemma3 (the windowed route, blockwise as in the
+     reference) and 0 for rwkv6; wall time, tokens/s, peak memory; then
+     the Server with launch/serve.py's defaults: tokens/s, p50/p99, steps.
   9. Card against CPU for the LM at full width: a prefill of B=2, T=256
      (|dlogits| <= 1e-3 max |logits| in fp32, 2e-2 in bf16, argmax equal
      in both) and the Server on 4 requests (greedy tokens equal on >= 0.98
      of them in fp32; printed without a check in bf16).
+  9b. Each family of 8c at its published widths and one layer (whisper one
+     encoder and one decoder layer, zamba2 one run of attn_every SSM layers
+     and the shared block), fp32, B=1, T=256: the prefill on the card, then
+     on the CPU with the same parameters, within phase 9's fp32 limits; and
+     whisper so in bf16 at 8c's 1500 frames and BOS (K8's bf16 route at the
+     decoder's 1 x 1 and 1 x 1500), within phase 9's bf16 limits.
 Phase 3 also holds K8 (flash attention) against its plain version at the
 prefill's two shapes (B=4, H=9, KV=3, T=4096 and B=1, T=32768, D=64,
 causal, bf16) on transposed views of (B, T, H, D) buffers as the model
 passes them (and at T=4096 also contiguous), Minitron's head layout (B=1,
-H=32, KV=8, T=2048, D=128), a windowed and a ragged non-causal case, all
+H=32, KV=8, T=2048, D=128), a windowed and a ragged non-causal case, the
+families' head layouts of phase 8c (llama4's 40 over 8 and qwen2-vl's 28
+over 4 heads at D=128, zamba2's 32 over 32 at D=64, at T=4096, causal;
+whisper's 12 heads non-causal at 1500 x 1500, its decoder's BOS token
+causal at 1 x 1 and non-causal at 1 x 1500, and an extra 256 x 1500), all
 on K8's bf16 route (wgmma on the tensor cores, K/V tiles by TMA), and two
 fp32 cases (causal, and windowed) on its SIMT route, each with its
 effective TFLOP/s beside the bound's and the time of
@@ -382,6 +405,25 @@ K8_CASES = (
     ("fp32", 2, 9, 3, 1024, 1024, 64, True, 0, torch.float32, "bhtd"),
     ("fp32 window 512", 2, 9, 3, 2048, 2048, 64, True, 512, torch.float32,
      "bthd"),
+    # the LM families' head layouts at their prefills (phase 8c): groups of
+    # 5 and 7 query heads a KV head, a group of 1 at D=64, whisper's
+    # non-causal encoder, its decoder's self attention on the BOS token and
+    # that token's cross attention to the 1500 frames; whisper's cross
+    # attention at 256 decoder rows is an extra case that no path runs
+    ("llama4 heads", 1, 40, 8, 4096, 4096, 128, True, 0, torch.bfloat16,
+     "bthd"),
+    ("qwen2-vl heads", 1, 28, 4, 4096, 4096, 128, True, 0, torch.bfloat16,
+     "bthd"),
+    ("zamba2 heads", 1, 32, 32, 4096, 4096, 64, True, 0, torch.bfloat16,
+     "bthd"),
+    ("whisper encoder", 1, 12, 12, 1500, 1500, 64, False, 0, torch.bfloat16,
+     "bthd"),
+    ("whisper decoder self", 1, 12, 12, 1, 1, 64, True, 0, torch.bfloat16,
+     "bthd"),
+    ("whisper prefill cross", 1, 12, 12, 1, 1500, 64, False, 0,
+     torch.bfloat16, "bthd"),
+    ("whisper cross", 1, 12, 12, 256, 1500, 64, False, 0, torch.bfloat16,
+     "bthd"),
 )
 K8_DENSE_MAX_BYTES = 8 << 30   # larger dense f32 scores: blockwise plain
 # |got - want| <= atol + rtol |want|, elementwise.  bf16: both sides round
@@ -410,6 +452,23 @@ LM_REL = 1e-3        # card vs CPU prefill logits in fp32, of max |logits|
 # tests hold the bf16 port to against the reference (tests/test_torch_lm.py)
 LM_BF16_REL = 2e-2
 LM_AGREE = 0.98      # card vs CPU greedy tokens in fp32
+# phase 8c: every other LM family at its published widths and full depth,
+# but llama4-scout's (8 of its 48 layers, about 2.08B parameters a layer:
+# 37 GB in bf16 with its untied embeddings).  llama4-maverick runs only
+# reduced, in the CPU tests: one full-width layer of its 128 experts is
+# 32 GB in bf16.
+FAMILY_ARCHS = ("llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-1.2b",
+                "whisper-small", "qwen2-vl-7b", "gemma3-4b")
+FAMILY_DEPTH = {"llama4-scout-17b-a16e": dict(n_layers=8)}
+FAMILY_PREFILL = (1, 4096)   # whisper: 1500 encoder frames and BOS
+WHISPER_FRAMES = 1500
+# phase 9b: card vs CPU per family at full width and one layer (whisper
+# one encoder and one decoder layer, zamba2 one run of attn_every SSM
+# layers and the shared block), B=1, T=256, fp32, phase 9's limits; then
+# whisper in bf16 at 8c's prefill (1500 frames and BOS), so that K8's bf16
+# route runs at the decoder's shapes of 8c
+FAMILY_AGREE = ([(arch, torch.float32, 256) for arch in FAMILY_ARCHS]
+                + [("whisper-small", torch.bfloat16, WHISPER_FRAMES)])
 
 KERNELS = {"K1 train_forward": k_train.KERNEL,
            "K2 streaming_logits": k_streaming.KERNEL,
@@ -3287,6 +3346,155 @@ def lm_agreement_phase() -> None:
         del models
 
 
+def family_config(arch: str, dtype, **updates):
+    """A registry config at its published widths on the flash route."""
+    return dataclasses.replace(get_config(arch), attn_impl="pallas",
+                               dtype=dtype, **updates)
+
+
+def k8_per_prefill(cfg) -> int:
+    """K8's launches in one prefill: one a self attention on the flash
+    route (none under a window schedule, which the reference keeps off
+    its kernel, and none in RWKV), the hybrid's shared-block sites, and
+    the encoder-decoder's encoder, decoder and cross attentions."""
+    if cfg.rwkv or cfg.window_pattern:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.is_encdec:
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return cfg.n_layers
+
+
+def family_batch(cfg, b: int, t: int, gen: torch.Generator,
+                 device: str) -> dict:
+    """make_prefill_step's batch: tokens, or embeddings (the VLM's patch
+    stub), or whisper's encoder frames (WHISPER_FRAMES at full width)."""
+    if cfg.is_encdec or cfg.input_mode == "embeds":
+        return {"embeds": (0.5 * torch.randn(
+            (b, t, cfg.d_model), generator=gen, device=device)).to(cfg.dtype)}
+    return {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                                    device=device)}
+
+
+def families_phase(card: str, device: str = "cuda") -> None:
+    """Phase 8c: each LM family at its published widths in bf16 on the
+    flash route, parameters drawn on the card, one model at a time: a
+    prefill with K8's launches counted, then the Server."""
+    print("  llama4-maverick-400b-a17b: not run on the card; one full-width "
+          "layer of its 128 experts is 32 GB in bf16 (the CPU tests run it "
+          "reduced)")
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = family_config(arch, torch.bfloat16, **FAMILY_DEPTH.get(arch, {}))
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = Transformer(cfg, device=device, generator=gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        cut = (f"; depth cut to {cfg.n_layers} of "
+               f"{get_config(arch).n_layers} layers"
+               if arch in FAMILY_DEPTH else "")
+        print(f"  {arch}: family {cfg.family}, {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {n_params} parameters in bf16 "
+              f"drawn on the card{cut}")
+        b, t = FAMILY_PREFILL
+        t = WHISPER_FRAMES if cfg.is_encdec else t
+        batch = family_batch(cfg, b, t, gen, device)
+        prefill = make_prefill_step(model)
+        prefill(batch)               # first use: allocations, library set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = k8_per_prefill(cfg)
+        what = ("1500 encoder frames and BOS" if cfg.is_encdec
+                else "embeddings" if "embeds" in batch else "tokens")
+        print(f"  [{card}] {arch} prefill B={b} T={t} ({what}): {wall:.4f} "
+              f"s, {b * t / wall:.1f} prefill tokens/s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; K8 "
+              f"launches {launches['K8 flash_attention']} ({want} expected)")
+        check(tuple(logits.shape) == (b, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} prefill: logits {tuple(logits.shape)}, or not finite")
+        for name, count in launches.items():
+            expect = want if name == "K8 flash_attention" else 0
+            check(count == expect, f"{arch} prefill: {name} launched "
+                                   f"{count} times ({expect} expected)")
+        del logits, batch
+        serve_lm(model, 1, 4, 2, 1, 16)       # first use of the decode path
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        server, done, wall = serve_lm(
+            model, SERVE["requests"], SERVE["prompt_len"],
+            SERVE["max_tokens"], SERVE["max_batch"], SERVE["max_len"])
+        launches = read_launches()
+        n_tok = sum(len(r.out_tokens) for r in done.values())
+        lat = np.asarray([r.finish_t - r.submit_t for r in done.values()])
+        print(f"  [{card}] {arch} Server {SERVE}: {n_tok} tokens in "
+              f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s), {server.steps} "
+              f"steps ({1e3 * wall / server.steps:.2f} ms a step); request "
+              f"latency p50 {np.median(lat):.3f} s, p99 "
+              f"{np.percentile(lat, 99):.3f} s; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        check(len(done) == SERVE["requests"]
+              and n_tok == SERVE["requests"] * SERVE["max_tokens"]
+              and all(0 <= x < cfg.padded_vocab for r in done.values()
+                      for x in r.out_tokens),
+              f"{arch}: the Server answered {len(done)} requests with "
+              f"{n_tok} tokens")
+        check(all(n == 0 for n in launches.values()),
+              f"{arch}: the Server launched {launches}: decode runs no "
+              f"kernel")
+        del model, server, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch} in {time.perf_counter() - t_arch:.1f} s")
+
+
+def families_agreement_phase(device: str = "cuda") -> None:
+    """Phase 9b: each case of FAMILY_AGREE at full width and one layer, on
+    the card and then on the CPU with the same parameters (drawn on the
+    card from a seeded generator and moved: a host draw of llama4's 4.2e9
+    fp32 values would take about half a minute): the prefill's last logits
+    within LM_REL (fp32) or LM_BF16_REL (bf16) of max |logits|, argmax
+    equal."""
+    for arch, dtype, t in FAMILY_AGREE:
+        full = get_config(arch)
+        depth = (dict(enc_layers=1, dec_layers=1) if full.is_encdec else
+                 dict(n_layers=full.attn_every) if full.family == "hybrid"
+                 else dict(n_layers=1))
+        cfg = family_config(arch, dtype, **depth)
+        limit = LM_REL if dtype == torch.float32 else LM_BF16_REL
+        gen = torch.Generator(device=device).manual_seed(1)
+        model = Transformer(cfg, device=device, generator=gen)
+        batch = family_batch(cfg, 1, t, gen, device)
+        prefill = make_prefill_step(model)
+        t0 = time.perf_counter()
+        reset_launches()
+        got = prefill(batch).cpu()
+        k8 = read_launches()["K8 flash_attention"]
+        check(k8 == k8_per_prefill(cfg), f"{arch} at one layer: K8 launched "
+                                         f"{k8} times")
+        model.to("cpu")
+        model.device = torch.device("cpu")
+        want = prefill({k: v.cpu() for k, v in batch.items()})
+        rel = float((got - want).abs().max() / want.abs().max())
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        print(f"  {arch} ({', '.join(f'{k}={v}' for k, v in depth.items())}"
+              f", B=1, T={t}, {str(dtype).split('.')[-1]}): max |dlogits| / "
+              f"max |logits| {rel:.3e} (limit {limit}), argmax equal {same}, "
+              f"K8 launches {k8}, {time.perf_counter() - t0:.1f} s")
+        check(bool(torch.isfinite(got).all()) and rel <= limit and same,
+              f"{arch} {dtype}: card vs CPU prefill {rel}, argmax equal "
+              f"{same}")
+        del model, got, want, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def synth_task(rng: np.random.Generator, n: int, t: int, vocab: int,
                n_classes: int) -> tuple:
     """examples_torch/lm_readout.py's task: class c = sequences biased
@@ -3585,8 +3793,17 @@ def main() -> int:
           f"states through DistributedDFRReadout, 1 rank and 2 gloo ranks")
     readout_phase(card)
     print(f"  phase 8b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[8c] the other LM families at their published widths, bf16, "
+          "attn_impl='pallas'")
+    families_phase(card)
+    print(f"  phase 8c in {time.perf_counter() - t0:.1f} s")
     print("[9] the LM at full width, card vs CPU")
     lm_agreement_phase()
+    t0 = time.perf_counter()
+    print("[9b] the LM families at full width and one layer, card vs CPU")
+    families_agreement_phase()
+    print(f"  phase 9b in {time.perf_counter() - t0:.1f} s")
 
     for name, count in launches.items():
         records[name]["launches"] = count

@@ -20,11 +20,14 @@ Nothing here imports the JAX package: a caller on that side builds its own
 state from the same dict.
 
 ``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry an LM's parameters
-as the reference's ``Transformer.init`` values tree of numpy arrays (the
-layers stacked on a leading axis).  The reference's bf16 leaves are
-``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses: they go
-through float32, exact for bf16, and are cast to the parameter's dtype.
-``lm_params_to_numpy`` returns float32 arrays.
+as the reference's ``Transformer.init`` values tree of numpy arrays, for
+every family: the layer lists (``layers``, ``enc_layers``, ``dec_layers``)
+stacked on a leading axis, the hybrid's ``shared_attn`` unstacked, the MoE
+router fp32 and whisper's ``pos_embed`` table carried like any leaf. The
+reference's bf16 leaves are ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` refuses: they go through float32, exact for bf16,
+and are cast to the parameter's dtype. ``lm_params_to_numpy`` returns
+float32 arrays.
 """
 from __future__ import annotations
 
@@ -32,11 +35,12 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.online import OnlineState
 from repro_torch.core.types import (DFRParams, QuantParams, RidgeState,
                                     WindowState)
-from repro_torch.models.transformer import ParamTree
+from repro_torch.models.transformer import STACKED, ParamTree
 
 # flat leaf name -> attribute path, in OnlineState field order
 LEAF_PATHS = (
@@ -142,14 +146,14 @@ def _load_tree(node: ParamTree, tree: Mapping[str, Any], index=None) -> None:
                        f"model {sorted(node.keys())}")
     for name, val in tree.items():
         dst = node[name]
-        if name == "layers":
+        if isinstance(dst, nn.ModuleList):
             for i, layer in enumerate(dst):
                 _load_tree(layer, val, i)
         elif isinstance(val, Mapping):
             _load_tree(dst, val, index)
         else:
             arr = np.array(val if index is None else val[index],
-                             dtype=np.float32)
+                           dtype=np.float32)
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: shape {arr.shape}, model "
                                  f"{tuple(dst.shape)}")
@@ -157,28 +161,40 @@ def _load_tree(node: ParamTree, tree: Mapping[str, Any], index=None) -> None:
                 dst.copy_(torch.from_numpy(arr).to(dst.dtype))
 
 
+def _depth(tree: Mapping[str, Any]) -> int:
+    """The leading (layer) extent of a stacked tree."""
+    leaf = tree
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return len(leaf)
+
+
 def lm_params_from_numpy(model: ParamTree, tree: Mapping[str, Any]
                          ) -> ParamTree:
     """Load the reference's ``Transformer.init`` values tree (numpy arrays,
     or anything ``np.asarray`` reads) into the port's ``Transformer``, in
-    place; returns the model."""
-    if len(tree["layers"]["ln_attn_w"]) != len(model["layers"]):
-        raise ValueError("the tree and the model have different depths")
+    place; returns the model.  Every stacked list (``layers``, and
+    ``enc_layers``/``dec_layers`` for the encoder-decoder) must have the
+    model's depth."""
+    for name in STACKED:
+        if name in model and name in tree \
+                and _depth(tree[name]) != len(model[name]):
+            raise ValueError(f"the tree and the model have different "
+                             f"depths in {name!r}")
     _load_tree(model, tree)
     return model
 
 
 def lm_params_to_numpy(model: ParamTree) -> Dict[str, Any]:
     """The port's LM parameters as the reference's values tree: float32
-    numpy arrays, the layers stacked on a leading axis."""
+    numpy arrays, each layer list stacked on a leading axis."""
 
     def walk(node: ParamTree) -> Dict[str, Any]:
         out = {}
         for name in node.keys():
             val = node[name]
-            if name == "layers":
-                layers = [walk(layer) for layer in val]
-                out[name] = _stack(layers)
+            if isinstance(val, nn.ModuleList):
+                out[name] = _stack([walk(layer) for layer in val])
             elif isinstance(val, ParamTree):
                 out[name] = walk(val)
             else:

@@ -586,12 +586,11 @@ def fold_quant_rows(
     return dataclasses.replace(state, quant=quant)
 
 
-def slot_logical_axes() -> OnlineState:
-    """``OnlineState``-shaped tree of logical-axes tuples of the stream
-    server's slot-batched state: every leaf leads with ``slot`` (slots are
-    independent streams), its own dims replicated.  For
-    ``repro_torch.distributed.sharding``."""
-    lead = ("slot",)
+def _state_logical_axes(*leading: str) -> OnlineState:
+    """``OnlineState``-shaped tree of logical-axes tuples: every leaf leads
+    with ``leading`` (one name a stacked leading dim), its own dims
+    replicated.  For ``repro_torch.distributed.sharding``."""
+    lead = tuple(leading)
     return OnlineState(
         params=DFRParams(p=lead, q=lead, W=lead + (None, None),
                          b=lead + (None,)),
@@ -605,6 +604,28 @@ def slot_logical_axes() -> OnlineState:
         loss_fast=lead,
         loss_slow=lead,
     )
+
+
+def ensemble_logical_axes() -> OnlineState:
+    """The logical axes of an ensemble's ``OnlineState`` (``OnlineEnsemble``'s
+    tree): every leaf leads with ``member`` (members are independent, so
+    they shard across devices)."""
+    return _state_logical_axes("member")
+
+
+def slot_logical_axes() -> OnlineState:
+    """The logical axes of the stream server's slot-batched state: every
+    leaf leads with ``slot`` (slots are independent streams)."""
+    return _state_logical_axes("slot")
+
+
+def ensemble_slot_logical_axes() -> OnlineState:
+    """The logical axes of an ensemble of slots (leaves stacked
+    ``(S, K, ...)``): ``slot`` leads and ``member`` follows, so a
+    ``("slot", "member")`` serving mesh shards both ways, and on the
+    production mesh the rules' uniqueness guard gives ``slot`` the data
+    axes."""
+    return _state_logical_axes("slot", "member")
 
 
 # ---------------------------------------------------------------------------

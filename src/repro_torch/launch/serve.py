@@ -13,14 +13,14 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ALL_ARCHS, get_config, get_reduced
 from repro_torch.models.transformer import Transformer
 from repro_torch.runtime.server import Request, Server
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=ALL_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)

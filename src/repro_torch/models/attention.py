@@ -11,10 +11,12 @@ The port of ``repro.models.attention``.  Layout: q (B, T, H, D), k/v
   ``make_flash_scoped``: on a CUDA tensor it runs K8
   (``kernels.ops.flash_attention``) on transposed views, on the CPU the
   blockwise route, as the reference keeps non-TPU hosts off its kernel.
-  It takes no window: the windowed archs, which the reference keeps off
-  its kernel, are not ported yet (ROADMAP.md, Queue 1).  It is forward
-  only: K8 has no backward yet (ROADMAP.md, Queue 1, 'LM training'), and
-  the route never falls back to a differentiable plain path.
+  It takes no window: a config with a per-layer window schedule (gemma3)
+  attends blockwise with the layer's window on every device, as the
+  reference keeps such configs off its kernel (``use_kernel = not
+  cfg.window_pattern``).  It is forward only: K8 has no backward yet
+  (ROADMAP.md, Queue 1, 'LM training'), and the route never falls back to
+  a differentiable plain path.
 * ``decode_attention`` and ``KVCache`` serve one token per row against a
   padded cache.  ``KVCache.append`` writes into the cache's buffers in
   place (the reference's functional update returns new arrays; the port
@@ -109,7 +111,8 @@ def flash_attention(
 ) -> Tensor:
     """The flash route (``attn_impl='pallas'``), forward only: K8 on CUDA
     tensors (K8 picks its own tiles), ``blockwise_attention`` at its default
-    tiles on the CPU.  No window: the windowed archs are not ported yet."""
+    tiles on the CPU.  No window: configs with a window schedule stay on
+    the blockwise route, as the reference keeps them off its kernel."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise unported("attn_impl='pallas' with gradients (K8 has no "
                        "backward yet)", "LM training")

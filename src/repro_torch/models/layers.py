@@ -3,10 +3,11 @@
 The port of ``repro.models.layers``.  The inits draw the reference's
 distributions from an explicit ``torch.Generator`` (the same laws, not the
 same numbers: ``convert.lm_params_from_numpy`` carries the reference's own
-values over).  They draw on the CPU in fp32 and cast, so a seed gives the
-same parameters on every device.  The reference's ``PV`` leaves and
-``split_tree`` carry logical sharding axes; they wait for the multi-device
-item, and ``apply_m_rope`` for the VLM family (ROADMAP.md, Queue 1).
+values over).  They draw in fp32 on the generator's device and cast: a CPU
+generator gives the same parameters on every device, a CUDA generator draws
+a model too large for the host straight onto the card.  The reference's
+``PV`` leaves and ``split_tree`` carry logical sharding axes; they wait for
+the multi-device LM item (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -27,16 +28,17 @@ def dense_init(
     """Normal weights with std ``fan_in ** -0.5`` (fan_in = shape[0])."""
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) * scale
-    return w.to(dtype)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * scale).to(dtype)
 
 
-def zeros_init(shape, dtype=torch.bfloat16) -> Tensor:
-    return torch.zeros(shape, dtype=dtype)
+def zeros_init(shape, dtype=torch.bfloat16, device=None) -> Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def ones_init(shape, dtype=torch.bfloat16) -> Tensor:
-    return torch.ones(shape, dtype=dtype)
+def ones_init(shape, dtype=torch.bfloat16, device=None) -> Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +64,7 @@ def layer_norm(x: Tensor, weight: Tensor, bias: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (classic + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -85,6 +87,41 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4) -> Tensor:
     return out.to(x.dtype)
 
 
+def apply_m_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
+                 sections=(16, 24, 24)) -> Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions (B, T, 3) = (t, h, w) ids.
+
+    The head_dim/2 frequency slots are split into ``sections`` groups, each
+    rotated by one positional stream.  For text tokens the three streams
+    are equal and M-RoPE degenerates to 1-D RoPE.
+    """
+    d = x.shape[-1]
+    n_half = d // 2
+    if sum(sections) != n_half:
+        raise ValueError(f"sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {n_half}")
+    freqs = rope_frequencies(d, theta, x.device)  # (D/2,)
+    bounds = torch.cumsum(torch.tensor(sections, device=x.device), 0)
+    slot = torch.arange(n_half, device=x.device)
+    sec_id = (slot[:, None] >= bounds[None, :]).sum(-1)  # (D/2,) in 0..2
+    angles = positions.to(torch.float32)[..., sec_id] * freqs  # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal(max_len: int, d: int) -> Tensor:
+    """The (max_len, d) fp32 table of absolute positions (whisper): sines
+    then cosines, ``repro.models.transformer._sinusoidal``."""
+    pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32)[None]
+    inv = torch.exp(-torch.log(torch.tensor(10000.0)) * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -93,8 +130,8 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4) -> Tensor:
 def embed_init(generator: torch.Generator, vocab: int, d_model: int,
                dtype=torch.bfloat16) -> Tensor:
     w = torch.randn((vocab, d_model), generator=generator,
-                    dtype=torch.float32) * (d_model ** -0.5)
-    return w.to(dtype)
+                    dtype=torch.float32, device=generator.device)
+    return (w * (d_model ** -0.5)).to(dtype)
 
 
 def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:

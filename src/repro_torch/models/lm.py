@@ -25,12 +25,25 @@ def softmax_xent(logits: Tensor, targets: Tensor) -> Tensor:
 
 
 def loss_fn(model: Transformer, batch: Dict) -> Tuple[Tensor, Dict]:
-    """Next-token CE of a {'tokens', 'targets'} batch (B, T), plus the
-    family's aux losses (zero for the dense family)."""
-    logits, aux = model.train_logits(batch["tokens"])
+    """Next-token CE of a batch, plus the family's aux losses
+    (``+ 0.01 lb + 1e-3 z``; zero for dense layers, absent for the
+    attention-free families).  The batch is {'tokens', 'targets'} (B, T);
+    for ``input_mode='embeds'`` {'embeds' (B, T, d_model), 'targets'}; for
+    the encoder-decoder {'embeds' (encoder frames), 'targets'}, the
+    decoder teacher-forced on the targets.  Only a token batch shifts the
+    targets left."""
+    cfg = model.cfg
+    if cfg.is_encdec:
+        kwargs = dict(tokens=batch["targets"], enc_embeds=batch["embeds"])
+    elif cfg.input_mode == "embeds":
+        kwargs = dict(embeds=batch["embeds"])
+    else:
+        kwargs = dict(tokens=batch["tokens"])
+    logits, aux = model.train_logits(**kwargs)
     targets = model.as_tokens(batch["targets"])
-    # next-token objective: shift targets left
-    loss = softmax_xent(logits[:, :-1], targets[:, 1:])
+    if not cfg.is_encdec and "tokens" in batch:
+        logits, targets = logits[:, :-1], targets[:, 1:]
+    loss = softmax_xent(logits, targets)
     metrics = {"xent": loss}
     if aux:
         lb, zl = aux["lb_loss"], aux["z_loss"]
@@ -50,7 +63,15 @@ def make_eval_step(model: Transformer) -> Callable:
 
 
 def make_prefill_step(model: Transformer) -> Callable:
+    cfg = model.cfg
+
     def prefill_step(batch):
+        if cfg.is_encdec:
+            # prefill = encode the (stub) frames; the decoder starts from BOS
+            bos = torch.zeros((len(batch["embeds"]), 1), dtype=torch.int64)
+            return model.prefill(tokens=bos, enc_embeds=batch["embeds"])
+        if cfg.input_mode == "embeds":
+            return model.prefill(embeds=batch["embeds"])
         return model.prefill(batch["tokens"])
 
     return prefill_step

@@ -1,12 +1,15 @@
-"""The dense decoder-only LM, built from one ArchConfig.
+"""The multi-family LM stack: dense / MoE / RWKV6 / Mamba2-hybrid /
+encoder-decoder, built from one ArchConfig.
 
-The port of the dense family of ``repro.models.transformer``.  Parameters
-keep the reference's names: ``Transformer`` is an ``nn.Module`` whose
-parameters read like the reference's values tree (``model["embed"]``,
+The port of ``repro.models.transformer``.  Parameters keep the reference's
+names: ``Transformer`` is an ``nn.Module`` whose parameters read like the
+reference's values tree (``model["embed"]``,
 ``model["layers"][i]["attn"]["wq"]``); the reference stacks the layers on a
-leading axis for ``lax.scan``, the port keeps an ``nn.ModuleList`` and
-``convert.lm_params_from_numpy`` splits the stack.  The model lives on one
-device, CUDA unless the caller passes ``device="cpu"``.
+leading axis for ``lax.scan``, the port keeps an ``nn.ModuleList``
+(``layers``, and ``enc_layers``/``dec_layers`` for the encoder-decoder) and
+``convert.lm_params_from_numpy`` splits the stack.  The hybrid's one shared
+attention block (``shared_attn``) is unstacked in both.  The model lives on
+one device, CUDA unless the caller passes ``device="cpu"``.
 
 Eager PyTorch runs each layer as it comes, so the reference's remat policy
 (``remat_policy``) and its optimization barrier (``act_barrier``) have no
@@ -14,10 +17,12 @@ counterpart: nothing is compiled across layers, and the serving entry
 points keep no autograd state.  ``prefill`` and ``decode_step`` run without
 gradients; ``train_logits`` leaves that to its caller.
 
-Not ported yet, each raising ``NotImplementedError`` at construction with
-its ROADMAP.md item: the MoE, hybrid-SSM, encoder-decoder and RWKV
-families, M-RoPE and the embeddings frontend (VLM), and window schedules
-(gemma3) - all under 'LM families'.
+Behaviours kept from the reference so both packages serve the same tokens:
+decode ropes every row at ``cache.length[0]``; a window schedule (gemma3)
+keeps the flash route off K8 (it attends blockwise with the layer's
+window); the MoE decode routes at capacity factor 2.0; the encoder-decoder's
+decode cache holds zero-length cross caches (``enc_len=0``), which nothing
+fills, so decode's cross attention adds 0.
 """
 from __future__ import annotations
 
@@ -28,35 +33,29 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.types import Tensor, resolve_device, unported
+from repro_torch.core.types import Tensor, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       embed_lookup, layer_norm, ones_init,
-                                       rms_norm, unembed, zeros_init)
+from repro_torch.models.layers import (apply_m_rope, apply_rope, dense_init,
+                                       embed_init, embed_lookup, layer_norm,
+                                       ones_init, rms_norm, sinusoidal,
+                                       unembed, zeros_init)
 
-LM_FAMILIES = "LM families"
+# the parameter lists the reference stacks on a leading 'layers' axis
+STACKED = ("layers", "enc_layers", "dec_layers")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot build yet."""
-    if cfg.family == "moe":
-        raise unported("family 'moe'", LM_FAMILIES)
-    if cfg.family in ("hybrid", "ssm"):
-        raise unported(f"family {cfg.family!r}", LM_FAMILIES)
-    if cfg.family == "encdec" or cfg.is_encdec:
-        raise unported("family 'encdec'", LM_FAMILIES)
-    if cfg.rwkv:
-        raise unported("rwkv=True", LM_FAMILIES)
-    if cfg.m_rope:
-        raise unported("m_rope=True", LM_FAMILIES)
-    if cfg.input_mode == "embeds":
-        raise unported("input_mode='embeds'", LM_FAMILIES)
-    if cfg.window_pattern:
-        raise unported("a window_pattern", LM_FAMILIES)
-    if cfg.pos != "rope":
-        raise unported(f"pos={cfg.pos!r}", LM_FAMILIES)
+    """Raise ``ValueError`` for a config no package can build: a width the
+    RWKV heads do not divide (M-RoPE sections that do not cover head_dim / 2
+    raise in ``apply_m_rope``).  Every registry config passes."""
+    if cfg.rwkv and cfg.d_model % cfg.rwkv_head_dim:
+        raise ValueError(f"rwkv_head_dim {cfg.rwkv_head_dim} does not divide "
+                         f"d_model {cfg.d_model}")
 
 
 class ParamTree(nn.Module):
@@ -104,17 +103,29 @@ def _norm(cfg: ArchConfig, p, x: Tensor, name: str) -> Tensor:
     return rms_norm(x, p[f"{name}_w"], cfg.rms_eps)
 
 
-def _norm_init(cfg: ArchConfig, d: int, name: str) -> Dict[str, Tensor]:
+def _norm_init(cfg: ArchConfig, d: int, name: str,
+               device=None) -> Dict[str, Tensor]:
     if cfg.norm == "layernorm":
-        return {f"{name}_w": ones_init((d,), cfg.dtype),
-                f"{name}_b": zeros_init((d,), cfg.dtype)}
-    return {f"{name}_w": zeros_init((d,), cfg.dtype)}
+        return {f"{name}_w": ones_init((d,), cfg.dtype, device),
+                f"{name}_b": zeros_init((d,), cfg.dtype, device)}
+    return {f"{name}_w": zeros_init((d,), cfg.dtype, device)}
 
 
 def _scale_embed(cfg: ArchConfig, x: Tensor) -> Tensor:
     """x * sqrt(d_model), the factor rounded to x's dtype as the reference
     rounds it."""
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+
+
+def _rope(cfg: ArchConfig, q: Tensor, k: Tensor, positions: Tensor):
+    """RoPE on q and k at positions (B, T); M-RoPE's three streams are
+    (t, t, t), the text tokens' degenerate streams."""
+    if cfg.m_rope:
+        pos3 = positions[..., None].expand(*positions.shape, 3)
+        return (apply_m_rope(q, pos3, cfg.rope_theta, cfg.m_rope_sections),
+                apply_m_rope(k, pos3, cfg.rope_theta, cfg.m_rope_sections))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +136,7 @@ def _scale_embed(cfg: ArchConfig, x: Tensor) -> Tensor:
 def attn_init(generator: torch.Generator, cfg: ArchConfig) -> Dict:
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    dev = generator.device
     p = {
         "wq": dense_init(generator, (d, nq), cfg.dtype),
         "wk": dense_init(generator, (d, nkv), cfg.dtype),
@@ -132,9 +144,9 @@ def attn_init(generator: torch.Generator, cfg: ArchConfig) -> Dict:
         "wo": dense_init(generator, (nq, d), cfg.dtype),
     }
     if cfg.qkv_bias:
-        p["bq"] = zeros_init((nq,), cfg.dtype)
-        p["bk"] = zeros_init((nkv,), cfg.dtype)
-        p["bv"] = zeros_init((nkv,), cfg.dtype)
+        p["bq"] = zeros_init((nq,), cfg.dtype, dev)
+        p["bk"] = zeros_init((nkv,), cfg.dtype, dev)
+        p["bv"] = zeros_init((nkv,), cfg.dtype, dev)
     return p
 
 
@@ -162,15 +174,18 @@ def attn_apply_full(
     window: Union[int, Tensor],
     *,
     causal: bool = True,
+    kv_x: Optional[Tensor] = None,       # cross attention source
 ) -> Tensor:
     """Training/prefill attention over a full sequence: K8 on the flash
-    route (``attn_impl='pallas'``) on a CUDA device, else blockwise."""
+    route (``attn_impl='pallas'``) on a CUDA device unless the config has a
+    window schedule, else blockwise.  Self attention ropes at positions
+    0..T-1 when ``cfg.pos == 'rope'``; cross attention never ropes."""
     b, t, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, x)
-    positions = torch.arange(t, device=x.device)[None].expand(b, t)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "pallas":
+    q, k, v = _qkv(cfg, p, x, kv_x if kv_x is not None else x)
+    if cfg.pos == "rope" and kv_x is None:
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        q, k = _rope(cfg, q, k, positions)
+    if cfg.attn_impl == "pallas" and not cfg.window_pattern:
         out = attn_mod.flash_attention(q, k, v, causal=causal)
     else:
         out = attn_mod.blockwise_attention(
@@ -186,55 +201,122 @@ def attn_apply_decode(
     x: Tensor,             # (B, 1, d)
     cache: KVCache,
     window: Union[int, Tensor],
+    *,
+    cross: bool = False,
 ) -> Tuple[Tensor, KVCache]:
     """One token per row.  Every row is roped at ``cache.length[0]`` while
     ``KVCache.append`` writes each row at its own length: the reference's
-    behaviour, kept so both packages serve the same tokens."""
+    behaviour, kept so both packages serve the same tokens.  ``cross``
+    attends the cache's (encoder) keys as they are and appends nothing."""
     b = x.shape[0]
+    hd = cfg.head_dim
+    if cross:
+        q = x @ p["wq"].to(x.dtype)
+        if "bq" in p:
+            q = q + p["bq"].to(q.dtype)
+        q = q.reshape(b, 1, cfg.n_heads, hd)
+        out = attn_mod.decode_attention(q, cache.k, cache.v, cache.length,
+                                        window=0)
+        out = out.reshape(b, 1, cfg.n_heads * hd)
+        return out @ p["wo"].to(x.dtype), cache
     q, k, v = _qkv(cfg, p, x, x)
-    positions = cache.length[:1].expand(b)[:, None]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q, k = _rope(cfg, q, k, cache.length[:1].expand(b)[:, None])
     cache = cache.append(k, v)
     out = attn_mod.decode_attention(q, cache.k, cache.v, cache.length,
                                     window=window)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(b, 1, cfg.n_heads * hd)
     return out @ p["wo"].to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------
-# decoder layer
+# decoder layer (dense / moe)
 # ---------------------------------------------------------------------------
 
 
-def layer_init(generator: torch.Generator, cfg: ArchConfig) -> Dict:
+def layer_init(generator: torch.Generator, cfg: ArchConfig,
+               cross: bool = False) -> Dict:
     d = cfg.d_model
+    dev = generator.device
     p: Dict[str, Any] = {"attn": attn_init(generator, cfg)}
-    p.update(_norm_init(cfg, d, "ln_attn"))
-    p["mlp"] = ffn_mod.mlp_init(generator, d, cfg.d_ff, cfg.dtype,
-                                gated=(cfg.act == "silu"))
-    p.update(_norm_init(cfg, d, "ln_mlp"))
+    p.update(_norm_init(cfg, d, "ln_attn", dev))
+    if cross:
+        p["cross"] = attn_init(generator, cfg)
+        p.update(_norm_init(cfg, d, "ln_cross", dev))
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
+                                    cfg.dtype)
+    else:
+        p["mlp"] = ffn_mod.mlp_init(generator, d, cfg.d_ff, cfg.dtype,
+                                    gated=(cfg.act == "silu"))
+    p.update(_norm_init(cfg, d, "ln_mlp", dev))
     return p
 
 
 def layer_apply_full(
     cfg: ArchConfig, p, x: Tensor, window, *, causal: bool = True,
+    enc_out: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Dict]:
+    aux: Dict[str, Tensor] = {}
     h = attn_apply_full(cfg, p["attn"], _norm(cfg, p, x, "ln_attn"), window,
                         causal=causal)
     x = x + h
-    h = ffn_mod.mlp_apply(p["mlp"], _norm(cfg, p, x, "ln_mlp"), cfg.act)
-    return x + h, {}
+    if "cross" in p and enc_out is not None:
+        h = attn_apply_full(cfg, p["cross"], _norm(cfg, p, x, "ln_cross"), 0,
+                            causal=False, kv_x=enc_out)
+        x = x + h
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe_apply(p["moe"], _norm(cfg, p, x, "ln_mlp"),
+                                   capacity_factor=cfg.capacity_factor,
+                                   activation=cfg.act)
+    else:
+        h = ffn_mod.mlp_apply(p["mlp"], _norm(cfg, p, x, "ln_mlp"), cfg.act)
+    return x + h, aux
 
 
 def layer_apply_decode(
     cfg: ArchConfig, p, x: Tensor, cache: KVCache, window,
+    cross_cache: Optional[KVCache] = None,
 ) -> Tuple[Tensor, KVCache]:
     h, cache = attn_apply_decode(cfg, p["attn"], _norm(cfg, p, x, "ln_attn"),
                                  cache, window)
     x = x + h
-    h = ffn_mod.mlp_apply(p["mlp"], _norm(cfg, p, x, "ln_mlp"), cfg.act)
+    if "cross" in p and cross_cache is not None:
+        h, _ = attn_apply_decode(cfg, p["cross"], _norm(cfg, p, x, "ln_cross"),
+                                 cross_cache, 0, cross=True)
+        x = x + h
+    if cfg.family == "moe":
+        # the reference's decode capacity, not cfg.capacity_factor
+        h, _ = moe_mod.moe_apply(p["moe"], _norm(cfg, p, x, "ln_mlp"),
+                                 capacity_factor=2.0, activation=cfg.act)
+    else:
+        h = ffn_mod.mlp_apply(p["mlp"], _norm(cfg, p, x, "ln_mlp"), cfg.act)
     return x + h, cache
+
+
+# ---------------------------------------------------------------------------
+# rwkv / ssm layers (attention-free families)
+# ---------------------------------------------------------------------------
+
+
+def rwkv_layer_init(generator: torch.Generator, cfg: ArchConfig) -> Dict:
+    d = cfg.d_model
+    p: Dict[str, Any] = {"time_mix": rwkv_mod.rwkv_block_init(
+        generator, d, cfg.rwkv_head_dim, dtype=cfg.dtype)}
+    p.update(_norm_init(cfg, d, "ln_attn", generator.device))
+    p["mlp"] = ffn_mod.mlp_init(generator, d, cfg.d_ff, cfg.dtype,
+                                gated=True)
+    p.update(_norm_init(cfg, d, "ln_mlp", generator.device))
+    return p
+
+
+def ssm_layer_init(generator: torch.Generator, cfg: ArchConfig) -> Dict:
+    d = cfg.d_model
+    p: Dict[str, Any] = {"ssm": ssm_mod.ssm_block_init(
+        generator, d, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_expand,
+        cfg.dtype)}
+    p.update(_norm_init(cfg, d, "ln_attn", generator.device))
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -243,24 +325,45 @@ def layer_apply_decode(
 
 
 def init_tree(cfg: ArchConfig, generator: torch.Generator) -> Dict[str, Any]:
-    """The parameters as a nested dict of CPU tensors, in the reference's
-    names and draw order (embed, unembed, the layers)."""
+    """The parameters as a nested dict of tensors on the generator's
+    device, in the reference's names and draw order."""
+    dev = generator.device
     p: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
                             cfg.dtype)}
-    p.update(_norm_init(cfg, cfg.d_model, "ln_f"))
+    p.update(_norm_init(cfg, cfg.d_model, "ln_f", dev))
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(generator, (cfg.padded_vocab, cfg.d_model),
                                   cfg.dtype, fan_in=cfg.d_model)
-    p["layers"] = [layer_init(generator, cfg) for _ in range(cfg.n_layers)]
+    if cfg.is_encdec:
+        p["enc_layers"] = [layer_init(generator, cfg)
+                           for _ in range(cfg.enc_layers)]
+        p["dec_layers"] = [layer_init(generator, cfg, cross=True)
+                           for _ in range(cfg.dec_layers)]
+        p.update(_norm_init(cfg, cfg.d_model, "ln_enc", dev))
+        # absolute positions for whisper-style models
+        p["pos_embed"] = sinusoidal(cfg.max_abs_pos, cfg.d_model).to(
+            device=dev, dtype=cfg.dtype)
+    elif cfg.rwkv:
+        p["layers"] = [rwkv_layer_init(generator, cfg)
+                       for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        p["layers"] = [ssm_layer_init(generator, cfg)
+                       for _ in range(cfg.n_layers)]
+        p["shared_attn"] = layer_init(generator, cfg)  # ONE shared block
+    else:
+        p["layers"] = [layer_init(generator, cfg)
+                       for _ in range(cfg.n_layers)]
     return p
 
 
 class Transformer(ParamTree):
-    """The dense decoder-only LM on one device.
+    """The LM of any registry family on one device.
 
-    ``generator`` seeds the parameters (default: seed 0); they are drawn on
-    the CPU and moved, so one seed gives one model on every device.
+    ``generator`` seeds the parameters (default: a CPU generator at seed
+    0).  They are drawn on the generator's device and moved: a CPU
+    generator gives one model on every device, a CUDA generator draws a
+    model too large for the host on the card.
     """
 
     def __init__(self, cfg: ArchConfig, device=None,
@@ -281,72 +384,243 @@ class Transformer(ParamTree):
         return torch.tensor([cfg.window_for_layer(i) for i in range(n_layers)],
                             dtype=torch.int32)
 
-    # ---- forward (train / prefill trunk) ------------------------------------
+    # ---- inputs -------------------------------------------------------------
 
     def as_tokens(self, tokens) -> Tensor:
         if isinstance(tokens, np.ndarray):
             tokens = torch.from_numpy(tokens)
         return tokens.to(device=self.device, dtype=torch.int64)
 
+    def as_embeds(self, embeds) -> Tensor:
+        """Frame or patch embeddings (B, T, d_model) on the model's device
+        in its dtype (the reference's input spec for ``input_mode =
+        'embeds'``)."""
+        if isinstance(embeds, np.ndarray):
+            embeds = torch.from_numpy(np.asarray(embeds, np.float32))
+        return embeds.to(device=self.device, dtype=self.cfg.dtype)
+
     def _embed(self, tokens) -> Tensor:
         x = embed_lookup(self["embed"], self.as_tokens(tokens))
         return _scale_embed(self.cfg, x)
 
-    def _trunk(self, x: Tensor) -> Tuple[Tensor, Dict]:
+    # ---- forward (train / prefill trunk) ------------------------------------
+
+    def _trunk(self, x: Tensor, *, enc_out: Optional[Tensor] = None
+               ) -> Tuple[Tensor, Dict]:
+        """The decoder stack.  Aux: the layers' mean lb and z losses (zero
+        for dense layers); none for the attention-free families."""
         cfg = self.cfg
-        windows = self.window_schedule(cfg.n_layers).tolist()
-        for lp, w in zip(self["layers"], windows):
-            x, _ = layer_apply_full(cfg, lp, x, w)
+        if cfg.rwkv:
+            return self._trunk_rwkv(x)
+        if cfg.family == "hybrid":
+            return self._trunk_hybrid(x)
+        key = "dec_layers" if cfg.is_encdec else "layers"
+        windows = self.window_schedule(len(self[key])).tolist()
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, {"lb_loss": zero, "z_loss": zero}
+        lb, zl = [], []
+        for lp, w in zip(self[key], windows):
+            x, aux = layer_apply_full(cfg, lp, x, w, enc_out=enc_out)
+            lb.append(aux.get("lb_loss", zero))
+            zl.append(aux.get("z_loss", zero))
+        return x, {"lb_loss": torch.stack(lb).mean(),
+                   "z_loss": torch.stack(zl).mean()}
+
+    def _trunk_rwkv(self, x: Tensor) -> Tuple[Tensor, Dict]:
+        cfg = self.cfg
+        b = x.shape[0]
+        hd = cfg.rwkv_head_dim
+        nh = cfg.d_model // hd
+        for lp in self["layers"]:
+            st = rwkv_mod.RwkvState(
+                s=x.new_zeros((b, nh, hd, hd), dtype=torch.float32),
+                x_last=x.new_zeros((b, cfg.d_model)))
+            h, _ = rwkv_mod.rwkv_block_apply(
+                lp["time_mix"], _norm(cfg, lp, x, "ln_attn"), st,
+                head_dim=hd, chunk=cfg.scan_chunk, eps=cfg.rms_eps)
+            x = x + h
+            h = ffn_mod.mlp_apply(lp["mlp"], _norm(cfg, lp, x, "ln_mlp"),
+                                  cfg.act)
+            x = x + h
+        return x, {}
+
+    def _trunk_hybrid(self, x: Tensor) -> Tuple[Tensor, Dict]:
+        """SSM layers with the one shared attention block after each run
+        of ``attn_every`` of them (none after a shorter last run)."""
+        cfg = self.cfg
+        b = x.shape[0]
+        for i, lp in enumerate(self["layers"]):
+            st = ssm_mod.ssm_state_init(b, cfg.d_model, cfg.ssm_state,
+                                        cfg.ssm_head_dim, cfg.ssm_expand,
+                                        device=x.device)
+            h, _ = ssm_mod.ssm_block_apply(
+                lp["ssm"], _norm(cfg, lp, x, "ln_attn"), st,
+                ssm_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand, chunk=cfg.scan_chunk, eps=cfg.rms_eps)
+            x = x + h
+            if (i + 1) % cfg.attn_every == 0:
+                x, _ = layer_apply_full(cfg, self["shared_attn"], x, 0)
+        return x, {}
+
+    def _encode(self, enc_embeds: Tensor) -> Tensor:
+        """The non-causal encoder over frame embeddings plus absolute
+        positions, normed by ``ln_enc``."""
+        cfg = self.cfg
+        enc = enc_embeds + self["pos_embed"][:enc_embeds.shape[1]][None]
+        windows = self.window_schedule(cfg.enc_layers).tolist()
+        for lp, w in zip(self["enc_layers"], windows):
+            enc, _ = layer_apply_full(cfg, lp, enc, w, causal=False)
+        return _norm(cfg, self, enc, "ln_enc")
+
+    def _hidden(self, tokens=None, embeds=None, enc_embeds=None
+                ) -> Tuple[Tensor, Dict]:
+        """The last hidden states (B, T, d_model) before ``ln_f``, and the
+        aux losses."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            enc = self._encode(self.as_embeds(enc_embeds))
+            # encoder-decoder models do not scale the embedding
+            x = embed_lookup(self["embed"], self.as_tokens(tokens))
+            x = x + self["pos_embed"][:x.shape[1]][None].to(x.dtype)
+            return self._trunk(x, enc_out=enc)
+        x = self.as_embeds(embeds) if embeds is not None else \
+            self._embed(tokens)
+        return self._trunk(x)
 
     def _logits(self, x: Tensor) -> Tensor:
         x = _norm(self.cfg, self, x, "ln_f")
         return unembed(x, self.get("unembed", self["embed"]))
 
-    def train_logits(self, tokens) -> Tuple[Tensor, Dict]:
-        """f32 logits (B, T, V) of a token batch (B, T), and the aux losses
-        (zero for the dense family)."""
-        x, aux = self._trunk(self._embed(tokens))
+    def train_logits(self, tokens=None, embeds=None, enc_embeds=None
+                     ) -> Tuple[Tensor, Dict]:
+        """f32 logits (B, T, V) and the aux losses, from tokens (B, T), or
+        embeddings (B, T, d_model) for ``input_mode='embeds'``, or, for
+        the encoder-decoder, decoder tokens and encoder frames
+        ``enc_embeds`` (B, T_enc, d_model)."""
+        x, aux = self._hidden(tokens, embeds, enc_embeds)
         return self._logits(x), aux
 
     @torch.no_grad()
-    def prefill(self, tokens) -> Tensor:
+    def prefill(self, tokens=None, embeds=None, enc_embeds=None) -> Tensor:
         """Full-sequence forward returning the last position's f32 logits
         (B, V).  Only that position goes through ``ln_f`` and the unembed:
         the same arithmetic for the row returned, without the (B, T, V)
         logits the reference builds and slices."""
-        x, _ = self._trunk(self._embed(tokens))
+        x, _ = self._hidden(tokens, embeds, enc_embeds)
         return self._logits(x[:, -1:])[:, -1]
 
     # ---- caches ---------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, Tensor]:
-        """The reference's cache layout: k, v (L, B, S, KV, D) in the
-        model's dtype and len (B,) int32."""
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0
+                   ) -> Dict[str, Tensor]:
+        """The reference's cache layout, every per-row leaf's batch on
+        axis 1 but ``len``'s and ``enc_len``'s (axis 0).  Attention caches
+        are (L, B, S, KV, D) in the model's dtype; RWKV's state s
+        (L, B, H, D, D) fp32 and x_last (L, B, d); the hybrid's SSD state
+        s (L, B, H, N, P) fp32, conv tail (L, B, K-1, C) and one KV cache
+        per shared-block site (n_layers // attn_every)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-            "len": torch.zeros((batch,), dtype=torch.int32,
-                               device=self.device),
-        }
+
+        def zeros(shape, dtype=cfg.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        length = zeros((batch,), torch.int32)
+        if cfg.rwkv:
+            hd = cfg.rwkv_head_dim
+            nh = cfg.d_model // hd
+            return {"s": zeros((cfg.n_layers, batch, nh, hd, hd),
+                               torch.float32),
+                    "x_last": zeros((cfg.n_layers, batch, cfg.d_model)),
+                    "len": length}
+        if cfg.family == "hybrid":
+            d_in = cfg.ssm_expand * cfg.d_model
+            nh = d_in // cfg.ssm_head_dim
+            conv_dim = d_in + 2 * cfg.ssm_state
+            n_sites = cfg.n_layers // cfg.attn_every
+            kv = (n_sites, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            return {"s": zeros((cfg.n_layers, batch, nh, cfg.ssm_state,
+                                cfg.ssm_head_dim), torch.float32),
+                    "conv": zeros((cfg.n_layers, batch, ssm_mod.CONV_K - 1,
+                                   conv_dim)),
+                    "attn_k": zeros(kv), "attn_v": zeros(kv),
+                    "len": length}
+        n_layers = cfg.dec_layers if cfg.is_encdec else cfg.n_layers
+        shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        cache = {"k": zeros(shape), "v": zeros(shape), "len": length}
+        if cfg.is_encdec:
+            cross = (n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            cache.update(cross_k=zeros(cross), cross_v=zeros(cross),
+                         enc_len=zeros((batch,), torch.int32))
+        return cache
 
     # ---- decode -----------------------------------------------------------------
 
     @torch.no_grad()
     def decode_step(self, token, cache: Dict[str, Tensor]
                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """One token (B, 1) per row: f32 logits (B, V) and the cache, its k
-        and v updated in place, its len advanced by one."""
+        """One token (B, 1) per row: f32 logits (B, V) and the cache, its
+        state buffers updated in place, its len advanced by one."""
         cfg = self.cfg
-        x = self._embed(token)
-        windows = self.window_schedule(cfg.n_layers).tolist()
-        for i, (lp, w) in enumerate(zip(self["layers"], windows)):
+        if cfg.rwkv:
+            return self._decode_rwkv(token, cache)
+        if cfg.family == "hybrid":
+            return self._decode_hybrid(token, cache)
+        x = embed_lookup(self["embed"], self.as_tokens(token))
+        if not cfg.is_encdec:  # matches train_logits' scaling convention
+            x = _scale_embed(cfg, x)
+        if cfg.pos == "absolute":
+            # the reference's dynamic_slice clamps the start into the table
+            pos = cache["len"][0].clamp(0, self["pos_embed"].shape[0] - 1)
+            x = x + self["pos_embed"][pos][None, None].to(x.dtype)
+        key = "dec_layers" if cfg.is_encdec else "layers"
+        windows = self.window_schedule(len(self[key])).tolist()
+        for i, (lp, w) in enumerate(zip(self[key], windows)):
             layer_cache = KVCache(k=cache["k"][i], v=cache["v"][i],
                                   length=cache["len"])
-            x, _ = layer_apply_decode(cfg, lp, x, layer_cache, w)
+            cross = KVCache(k=cache["cross_k"][i], v=cache["cross_v"][i],
+                            length=cache["enc_len"]) if cfg.is_encdec \
+                else None
+            x, _ = layer_apply_decode(cfg, lp, x, layer_cache, w, cross)
+        new_cache = dict(cache)
+        new_cache["len"] = cache["len"] + 1
+        return self._logits(x)[:, -1], new_cache
+
+    def _decode_rwkv(self, token, cache):
+        cfg = self.cfg
+        x = self._embed(token)
+        for i, lp in enumerate(self["layers"]):
+            st = rwkv_mod.RwkvState(s=cache["s"][i], x_last=cache["x_last"][i])
+            h, st2 = rwkv_mod.rwkv_decode_step(
+                lp["time_mix"], _norm(cfg, lp, x, "ln_attn"), st,
+                head_dim=cfg.rwkv_head_dim, eps=cfg.rms_eps)
+            cache["s"][i] = st2.s
+            cache["x_last"][i] = st2.x_last
+            x = x + h
+            h = ffn_mod.mlp_apply(lp["mlp"], _norm(cfg, lp, x, "ln_mlp"),
+                                  cfg.act)
+            x = x + h
+        new_cache = dict(cache)
+        new_cache["len"] = cache["len"] + 1
+        return self._logits(x)[:, -1], new_cache
+
+    def _decode_hybrid(self, token, cache):
+        cfg = self.cfg
+        x = self._embed(token)
+        for i, lp in enumerate(self["layers"]):
+            st = ssm_mod.SsmState(s=cache["s"][i], conv=cache["conv"][i])
+            h, st2 = ssm_mod.ssm_block_apply(
+                lp["ssm"], _norm(cfg, lp, x, "ln_attn"), st,
+                ssm_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand, chunk=1, eps=cfg.rms_eps)
+            cache["s"][i] = st2.s
+            cache["conv"][i] = st2.conv
+            x = x + h
+            if (i + 1) % cfg.attn_every == 0:
+                site = i // cfg.attn_every
+                layer_cache = KVCache(k=cache["attn_k"][site],
+                                      v=cache["attn_v"][site],
+                                      length=cache["len"])
+                x, _ = layer_apply_decode(cfg, self["shared_attn"], x,
+                                          layer_cache, 0)
         new_cache = dict(cache)
         new_cache["len"] = cache["len"] + 1
         return self._logits(x)[:, -1], new_cache

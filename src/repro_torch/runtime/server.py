@@ -4,7 +4,9 @@ The port of ``repro.runtime.server``:
   * requests queue up with prompts; the slot scheduler (``SlotScheduler``,
     shared with the stream server) packs up to ``max_batch`` concurrent
     sequences into the fixed decode batch (padding unused rows),
-  * prompts go through the decode path token by token,
+  * prompts go through the decode path token by token (every family:
+    attention caches, RWKV and SSD states, the encoder-decoder's zero
+    cross caches),
   * each decode step emits one token for every live row; finished rows
     (EOS or max_tokens) retire and their slots are refilled (continuous
     batching),
@@ -74,12 +76,16 @@ class Server:
 
     def _reset_row(self, i: int):
         """Zero row i of every per-row cache buffer (slot reuse), in
-        place."""
+        place: every family's cache keeps its rows on axis 1 of each
+        stacked leaf (k, v, cross_k, cross_v, s, x_last, conv, attn_k,
+        attn_v) and on axis 0 of ``len`` and ``enc_len``.  The reference
+        finds the axis by matching ``max_batch`` against the shape; the
+        fixed axis cannot mistake a layer axis of that extent for it."""
         for leaf in self.cache.values():
-            if leaf.ndim >= 2 and leaf.shape[1] == self.max_batch:
-                leaf[:, i] = 0
-            elif leaf.ndim >= 1 and leaf.shape[0] == self.max_batch:
+            if leaf.ndim == 1:
                 leaf[i] = 0
+            else:
+                leaf[:, i] = 0
 
     # -- the decode loop -----------------------------------------------------------
 

@@ -26,6 +26,7 @@ from repro.core.types import DFRConfig as RConfig
 from repro.distributed import sharding as rshd
 from repro_torch import convert
 from repro_torch.core import online
+from repro_torch.core.online import OnlineEnsemble
 from repro_torch.core.types import DFRConfig, RequestPool, WindowState
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as tmesh
@@ -121,6 +122,28 @@ def test_logical_axes_cover_state():
         assert len(ax) == leaf.ndim       # the pool's leaves carry S
 
 
+@pytest.mark.parametrize("name,lead", [
+    ("ensemble_logical_axes", ("member",)),
+    ("slot_logical_axes", ("slot",)),
+    ("ensemble_slot_logical_axes", ("slot", "member"))])
+def test_state_logical_axes_match_reference(name, lead):
+    """Each logical-axes tree equals the reference's leaf for leaf and
+    mirrors the state it names: ``OnlineEnsemble``'s tree (K members
+    stacked) for ``ensemble_logical_axes``, the one-stream state with the
+    leading dims stacked on for the slot trees."""
+    cfg = DFRConfig(n_in=2, n_classes=3, n_nodes=6)
+    got = getattr(online, name)()
+    want = getattr(ronline, name)()
+    pairs = _leaves_with_axes(got, want)
+    assert len(pairs) == 17 and all(g == w for g, w in pairs)
+    if name == "ensemble_logical_axes":
+        state, extra = OnlineEnsemble(cfg, 4, device="cpu").init(), 0
+    else:
+        state, extra = online.init_state(cfg), len(lead)
+    for leaf, ax in _leaves_with_axes(state, got):
+        assert ax[:len(lead)] == lead and len(ax) == leaf.ndim + extra
+
+
 def test_make_slot_mesh_and_placement():
     """``make_slot_mesh``: an explicit list may repeat a device; the default
     takes CUDA devices and raises with the counts when there are too few;
@@ -208,6 +231,7 @@ def run_ranks(tmp_path, body: str, inputs: dict, world: int = 2):
 ONLINE_STEP_BODY = '''
 from repro_torch import convert
 from repro_torch.core import online
+from repro_torch.core.online import OnlineEnsemble
 from repro_torch.core.types import DFRConfig
 
 

@@ -229,7 +229,8 @@ def test_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# the knobs the families brought (each raised until the families were
+# ported; tests/test_torch_families.py holds them in full)
 # ---------------------------------------------------------------------------
 
 
@@ -244,10 +245,35 @@ def test_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
     ("smollm-135m", {"pos": "absolute"}, "pos='absolute'"),
 ])
 def test_unported_knobs_raise(arch, updates, knob):
-    cfg = dataclasses.replace(pconfigs.get_reduced(arch), **updates)
-    with pytest.raises(NotImplementedError, match="LM families") as err:
-        Transformer(cfg, device="cpu")
-    assert knob in str(err.value)
+    """Each knob that raised before the families were ported now builds
+    and gives the reference's fp32 logits (within 1e-4 of the largest,
+    every argmax equal) on one sequence of 32 tokens or embeddings."""
+    kw = dict(updates, dtype=jnp.float32)
+    rcfg = dataclasses.replace(rconfigs.get_reduced(arch), **kw)
+    pcfg = dataclasses.replace(pconfigs.get_reduced(arch),
+                               **dict(updates, dtype=torch.float32))
+    rmodel = RTransformer(rcfg)
+    params, _ = rmodel.init(jax.random.PRNGKey(0))
+    pmodel = convert.lm_params_from_numpy(
+        Transformer(pcfg, device="cpu"),
+        jax.tree_util.tree_map(np.asarray, params))
+    rng = np.random.default_rng(5)
+    emb = rng.normal(size=(1, 32, pcfg.d_model)).astype(np.float32)
+    toks = _tokens(b=1, t=32, seed=5)
+    if pcfg.is_encdec:
+        inputs = dict(tokens=toks[:, :8], enc_embeds=emb)
+    elif pcfg.input_mode == "embeds":
+        inputs = dict(embeds=emb)
+    else:
+        inputs = dict(tokens=toks)
+    # jitted: an eager call traces and compiles the reference's scans
+    want, _ = jax.jit(rmodel.train_logits)(
+        params, **{k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        got, _ = pmodel.train_logits(**inputs)
+    _assert_logits(got, want, "float32")
+    np.testing.assert_array_equal(got.numpy().argmax(-1),
+                                  np.asarray(want).argmax(-1))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
