@@ -250,6 +250,34 @@ Phases, each fatal on failure:
      on the CPU with the same parameters, within phase 9's fp32 limits; and
      whisper so in bf16 at 8c's 1500 frames and BOS (K8's bf16 route at the
      decoder's 1 x 1 and 1 x 1500), within phase 9's bf16 limits.
+ 10. LM training at smollm-135m's full width: (a) ``python -m
+     repro_torch.launch.train --steps 20 --batch 8 --seq 512`` at its
+     defaults (attn_impl='xla', AdamW, the cosine schedule) as a
+     subprocess, 20 finite losses and 'done:', then again to step 25 from
+     its checkpoint ('resumed from step 20'); (b) the Trainer in process
+     on the flash route, bf16, AdamW and a cosine schedule at peak 1e-3,
+     (B, T) = (8, 2048), 30 steps: K8's launches over one step set to 0
+     before and read after (60: forward and remat recompute, a layer),
+     the median step time (host clock, the loss waited on), tokens/s,
+     peak allocated memory, one step under torch.profiler (the device's
+     busy share, K8's share, the recompute backward's span), the last
+     loss below the first; (c) the same loop with a fault injected at
+     step 7 and checkpoints every 5 steps: the Trainer restores step 5
+     and replays, each final parameter within 1e-3 of its leaf's largest
+     move since the seeded init in (b)'s run at step 10 (bit for bit in
+     bf16, at these moves).
+ 10b. One AdamW step of smollm-135m at full width and 2 layers, fp32,
+     B=2, T=256, on the card and on the CPU with the same parameters: the
+     loss within rtol 1e-5, grad_norm 1e-4, the moments mu and nu within
+     1e-4 of each leaf's largest entry, each parameter within 1e-3 of
+     its leaf's largest move plus 1e-7 where the CPU's step is well
+     conditioned (ADAM_REL), within two moves elsewhere, and at most 1%
+     of the entries ill-conditioned.
+Phase 3 also holds K8's gradient (flash_attention's autograd: K8 forward,
+the recompute backward) against autograd through K8's plain version at
+(B=4, H=9, KV=3, T=2048, D=64), causal, on transposed views, in bf16
+(within 2e-2 of each gradient's largest entry) and fp32 (1e-4), and
+prints the backward's time beside scaled_dot_product_attention's.
 Phase 3 also holds K8 (flash attention) against its plain version at the
 prefill's two shapes (B=4, H=9, KV=3, T=4096 and B=1, T=32768, D=64,
 causal, bf16) on transposed views of (B, T, H, D) buffers as the model
@@ -273,6 +301,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -310,13 +339,20 @@ from repro_torch.kernels import streaming as k_streaming  # noqa: E402
 from repro_torch.kernels import streaming_q8 as k_streaming_q8  # noqa: E402
 from repro_torch.kernels import train as k_train  # noqa: E402
 from repro_torch.launch import chain_latency, kernel_cost  # noqa: E402
+from repro_torch.data.tokens import (TokenStream,  # noqa: E402
+                                     TokenStreamConfig)
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
-from repro_torch.models.lm import make_prefill_step  # noqa: E402
+from repro_torch.models.lm import (make_prefill_step,  # noqa: E402
+                                   make_train_step)
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.optim import (adamw, constant_schedule,  # noqa: E402
+                               cosine_schedule)
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.runtime import (PopulationTrainer,  # noqa: E402
                                  PopulationTrainerConfig, Request, Server,
-                                 StreamRequest, StreamServer,
-                                 WarmPoolAutotuner, planner)
+                                 StreamRequest, StreamServer, Trainer,
+                                 TrainerConfig, WarmPoolAutotuner, planner)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import candidates  # noqa: E402
 from benchmarks_torch.bench_ridge import (card_line,  # noqa: E402
@@ -452,6 +488,47 @@ LM_REL = 1e-3        # card vs CPU prefill logits in fp32, of max |logits|
 # tests hold the bf16 port to against the reference (tests/test_torch_lm.py)
 LM_BF16_REL = 2e-2
 LM_AGREE = 0.98      # card vs CPU greedy tokens in fp32
+# phase 3: K8's gradient at the train step's attention (smollm-135m's heads
+# at phase 10's T, causal, (B, H, KV, T, D)): flash_attention's autograd
+# (K8 forward, the recompute backward at the model's 512 x 1024 tiles)
+# against autograd through K8's plain version, each of dq, dk, dv within
+# its limit of its largest entry: bf16 inputs give bf16 gradients from f32
+# sums in another order (and K8's bf16 output in D = rowsum(dO O)); fp32
+# the same f32 arithmetic in another order
+K8_GRAD_CASE = (4, 9, 3, 2048, 64)
+K8_GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# phase 10: LM training at smollm-135m's full width.  (a) the CLI at its
+# defaults (attn_impl='xla', AdamW at 3e-4) with a resume; (b) the Trainer
+# in process on the flash route, bf16, AdamW and the CLI's cosine schedule
+# at peak TRAIN_LR, K8's launches counted over step TRAIN_COUNT_STEP (two a
+# layer: forward and the remat recompute); (c) a fault at REPLAY's step
+# restores its last checkpoint and replays, each final parameter within
+# REPLAY_REL of its leaf's largest move since the init in (b)'s run at the
+# same step: ten steps at a peak of 1e-3 move an entry by under 1e-2, so a
+# limit on the parameters' scale would pass a replay without its optimizer
+# state; this one is bit for bit in bf16 at these moves (the replay was
+# bit for bit in every run so far, though the card's embedding backward
+# need not sum in one order); 10b: one step card vs CPU at full width and
+# TRAIN_AGREE's depth and shape, fp32
+TRAIN_CLI = dict(steps=20, resume=25, batch=8, seq=512, ckpt_every=10)
+TRAIN_SHAPE = (8, 2048)
+TRAIN_STEPS = 30
+TRAIN_LR = 1e-3
+TRAIN_COUNT_STEP = 5
+REPLAY = dict(steps=10, fault_at=7, ckpt_every=5)
+REPLAY_REL = 1e-3
+TRAIN_AGREE = dict(n_layers=2, b=2, t=256)
+# AdamW moves a parameter by u = m_hat / (s + 1e-8), s = sqrt(n_hat): to
+# first order |du| <= dm / (s + eps) + |m_hat| ds / (s + eps)^2, with dm
+# and ds the largest card-vs-CPU differences of m_hat and s in the entry's
+# row; where that bound exceeds ADAM_REL the step is ill-conditioned
+# (tests/test_torch_train.py:_ill), and the limit there is two moves.
+# The mask is built from the card's moments, so they are held first, each
+# within MOMENT_REL of its leaf's largest entry, and the mask may cover at
+# most ADAM_ILL_SHARE of the entries
+ADAM_REL = 1e-3
+MOMENT_REL = 1e-4
+ADAM_ILL_SHARE = 1e-2
 # phase 8c: every other LM family at its published widths and full depth,
 # but llama4-scout's (8 of its 48 layers, about 2.08B parameters a layer:
 # 37 GB in bf16 with its untied embeddings).  llama4-maverick runs only
@@ -3495,6 +3572,346 @@ def families_agreement_phase(device: str = "cuda") -> None:
         torch.cuda.empty_cache()
 
 
+def k8_grad_phase(dev) -> None:
+    """Phase 3: K8's gradient at K8_GRAD_CASE in bf16 and fp32 on the
+    model's transposed views, against autograd through the plain version;
+    then the recompute backward's time beside the time of
+    scaled_dot_product_attention's backward on the same inputs (timed
+    here only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    b, h, kv, t, d = K8_GRAD_CASE
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(t + d)
+        bufs = [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d))]
+        ct = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+        grads = []
+        for plain in (False, True):
+            ts = [x.clone().requires_grad_() for x in bufs]
+            if plain:
+                out = ref.flash_attention_ref(
+                    *(x.transpose(1, 2) for x in ts)).transpose(1, 2)
+            else:
+                out = attn_mod.flash_attention(*ts, causal=True)
+            out.backward(ct)
+            grads.append([x.grad.float() for x in ts])
+            del out, ts
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        for n, got, want in zip("qkv", *grads):
+            check(bool(torch.isfinite(got).all()), f"K8 grad d{n}: not "
+                                                   f"finite")
+            err = float((got - want).abs().max())
+            top = float(want.abs().max())
+            print(f"  K8 gradient {name} (B={b} H={h} KV={kv} T={t} D={d}, "
+                  f"causal, transposed views): d{n} max abs err {err:.3e}, "
+                  f"max |d{n}| {top:.3e} (limit {K8_GRAD_REL[dtype]} of "
+                  f"it)")
+            check(err <= K8_GRAD_REL[dtype] * top, f"K8 gradient {name} "
+                  f"d{n}: {err} against the plain version's")
+        del grads
+        q, k, v = bufs
+        with torch.no_grad():
+            out = attn_mod.flash_attention(q, k, v)
+        bwd = wall_ms(lambda: attn_mod.flash_attention_backward(
+            q, k, v, out, ct), reps=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in bufs)
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        lib = device_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), ct.transpose(1, 2), retain_graph=True),
+            reps=10)
+        print(f"  K8 gradient {name}: the recompute backward (plain "
+              f"PyTorch, 512 x 1024 tiles) {bwd:.3f} ms a call (back to "
+              f"back), scaled_dot_product_attention's backward "
+              f"{lib:.4f} ms (device time; a yardstick only)")
+        del bufs, ct, out, o, q, k, v, qt, kt, vt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_cli_phase() -> None:
+    """Phase 10a: ``python -m repro_torch.launch.train`` on the card at its
+    defaults, TRAIN_CLI's steps, then again to TRAIN_CLI's resume step from
+    the first run's checkpoint."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        for steps in (TRAIN_CLI["steps"], TRAIN_CLI["resume"]):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", LM_ARCH, "--steps", str(steps),
+                   "--batch", str(TRAIN_CLI["batch"]),
+                   "--seq", str(TRAIN_CLI["seq"]), "--ckpt-dir", ckpt,
+                   "--ckpt-every", str(TRAIN_CLI["ckpt_every"]),
+                   "--log-every", "1"]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            wall = time.perf_counter() - t0
+            check(res.returncode == 0, f"launch.train --steps {steps} "
+                                       f"failed: {res.stderr[-3000:]}")
+            lines = res.stdout.splitlines()
+            steps_run = [ln for ln in lines if ln.startswith("step ")]
+            losses = [float(ln.split()[3]) for ln in steps_run]
+            for ln in lines:
+                if not ln.startswith("step ") or ln in (
+                        steps_run[0], steps_run[-1]):
+                    print(f"    {ln}")
+            print(f"  launch.train --steps {steps}: {len(losses)} losses, "
+                  f"{wall:.1f} s for the process")
+            first = steps == TRAIN_CLI["steps"]
+            want = steps if first else steps - TRAIN_CLI["steps"]
+            check(len(losses) == want and bool(np.isfinite(losses).all()),
+                  f"launch.train printed {len(losses)} losses: {losses}")
+            check(any(ln.startswith(f"done: {steps} steps") for ln in lines),
+                  "launch.train printed no 'done:' line")
+            if not first:
+                check(f"resumed from step {TRAIN_CLI['steps']}" in lines,
+                      "launch.train did not resume from its checkpoint")
+
+
+def train_phase(card: str) -> None:
+    """Phase 10b-c: the Trainer on smollm-135m at full width, flash route,
+    bf16 (TRAIN_SHAPE, TRAIN_STEPS, K8 counted over one step, a profiled
+    step), then the replay after an injected fault."""
+    model = lm_model(torch.bfloat16, "cuda")
+    cfg = model.cfg
+    b, t = TRAIN_SHAPE
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=t,
+                                           global_batch=b))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch(s).items()}
+               for s in range(TRAIN_STEPS + 1)]
+    opt = adamw()
+    lr_fn = cosine_schedule(TRAIN_LR, warmup=min(100, TRAIN_STEPS // 10 + 1),
+                            total=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt, lr_fn)
+    counted = {}
+
+    def counted_step(params, state, step, batch):
+        if step == TRAIN_COUNT_STEP:
+            torch.cuda.synchronize()
+            reset_launches()
+        out = step_fn(params, state, step, batch)
+        if step == TRAIN_COUNT_STEP:
+            torch.cuda.synchronize()
+            counted.update(read_launches())
+        return out
+
+    state = opt.init(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = Trainer(TrainerConfig(ckpt_dir=ckpt, ckpt_every=10),
+                          counted_step, batches.__getitem__)
+        t0 = time.perf_counter()
+        model, state, _ = trainer.run(model, state, REPLAY["steps"])
+        at_replay = [p.detach().clone() for p in model.parameters()]
+        model, state, step = trainer.run(model, state, TRAIN_STEPS,
+                                         start_step=REPLAY["steps"])
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log = trainer.metrics_log
+    secs = [r["sec"] for r in log[1:]]
+    med = statistics.median(secs)
+    losses = [r["loss"] for r in log]
+    print(f"  [{card}] Trainer, {LM_ARCH} bf16, attn_impl='pallas', "
+          f"remat '{cfg.remat_policy}', (B, T) = {TRAIN_SHAPE}, AdamW, "
+          f"cosine peak {TRAIN_LR}: {step} steps in {wall:.2f} s "
+          f"(3 checkpoints included); step 0 {log[0]['sec']:.4f} s, steps "
+          f"1-{step - 1} median {med:.4f} s (min {min(secs):.4f}, max "
+          f"{max(secs):.4f}; host clock, the loss waited on) = "
+          f"{b * t / med:.1f} tokens/s; max_memory_allocated {peak:.1f} MiB")
+    print("  losses: " + " ".join(f"{x:.4f}" for x in losses))
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> "
+                                  f"{losses[-1]}")
+    k8 = counted["K8 flash_attention"]
+    print(f"  step {TRAIN_COUNT_STEP}: launches " + ", ".join(
+        f"{n.split()[0]} {c}" for n, c in counted.items() if c)
+        + f" ({2 * cfg.n_layers} expected from K8: forward and recompute)")
+    check(k8 == 2 * cfg.n_layers and all(
+        c == 0 for n, c in counted.items() if n != "K8 flash_attention"),
+        f"a train step launched {counted}")
+    train_profile(card, model, state, step_fn, batches[TRAIN_STEPS],
+                  TRAIN_STEPS)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay_phase(card, at_replay, lr_fn, batches)
+
+
+def train_profile(card: str, model, state, step_fn, batch, step) -> None:
+    """One train step under torch.profiler: the device's busy share, K8's
+    share of the device time, and the span of the recompute backward's
+    calls (CUDA events around each call on the stream: its kernels and
+    the gaps between them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = []
+    plain_bwd = attn_mod.flash_attention_backward
+
+    def timed_bwd(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = plain_bwd(*args, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    attn_mod.flash_attention_backward = timed_bwd
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            step_fn(model, state, step, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        attn_mod.flash_attention_backward = plain_bwd
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    flash = sum(e.self_device_time_total for e in dev
+                if "flash" in e.key) / 1e3
+    bwd = sum(s.elapsed_time(e) for s, e in spans)
+    check(busy > 0 and flash > 0, "the profiler saw no device time in K8")
+    print(f"  [{card}] one train step profiled: {wall:.3f} ms wall, device "
+          f"busy {busy:.3f} ms = {100 * busy / wall:.1f}% (idle "
+          f"{100 - 100 * busy / wall:.1f}%); K8 {flash:.3f} ms = "
+          f"{100 * flash / busy:.1f}% of the device time; the recompute "
+          f"backward's {len(spans)} calls span {bwd:.3f} ms = "
+          f"{100 * bwd / wall:.1f}% of the wall")
+    for e in dev[:8]:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def replay_phase(card: str, want, lr_fn, batches) -> None:
+    """Phase 10c: REPLAY's steps with a fault at its step: the Trainer
+    restores its last checkpoint and replays; the final parameters against
+    the uninterrupted run's at that step."""
+    model = lm_model(torch.bfloat16, "cuda")
+    init = [p.detach().float() for p in model.parameters()]
+    opt = adamw()
+    step_fn = make_train_step(model, opt, lr_fn)
+    fired = []
+
+    def fault(step):
+        if step == REPLAY["fault_at"] and not fired:
+            fired.append(step)
+            raise RuntimeError("injected device loss")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = Trainer(TrainerConfig(ckpt_dir=ckpt,
+                                        ckpt_every=REPLAY["ckpt_every"]),
+                          step_fn, batches.__getitem__, fault_hook=fault)
+        t0 = time.perf_counter()
+        model, _, step = trainer.run(model, opt.init(model), REPLAY["steps"])
+        wall = time.perf_counter() - t0
+    ran = [r["step"] for r in trainer.metrics_log]
+    got = [p.detach().float() for p in model.parameters()]
+    errs = [float((g - w.float()).abs().max()) for g, w in zip(got, want)]
+    moves = [float((w.float() - p0).abs().max())
+             for w, p0 in zip(want, init)]
+    worst = max(e / m if m else (math.inf if e else 0.0)
+                for e, m in zip(errs, moves))
+    print(f"  [{card}] replay: fault at step {fired}, steps run {ran} "
+          f"({wall:.1f} s); final parameters against the uninterrupted "
+          f"run's: largest difference {max(errs):.3e}, {worst:.3e} of the "
+          f"leaf's largest move since init (limit {REPLAY_REL}; the "
+          f"smallest such move {min(moves):.3e})")
+    back = REPLAY["fault_at"] // REPLAY["ckpt_every"] * REPLAY["ckpt_every"]
+    check(fired == [REPLAY["fault_at"]] and step == REPLAY["steps"]
+          and ran == list(range(REPLAY["fault_at"]))
+          + list(range(back, REPLAY["steps"])), f"the replay ran {ran}")
+    check(worst <= REPLAY_REL, f"the replay's parameters: {worst}")
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_agreement_phase() -> None:
+    """Phase 10b (card vs CPU): one AdamW step of smollm-135m at full
+    width and TRAIN_AGREE's depth, fp32, the same parameters on both: the
+    loss within rtol 1e-5, grad_norm 1e-4, each parameter within 1e-3 of
+    its leaf's largest move plus 1e-7 where the CPU's step is well
+    conditioned (ADAM_REL), within two moves elsewhere; first the moments
+    mu and nu within MOMENT_REL of each leaf's largest entry, and the
+    ill-conditioned entries at most ADAM_ILL_SHARE of all."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas",
+                              dtype=torch.float32,
+                              n_layers=TRAIN_AGREE["n_layers"])
+    toks = torch.from_numpy(lm_tokens(TRAIN_AGREE["b"], TRAIN_AGREE["t"],
+                                      cfg.vocab, seed=2))
+    runs = {}
+    for d in ("cuda", "cpu"):
+        model = Transformer(cfg, device=d,
+                            generator=torch.Generator().manual_seed(0))
+        init = [p.detach().cpu().clone() for p in model.parameters()]
+        opt = adamw()
+        step_fn = make_train_step(model, opt, constant_schedule(TRAIN_LR))
+        batch = {"tokens": toks.to(d), "targets": toks.to(d)}
+        t0 = time.perf_counter()
+        reset_launches()
+        model, state, metrics = step_fn(model, opt.init(model), 0, batch)
+        launches = read_launches()
+        runs[d] = ([p.detach().cpu() for p in model.parameters()], state,
+                   {k: float(v) for k, v in metrics.items()}, launches,
+                   time.perf_counter() - t0)
+        del model
+    (got, gstate, gm, launches, t_card), (want, state, wm, _, t_cpu) = \
+        runs["cuda"], runs["cpu"]
+    k8 = launches["K8 flash_attention"]
+    check(k8 == 2 * cfg.n_layers, f"the card's step launched K8 {k8} times")
+    loss_rel = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+    gn_rel = abs(gm["grad_norm"] - wm["grad_norm"]) / abs(wm["grad_norm"])
+    ratio, n_ill, n_all, moment = 0.0, 0, 0, 0.0
+    for g, w, p0, gmu, gnu, mu, nu in zip(
+            got, want, init, tree_leaves(gstate.mu), tree_leaves(gstate.nu),
+            tree_leaves(state.mu), tree_leaves(state.nu)):
+        for a, b in ((gmu.cpu(), mu), (gnu.cpu(), nu)):
+            top = float(b.abs().max())
+            diff = float((a - b).abs().max())
+            moment = max(moment, diff / top if top else
+                         (math.inf if diff else 0.0))
+        # one step: m_hat = mu / (1 - b1), s = sqrt(nu / (1 - b2))
+        mg, mw = gmu.cpu() / (1 - 0.9), mu / (1 - 0.9)
+        sg, sw = (torch.sqrt(n / (1 - 0.95)) for n in (gnu.cpu(), nu))
+        dm = (mg - mw).abs().amax(-1, keepdim=True)
+        ds = (sg - sw).abs().amax(-1, keepdim=True)
+        ill = dm / (sw + 1e-8) + mw.abs() * ds / (sw + 1e-8) ** 2 > ADAM_REL
+        move = float((w - p0).abs().max())
+        err = (g - w).abs()
+        n_ill += int(ill.sum())
+        n_all += err.numel()
+        if bool((~ill).any()):
+            ratio = max(ratio, float(err[~ill].max()) / (1e-3 * move + 1e-7))
+        check(bool((err[ill] <= 2 * move).all()),
+              f"an ill-conditioned parameter moved {float(err.max())}")
+    print(f"  {LM_ARCH} at full width, {cfg.n_layers} layers, fp32, "
+          f"B={TRAIN_AGREE['b']} T={TRAIN_AGREE['t']}, one AdamW step "
+          f"(card {t_card:.2f} s, CPU {t_cpu:.2f} s; K8 {k8} launches): "
+          f"loss {gm['loss']:.6f} vs {wm['loss']:.6f} (rel {loss_rel:.2e}, "
+          f"limit 1e-5), grad_norm rel {gn_rel:.2e} (limit 1e-4); "
+          f"mu and nu within {moment:.2e} of each leaf's largest entry "
+          f"(limit {MOMENT_REL}); parameters: worst |dp| / (1e-3 move + "
+          f"1e-7) {ratio:.3f} (limit 1) outside the {n_ill} of {n_all} "
+          f"entries ({100 * n_ill / n_all:.3f}%, limit "
+          f"{100 * ADAM_ILL_SHARE:g}%) whose CPU step is ill-conditioned")
+    check(moment <= MOMENT_REL, f"card vs CPU moments: {moment}")
+    check(n_ill <= ADAM_ILL_SHARE * n_all,
+          f"{n_ill} of {n_all} entries ill-conditioned")
+    check(loss_rel <= 1e-5 and gn_rel <= 1e-4 and ratio <= 1.0,
+          f"card vs CPU train step: loss {loss_rel}, grad_norm {gn_rel}, "
+          f"parameters {ratio}")
+
+
 def synth_task(rng: np.random.Generator, n: int, t: int, vocab: int,
                n_classes: int) -> tuple:
     """examples_torch/lm_readout.py's task: class c = sequences biased
@@ -3709,6 +4126,7 @@ def main() -> int:
         DFRModel.create(cfg, generator=torch.Generator().manual_seed(0)),
         data[0]))
     records.update(k8_records(dev))
+    k8_grad_phase(dev)
     k1_population_phase(cfg, data[0], masking.make_mask(
         torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes, cfg.n_in,
         cfg.dtype))
@@ -3804,6 +4222,16 @@ def main() -> int:
     print("[9b] the LM families at full width and one layer, card vs CPU")
     families_agreement_phase()
     print(f"  phase 9b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[10] LM training at full width: {LM_ARCH}, launch.train, the "
+          f"Trainer, a replay")
+    train_cli_phase()
+    train_phase(card)
+    print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[10b] one train step at full width, card vs CPU")
+    train_agreement_phase()
+    print(f"  phase 10b in {time.perf_counter() - t0:.1f} s")
 
     for name, count in launches.items():
         records[name]["launches"] = count

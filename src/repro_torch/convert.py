@@ -28,6 +28,14 @@ reference's bf16 leaves are ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses: they go through float32, exact for bf16,
 and are cast to the parameter's dtype. ``lm_params_to_numpy`` returns
 float32 arrays.
+
+``to_reference_layout`` / ``from_reference_layout`` carry a training state
+(the model, an optimizer state such as ``AdamState``, or a tuple of them)
+in the reference's layout as tensors, dtypes kept: each layer list stacked
+on a leading axis, as the reference's ``Trainer`` checkpoints ``(params,
+opt_state)``.  ``runtime.Trainer`` saves and restores through them, so a
+checkpoint that either package's ``Trainer`` writes restores in the
+other's.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.core.online import OnlineState
 from repro_torch.core.types import (DFRParams, QuantParams, RidgeState,
                                     WindowState)
 from repro_torch.models.transformer import STACKED, ParamTree
+from repro_torch.optim.optimizers import _children, _rebuild, tree_map
 
 # flat leaf name -> attribute path, in OnlineState field order
 LEAF_PATHS = (
@@ -187,24 +196,55 @@ def lm_params_from_numpy(model: ParamTree, tree: Mapping[str, Any]
 
 def lm_params_to_numpy(model: ParamTree) -> Dict[str, Any]:
     """The port's LM parameters as the reference's values tree: float32
-    numpy arrays, each layer list stacked on a leading axis."""
+    numpy arrays (copies), each layer list stacked on a leading axis."""
 
-    def walk(node: ParamTree) -> Dict[str, Any]:
-        out = {}
-        for name in node.keys():
-            val = node[name]
-            if isinstance(val, nn.ModuleList):
-                out[name] = _stack([walk(layer) for layer in val])
-            elif isinstance(val, ParamTree):
-                out[name] = walk(val)
-            else:
-                out[name] = val.detach().to(torch.float32).cpu().numpy()
-        return out
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        # a copy: an fp32 CPU tensor's .numpy() shares its memory
+        return tree.to(torch.float32).cpu().numpy().copy()
 
-    return walk(model)
+    return walk(to_reference_layout(model))
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+def _is_layer_list(node) -> bool:
+    return isinstance(node, (list, nn.ModuleList)) and len(node) > 0 and \
+        all(isinstance(c, (Mapping, nn.Module)) for c in node)
+
+
+def to_reference_layout(tree):
+    """A tree of tensors in the reference's layout: a ``ParamTree`` as the
+    dict of its names, a list of layers (an ``nn.ModuleList``, or a list of
+    dicts as an optimizer state mirrors it) as one dict with every leaf
+    stacked on a leading axis (``torch.stack``, dtype and device kept);
+    dicts, NamedTuples, tuples and other lists as they are.  The walk is
+    ``optim.optimizers``'s (``_children``, ``_rebuild``, ``tree_map``)."""
+    if _is_layer_list(tree):
+        layers = [to_reference_layout(c) for c in tree]
+        return tree_map(lambda *leaves: torch.stack(leaves), *layers)
+    kids = _children(tree)
+    if kids is None:
+        return tree.detach()
+    return _rebuild(tree, [to_reference_layout(c) for _, c in kids])
+
+
+def from_reference_layout(template, tree):
+    """The inverse of ``to_reference_layout``: ``template``'s structure
+    filled from ``tree``.  A ``ParamTree``'s parameters are overwritten in
+    place (each cast to its dtype) and the module itself returned; a list
+    of layers takes its layers from the stacked leaves' slices; any other
+    tensor is replaced by the tree's."""
+    if _is_layer_list(template):
+        layers = [from_reference_layout(c, tree_map(lambda t: t[i], tree))
+                  for i, c in enumerate(template)]
+        return template if isinstance(template, nn.ModuleList) else layers
+    kids = _children(template)
+    if kids is None:
+        if isinstance(template, nn.Parameter):
+            with torch.no_grad():
+                template.copy_(tree)
+            return template
+        return tree
+    new = [from_reference_layout(c, tree[k]) for k, c in kids]
+    return template if isinstance(template, nn.Module) else \
+        _rebuild(template, new)

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.types import map_leaves, unported
-from repro_torch.launch.mesh import LM_LAUNCH, SlotMesh
+from repro_torch.launch.mesh import LM_SHARDING, SlotMesh
 
 LogicalAxes = Tuple[Optional[str], ...]
 Spec = Tuple[Any, ...]
@@ -165,28 +165,28 @@ def shard_blocks(tree, axes_tree, mesh: SlotMesh,
 
 class MeshContext:
     def __init__(self, *args, **kwargs):
-        raise unported("MeshContext", LM_LAUNCH)
+        raise unported("MeshContext", LM_SHARDING)
 
 
 def use_mesh(mesh=None, rules=None):
-    raise unported("use_mesh", LM_LAUNCH)
+    raise unported("use_mesh", LM_SHARDING)
 
 
 def shard_act(x, axes):
-    raise unported("shard_act", LM_LAUNCH)
+    raise unported("shard_act", LM_SHARDING)
 
 
 def fsdp_gather(w, axes):
-    raise unported("fsdp_gather", LM_LAUNCH)
+    raise unported("fsdp_gather", LM_SHARDING)
 
 
 def sharding_for(axes, mesh=None, rules=None):
-    raise unported("sharding_for", LM_LAUNCH)
+    raise unported("sharding_for", LM_SHARDING)
 
 
 def tree_shardings(axes_tree, mesh=None):
-    raise unported("tree_shardings", LM_LAUNCH)
+    raise unported("tree_shardings", LM_SHARDING)
 
 
 def guarded_shardings(shapes_tree, axes_tree, mesh=None, rules=None):
-    raise unported("guarded_shardings", LM_LAUNCH)
+    raise unported("guarded_shardings", LM_SHARDING)

@@ -1,10 +1,13 @@
 """Device meshes of the port.
 
-The counterpart of ``repro.launch.mesh``.  The stream server's slot mesh is
-a plain list of ``torch.device``s, one per contiguous block of slots, with
-axis names and sizes for the sharding rules
-(``repro_torch.distributed.sharding``).  A FUNCTION builds it, so importing
-this module never touches a device.
+The counterpart of ``repro.launch.mesh``.  A mesh is a plain list of
+``torch.device``s with axis names and sizes for the sharding rules
+(``repro_torch.distributed.sharding``): the stream server's slot mesh one
+device per contiguous block of slots, the LM trainer's host mesh one
+device.  A FUNCTION builds each, so importing this module never touches a
+device.  The LM's multi-device meshes (the 16x16 production mesh, a host
+mesh over several devices) wait for ROADMAP.md, Queue 1, 'LM sharding and
+dry run'.
 """
 from __future__ import annotations
 
@@ -13,15 +16,16 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.types import unported
+from repro_torch.core.types import resolve_device, unported
 
-LM_LAUNCH = "LM optimizers, Trainer and launch"
+LM_SHARDING = "LM sharding and dry run"
 
 
 @dataclasses.dataclass(frozen=True)
 class SlotMesh:
-    """A serving mesh: ``axis_names`` (``("slot",)`` or ``("slot",
-    "member")``), their ``sizes``, and ``devices``, the flat row-major list
+    """A device mesh (the serving slot mesh, or the LM's host mesh):
+    ``axis_names`` (``("slot",)``, ``("slot", "member")`` or ``("data",
+    "model")``), their ``sizes``, and ``devices``, the flat row-major list
     of one device per entry.  An entry may repeat a device: several slot
     blocks then share one card (or the CPU)."""
 
@@ -76,9 +80,17 @@ def make_slot_mesh(n_slot: Optional[int] = None, member: int = 1,
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The LM's 16x16 (or 2x16x16) production mesh: not ported."""
-    raise unported("make_production_mesh", LM_LAUNCH)
+    raise unported("make_production_mesh", LM_SHARDING)
 
 
-def make_host_mesh(data: Optional[int] = None, model: int = 1):
-    """The LM's (data, model) host mesh: not ported."""
-    raise unported("make_host_mesh", LM_LAUNCH)
+def make_host_mesh(data: Optional[int] = None, model: int = 1,
+                   device=None) -> SlotMesh:
+    """The LM trainer's ``("data", "model")`` mesh over one device: data 1
+    and model 1 on ``device`` (the CUDA device unless the caller names
+    another).  A mesh over more than one device on either axis raises."""
+    data = 1 if data is None else data
+    if data != 1 or model != 1:
+        raise unported(f"make_host_mesh(data={data}, model={model}) over "
+                       f"more than one device", LM_SHARDING)
+    return SlotMesh(("data", "model"), (1, 1),
+                    (resolve_device(device, "make_host_mesh"),))

@@ -1,9 +1,14 @@
-"""LM step functions: the loss, the eval, prefill and decode steps.
+"""LM step functions: the loss, the microbatched train step, the eval,
+prefill and decode steps.
 
 The port of ``repro.models.lm``.  The model holds its parameters, so the
-steps take no ``params`` argument: ``prefill_step(batch)`` where the
-reference has ``prefill_step(params, batch)``.  ``make_train_step`` comes
-with the training slice (ROADMAP.md, Queue 1, 'LM training').
+eval, prefill and decode steps take no ``params`` argument:
+``prefill_step(batch)`` where the reference has ``prefill_step(params,
+batch)``.  The train step keeps the reference's contract,
+``train_step(params, opt_state, step, batch) -> (params, opt_state,
+metrics)``, so that ``runtime.Trainer`` and ``launch.train`` read like the
+reference's: ``params`` is the model itself (its parameter tree), updated
+in place under ``no_grad`` and returned.
 """
 from __future__ import annotations
 
@@ -13,6 +18,8 @@ import torch
 
 from repro_torch.core.types import Tensor
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
+                                          tree_leaves, tree_map)
 
 
 def softmax_xent(logits: Tensor, targets: Tensor) -> Tensor:
@@ -51,6 +58,64 @@ def loss_fn(model: Transformer, batch: Dict) -> Tuple[Tensor, Dict]:
         metrics.update(lb_loss=lb, z_loss=zl)
     metrics["loss"] = loss
     return loss, metrics
+
+
+def make_train_step(
+    model: Transformer,
+    optimizer: Optimizer,
+    lr_fn: Callable[[int], Tensor],
+    accum: int = 1,
+    grad_clip: float = 1.0,
+) -> Callable:
+    """Builds ``train_step(params, opt_state, step, batch) -> (params,
+    opt_state, metrics)`` with ``params`` the model.
+
+    The batch (each leaf's leading axis) is split into ``accum``
+    microbatches run one after another; each one's gradients are cast to
+    f32 and summed, so the peak activation memory is one microbatch deep.
+    The sum over ``accum`` is clipped to ``grad_clip`` by its global norm,
+    ``lr_fn(step)`` gives the rate, and ``optimizer.update`` the new
+    parameters, copied into the model.  Metrics: ``loss`` (the mean over
+    microbatches), ``grad_norm`` (before clipping) and ``lr``, f32
+    scalars."""
+
+    def split_mb(x):
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} does not split into {accum} "
+                             f"microbatches")
+        return x.reshape(accum, b // accum, *x.shape[1:])
+
+    def train_step(params, opt_state, step, batch):
+        micro = {k: split_mb(v) for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        gsum, lsum = None, torch.zeros((), dtype=torch.float32,
+                                       device=model.device)
+        for i in range(accum):
+            for p in leaves:
+                p.grad = None
+            loss, _ = loss_fn(model, {k: v[i] for k, v in micro.items()})
+            loss.backward()
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device)
+                if p.grad is None else p.grad.to(torch.float32), params)
+            gsum = grads if gsum is None else tree_map(torch.add, gsum,
+                                                       grads)
+            lsum = lsum + loss.detach()
+        for p in leaves:
+            p.grad = None
+        grads = tree_map(lambda g: g / accum, gsum)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        lr = lr_fn(step)
+        with torch.no_grad():
+            new_params, new_state = optimizer.update(grads, opt_state,
+                                                     params, lr)
+            for p, new in zip(leaves, tree_leaves(new_params)):
+                p.copy_(new)
+        metrics = {"loss": lsum / accum, "grad_norm": gnorm, "lr": lr}
+        return params, new_state, metrics
+
+    return train_step
 
 
 def make_eval_step(model: Transformer) -> Callable:

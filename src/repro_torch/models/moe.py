@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.types import Tensor
 from repro_torch.models.layers import dense_init
+from repro_torch.models.remat import checkpoint_name
 
 
 def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -95,8 +96,11 @@ def moe_apply(
     # dispatch: each kept token into its (expert, slot) row
     gi, si = torch.nonzero(r.keep, as_tuple=True)
     ei, ci = r.expert[gi, si], r.slot[gi, si]
-    xe = x.new_zeros((g, e, cap, d))
-    xe[gi, ei, ci] = xg[gi, si]
+    rows, xe = xg[gi, si], x.new_zeros((g, e, cap, d))
+    # the save_moe remat policy keeps xe, so a recompute does not redo the
+    # dispatch (the reference names it 'moe_xe' for its policy)
+    with checkpoint_name("moe_xe"):
+        xe = xe.index_put((gi, ei, ci), rows)
 
     # expert FFN, batched over E
     xe_e = xe.transpose(0, 1).reshape(e, g * cap, d)

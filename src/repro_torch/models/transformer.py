@@ -11,11 +11,14 @@ leading axis for ``lax.scan``, the port keeps an ``nn.ModuleList``
 attention block (``shared_attn``) is unstacked in both.  The model lives on
 one device, CUDA unless the caller passes ``device="cpu"``.
 
-Eager PyTorch runs each layer as it comes, so the reference's remat policy
-(``remat_policy``) and its optimization barrier (``act_barrier``) have no
-counterpart: nothing is compiled across layers, and the serving entry
-points keep no autograd state.  ``prefill`` and ``decode_step`` run without
-gradients; ``train_logits`` leaves that to its caller.
+While gradients are on, every layer body the reference wraps in
+``jax.checkpoint`` (a decoder or encoder layer, an RWKV or SSM layer, the
+hybrid's shared block) runs under ``cfg.remat_policy`` through
+``models.remat`` (``torch.utils.checkpoint``; the default ``'nothing'``
+recomputes the body, K8 included, in the backward).  The reference's
+optimization barrier (``act_barrier``) has no counterpart: eager PyTorch
+compiles nothing across layers.  ``prefill`` and ``decode_step`` run
+without gradients; ``train_logits`` leaves that to its caller.
 
 Behaviours kept from the reference so both packages serve the same tokens:
 decode ropes every row at ``cache.length[0]``; a window schedule (gemma3)
@@ -44,6 +47,7 @@ from repro_torch.models.layers import (apply_m_rope, apply_rope, dense_init,
                                        embed_init, embed_lookup, layer_norm,
                                        ones_init, rms_norm, sinusoidal,
                                        unembed, zeros_init)
+from repro_torch.models.remat import remat
 
 # the parameter lists the reference stacks on a leading 'layers' axis
 STACKED = ("layers", "enc_layers", "dec_layers")
@@ -186,7 +190,9 @@ def attn_apply_full(
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         q, k = _rope(cfg, q, k, positions)
     if cfg.attn_impl == "pallas" and not cfg.window_pattern:
-        out = attn_mod.flash_attention(q, k, v, causal=causal)
+        out = attn_mod.flash_attention(q, k, v, causal=causal,
+                                       block_q=cfg.block_q,
+                                       block_k=cfg.block_k)
     else:
         out = attn_mod.blockwise_attention(
             q, k, v, causal=causal, window=window, block_q=cfg.block_q,
@@ -417,11 +423,17 @@ class Transformer(ParamTree):
         key = "dec_layers" if cfg.is_encdec else "layers"
         windows = self.window_schedule(len(self[key])).tolist()
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def body(x, enc_out, lp, w):
+            x, aux = layer_apply_full(cfg, lp, x, w, enc_out=enc_out)
+            return x, aux.get("lb_loss", zero), aux.get("z_loss", zero)
+
+        body = remat(cfg.remat_policy, body)
         lb, zl = [], []
         for lp, w in zip(self[key], windows):
-            x, aux = layer_apply_full(cfg, lp, x, w, enc_out=enc_out)
-            lb.append(aux.get("lb_loss", zero))
-            zl.append(aux.get("z_loss", zero))
+            x, lb_i, zl_i = body(x, enc_out, lp, w)
+            lb.append(lb_i)
+            zl.append(zl_i)
         return x, {"lb_loss": torch.stack(lb).mean(),
                    "z_loss": torch.stack(zl).mean()}
 
@@ -430,7 +442,8 @@ class Transformer(ParamTree):
         b = x.shape[0]
         hd = cfg.rwkv_head_dim
         nh = cfg.d_model // hd
-        for lp in self["layers"]:
+
+        def body(x, lp):
             st = rwkv_mod.RwkvState(
                 s=x.new_zeros((b, nh, hd, hd), dtype=torch.float32),
                 x_last=x.new_zeros((b, cfg.d_model)))
@@ -440,7 +453,11 @@ class Transformer(ParamTree):
             x = x + h
             h = ffn_mod.mlp_apply(lp["mlp"], _norm(cfg, lp, x, "ln_mlp"),
                                   cfg.act)
-            x = x + h
+            return x + h
+
+        body = remat(cfg.remat_policy, body)
+        for lp in self["layers"]:
+            x = body(x, lp)
         return x, {}
 
     def _trunk_hybrid(self, x: Tensor) -> Tuple[Tensor, Dict]:
@@ -448,7 +465,8 @@ class Transformer(ParamTree):
         of ``attn_every`` of them (none after a shorter last run)."""
         cfg = self.cfg
         b = x.shape[0]
-        for i, lp in enumerate(self["layers"]):
+
+        def ssm_body(x, lp):
             st = ssm_mod.ssm_state_init(b, cfg.d_model, cfg.ssm_state,
                                         cfg.ssm_head_dim, cfg.ssm_expand,
                                         device=x.device)
@@ -456,9 +474,15 @@ class Transformer(ParamTree):
                 lp["ssm"], _norm(cfg, lp, x, "ln_attn"), st,
                 ssm_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
                 expand=cfg.ssm_expand, chunk=cfg.scan_chunk, eps=cfg.rms_eps)
-            x = x + h
+            return x + h
+
+        ssm_body = remat(cfg.remat_policy, ssm_body)
+        shared = remat(cfg.remat_policy, lambda x: layer_apply_full(
+            cfg, self["shared_attn"], x, 0)[0])
+        for i, lp in enumerate(self["layers"]):
+            x = ssm_body(x, lp)
             if (i + 1) % cfg.attn_every == 0:
-                x, _ = layer_apply_full(cfg, self["shared_attn"], x, 0)
+                x = shared(x)
         return x, {}
 
     def _encode(self, enc_embeds: Tensor) -> Tensor:
@@ -467,8 +491,13 @@ class Transformer(ParamTree):
         cfg = self.cfg
         enc = enc_embeds + self["pos_embed"][:enc_embeds.shape[1]][None]
         windows = self.window_schedule(cfg.enc_layers).tolist()
+
+        def enc_body(x, lp, w):
+            return layer_apply_full(cfg, lp, x, w, causal=False)[0]
+
+        enc_body = remat(cfg.remat_policy, enc_body)
         for lp, w in zip(self["enc_layers"], windows):
-            enc, _ = layer_apply_full(cfg, lp, enc, w, causal=False)
+            enc = enc_body(enc, lp, w)
         return _norm(cfg, self, enc, "ln_enc")
 
     def _hidden(self, tokens=None, embeds=None, enc_embeds=None

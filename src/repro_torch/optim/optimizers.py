@@ -1,0 +1,224 @@
+"""Optimizers as functions on trees of tensors, with the reference's
+arithmetic (``repro.optim.optimizers``; no ``torch.optim``, whose AdamW
+places eps and the weight decay elsewhere and so rounds differently).
+
+* ``sgd``       - plain SGD (+ momentum).
+* ``adamw``     - Adam with decoupled weight decay on every leaf, f32
+                  moments, ``(m / bc1) / (sqrt(n / bc2) + eps)``.
+* ``adafactor`` - the factored second moment (row and column mean squares
+                  over the last two axes), no first moment.
+
+``update(grads, state, params, lr) -> (new_params, new_state)``: each new
+parameter is computed in f32 and rounded to the parameter's own dtype
+once; ``lr`` is an f32 scalar tensor (``optim.schedule``).  A tree is a
+nested dict, list, tuple or NamedTuple with tensors at its leaves; an
+``nn.Module`` whose children read by name (``models.transformer.ParamTree``)
+counts as a dict and an ``nn.ModuleList`` as a list, so ``init(model)``
+and ``update(grads, state, model, lr)`` take the model itself, and the
+trees they return are plain dicts and lists in its layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.types import Tensor
+
+
+
+def _children(node) -> Optional[List[Tuple[Any, Any]]]:
+    """(key, child) pairs of an inner node, None for a leaf (a tensor)."""
+    if isinstance(node, Tensor):
+        return None
+    if isinstance(node, dict):
+        return list(node.items())
+    if isinstance(node, nn.ModuleList):
+        return list(enumerate(node))
+    if isinstance(node, nn.Module):
+        return [(k, node[k]) for k in node.keys()]
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    raise TypeError(f"not a tree of tensors: {type(node).__name__}")
+
+
+def _rebuild(node, values: List[Any]):
+    """A new node of ``node``'s kind (a module as a dict or a list) from
+    its children's new values."""
+    if isinstance(node, nn.ModuleList) or isinstance(node, list):
+        return list(values)
+    if isinstance(node, (dict, nn.Module)):
+        return dict(zip([k for k, _ in _children(node)], values))
+    if hasattr(node, "_fields"):
+        return type(node)(*values)
+    return tuple(values)
+
+
+def tree_leaves(tree) -> List[Tensor]:
+    """The tensors of a tree, in the order of its children."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for _, c in kids for leaf in tree_leaves(c)]
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``fn`` leaf by leaf over trees of one structure (the first tree's:
+    the others are indexed by its keys), rebuilt as plain containers."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    return _rebuild(tree, [
+        tree_map(fn, c, *(r[k] for r in rest)) for k, c in kids])
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any, Tensor], Tuple[Any, Any]]
+    # update(grads, state, params, lr) -> (new_params, new_state)
+
+
+def _f32_zeros(p: Tensor) -> Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / (norm + 1e-9)) in their dtypes,
+    the f32 global norm)."""
+    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                        for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+
+
+def sgd(momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree_map(_f32_zeros, params)
+
+    def update(grads, state, params, lr):
+        if momentum == 0.0:
+            new = tree_map(lambda p, g: (p.to(torch.float32) - lr * g.to(
+                torch.float32)).to(p.dtype), params, grads)
+            return new, state
+        vel = tree_map(lambda v, g: momentum * v + g.to(torch.float32),
+                       state, grads)
+        new = tree_map(lambda p, v: (p.to(torch.float32) - lr * v).to(
+            p.dtype), params, vel)
+        return new, vel
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    mu: Any
+    nu: Any
+    count: Tensor  # int32 scalar
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1) -> Optimizer:
+    def init(params):
+        dev = tree_leaves(params)[0].device
+        return AdamState(mu=tree_map(_f32_zeros, params),
+                         nu=tree_map(_f32_zeros, params),
+                         count=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def update(grads, state, params, lr):
+        c = state.count + 1
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
+                      state.mu, grads)
+        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * torch.square(
+            g.to(torch.float32)), state.nu, grads)
+        cf = c.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=cf.device), cf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=cf.device), cf)
+
+        def step(p, m, n):
+            upd = (m / bc1) / (torch.sqrt(n / bc2) + eps)
+            upd = upd + weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr * upd).to(p.dtype)
+
+        new = tree_map(step, params, mu, nu)
+        return new, AdamState(mu=mu, nu=nu, count=c)
+
+    return Optimizer(init, update)
+
+
+class FactorState(NamedTuple):
+    row: Any     # per-param row accumulator (or the full nu below 2-D)
+    col: Any
+    count: Tensor
+
+
+def adafactor(eps: float = 1e-30, decay: float = 0.8,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern 2018, the
+    reference's simplified form): for >= 2-D parameters, row and column
+    mean-square accumulators over the last two axes; below, a full one.
+    No first moment; relative update clipping at ``clip_threshold``."""
+
+    def init(params):
+        def rows(p):
+            return _f32_zeros(p) if p.ndim < 2 else torch.zeros(
+                p.shape[:-1], dtype=torch.float32, device=p.device)
+
+        def cols(p):
+            shape = (1,) if p.ndim < 2 else p.shape[:-2] + p.shape[-1:]
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        dev = tree_leaves(params)[0].device
+        return FactorState(row=tree_map(rows, params),
+                           col=tree_map(cols, params),
+                           count=torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+
+    def update(grads, state, params, lr):
+        c = state.count + 1
+        beta = 1.0 - c.to(torch.float32) ** -decay
+
+        def upd_one(p, g, r, cl):
+            gf = g.to(torch.float32)
+            g2 = torch.square(gf) + eps
+            if p.ndim < 2:
+                r2 = beta * r + (1 - beta) * g2
+                u = gf * torch.rsqrt(r2 + eps)
+                new_r, new_c = r2, cl
+            else:
+                r2 = beta * r + (1 - beta) * g2.mean(-1)
+                c2 = beta * cl + (1 - beta) * g2.mean(-2)
+                r_factor = torch.rsqrt(
+                    r2 / torch.clamp(r2.mean(-1, keepdim=True), min=eps)
+                    + eps)
+                c_factor = torch.rsqrt(c2 + eps)
+                u = gf * r_factor[..., None] * c_factor[..., None, :]
+                new_r, new_c = r2, c2
+            # relative update clipping
+            rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+            return (p.to(torch.float32) - lr * u).to(p.dtype), new_r, new_c
+
+        out = tree_map(lambda *a: upd_one(*a), params, grads, state.row,
+                       state.col)
+        first = tree_map(lambda p, o: o[0], params, out)
+        return first, FactorState(row=tree_map(lambda p, o: o[1], params, out),
+                                  col=tree_map(lambda p, o: o[2], params, out),
+                                  count=c)
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, **kw) -> Optimizer:
+    if name == "sgd":
+        return sgd(**kw)
+    if name == "adamw":
+        return adamw(**kw)
+    if name == "adafactor":
+        return adafactor(**kw)
+    raise ValueError(f"unknown optimizer {name}")

@@ -1,17 +1,150 @@
-"""Population-search runtime wrapper, in PyTorch.
+"""Fault-tolerant training loop and population-search runtime wrapper,
+in PyTorch: the port of ``repro.runtime.trainer``.
 
-The counterpart of ``PopulationTrainerConfig`` and ``PopulationTrainer`` in
-``repro.runtime.trainer``.  The LM ``Trainer`` of that module is not ported
-yet (ROADMAP Queue 1, 'LM optimizers, Trainer and launch').
+``Trainer`` responsibilities beyond calling train_step:
+  * checkpoint/restart: periodic saves (keep-last-k) and resume from the
+    newest checkpoint that reads back,
+  * failure handling: a step that raises (device loss, preemption signal,
+    injected fault) restores the newest checkpoint and replays from its
+    step; batches are a pure function of the step index, so the replay is
+    deterministic,
+  * straggler watchdog: each step's duration feeds
+    ``runtime.straggler``; an evict verdict saves and raises
+    ``ElasticRestart`` so the caller can rebuild its devices.
+
+Checkpoints hold ``(params, opt_state)`` in the reference's layout
+(``convert.to_reference_layout``: the model's layer lists stacked, an
+``AdamState``'s ``mu``/``nu`` trees likewise), through the port's
+``CheckpointManager``, so a checkpoint that either package's ``Trainer``
+writes restores in the other's.  ``TrainerConfig.compress_grads`` (the
+reference's int8 gradient compression across the pod axis) raises
+``NotImplementedError`` when set: it waits for the LM's sharding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Any, Callable, Optional, Tuple
 
+from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import population
+from repro_torch.core.types import unported
 from repro_torch.data.timeseries import RegressionBatch
+from repro_torch.launch.mesh import LM_SHARDING
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.runtime.straggler import StragglerWatchdog
+
+
+class ElasticRestart(Exception):
+    """Raised when the devices must be rebuilt (host eviction, resize)."""
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    ckpt_dir: str
+    ckpt_every: int = 100
+    keep: int = 3
+    max_retries_per_step: int = 2
+    straggler_threshold: float = 2.5
+    compress_grads: bool = False
+
+
+class Trainer:
+    """Runs ``train_step(params, opt_state, step, batch) -> (params,
+    opt_state, metrics)`` over the steps, with checkpoints, retries and the
+    straggler watchdog.  Waits on ``metrics['loss']`` once a step (one host
+    sync, as the reference blocks on it) and logs ``{'step', 'loss',
+    'sec'}`` to ``metrics_log``.  ``fault_hook(step)`` runs before each
+    attempt and may raise (fault injection in tests)."""
+
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        train_step: Callable,
+        batch_fn: Callable[[int], Any],
+        fault_hook: Optional[Callable[[int], None]] = None,
+    ):
+        if cfg.compress_grads:
+            raise unported("TrainerConfig(compress_grads=True)", LM_SHARDING)
+        self.cfg = cfg
+        self.train_step = train_step
+        self.batch_fn = batch_fn
+        self.fault_hook = fault_hook
+        self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+        self.watchdog = StragglerWatchdog(threshold=cfg.straggler_threshold)
+        self.metrics_log: list = []
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def _save(self, params, opt_state, step: int, metadata=None) -> None:
+        self.ckpt.save(convert.to_reference_layout((params, opt_state)),
+                       step, metadata)
+
+    def _restore(self, params, opt_state):
+        """(params, opt_state, step) from the newest checkpoint that reads
+        back, on the parameters' device; None if there is none.  The
+        checkpoint is matched against the state's shapes on the meta
+        device, so no copy of the weights is made for it."""
+        template = (params, opt_state)
+        shapes = tree_map(lambda t: t.detach().to("meta"), template)
+        res = self.ckpt.restore_latest(convert.to_reference_layout(shapes),
+                                       tree_leaves(params)[0].device)
+        if res is None:
+            return None
+        tree, step, _ = res
+        params, opt_state = convert.from_reference_layout(template, tree)
+        return params, opt_state, step
+
+    def restore(self, params, opt_state) -> Tuple[Any, Any, int]:
+        """Resume: the newest checkpoint's (params, opt_state, step), or the
+        arguments and step 0 when there is none."""
+        res = self._restore(params, opt_state)
+        return (params, opt_state, 0) if res is None else res
+
+    # -- main loop -----------------------------------------------------------
+
+    def run(self, params, opt_state, num_steps: int, start_step: int = 0,
+            host: str = "host0"):
+        step = start_step
+        while step < num_steps:
+            batch = self.batch_fn(step)
+            retries = 0
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    if self.fault_hook is not None:
+                        self.fault_hook(step)  # may raise (injected fault)
+                    params, opt_state, metrics = self.train_step(
+                        params, opt_state, step, batch)
+                    loss = float(metrics["loss"])
+                    break
+                except ElasticRestart:
+                    raise
+                except Exception:  # noqa: BLE001 - recover from step failure
+                    retries += 1
+                    if retries > self.cfg.max_retries_per_step:
+                        raise
+                    restored = self._restore(params, opt_state)
+                    if restored is not None:
+                        params, opt_state, step = restored
+                        batch = self.batch_fn(step)
+            dur = time.perf_counter() - t0
+            verdict = self.watchdog.observe(host, dur)
+            if verdict == "evict":
+                # persist the state, then ask the caller to re-mesh
+                self._save(params, opt_state, step, {"evicted": host})
+                raise ElasticRestart(host)
+            self.metrics_log.append({"step": step, "loss": loss, "sec": dur})
+            step += 1
+            if step % self.cfg.ckpt_every == 0 or step == num_steps:
+                self._save(params, opt_state, step)
+        return params, opt_state, step
+
+
+# ---------------------------------------------------------------------------
+# Population hyperparameter search runtime
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

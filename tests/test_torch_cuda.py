@@ -38,6 +38,15 @@ Tolerances:
     averages about T/e keys);
   * the reduced LM on the card against the CPU in fp32: logits within 1e-3
     of the largest, greedy tokens equal;
+  * K8's gradient (flash_attention's autograd: K8 forward, the recompute
+    backward) against autograd through K8's plain version: within 2e-2
+    (bf16) or 1e-4 (fp32) of each gradient's largest entry; one reduced
+    train step on the card against the CPU in fp32: loss rtol 1e-5,
+    grad_norm 1e-4, parameters within 1e-3 of each leaf's largest move
+    plus 1e-7 where AdamW's step is well conditioned (the CPU tests'
+    limit and criterion, tests/test_torch_train.py); a replay after an
+    injected fault
+    within 2e-2 of each bf16 leaf's largest entry;
   * the population's features (K1 with the member axis leading): rtol
     1e-4 / atol 1e-4, as K1; a tuned episode through the captured round
     (and pipelined, blocked) against the eager one: bit for bit;
@@ -69,6 +78,7 @@ from repro_torch.kernels import streaming_q8 as k_streaming_q8
 from repro_torch.kernels import train as k_train
 from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim import optimizers as popt
 from repro_torch.runtime import Request, Server, StreamRequest, StreamServer
 from repro_torch.runtime.graphs import RoundGraphs
 
@@ -1225,6 +1235,163 @@ def test_lm_server_on_card_agrees_with_cpu(dev):
         out.append({r.rid: r.out_tokens for r in server.run_until_drained()})
         assert k_flash.KERNEL.launches == before   # decode attention is plain
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_gradient_matches_plain_autograd(dev, dtype):
+    """flash_attention's autograd (K8 forward, the recompute backward) on
+    the model's transposed views against autograd through K8's plain
+    version: dq, dk, dv within 2e-2 (bf16) or 1e-4 (fp32) of each one's
+    largest entry; K8 launched once, by the forward."""
+    from repro_torch.models.attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bufs = [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((2, 200, 4, 64), (2, 200, 2, 64), (2, 200, 2, 64))]
+    ct = torch.randn((2, 200, 4, 64), generator=g, device=dev).to(dtype)
+    grads = []
+    for plain in (False, True):
+        ts = [b.clone().requires_grad_() for b in bufs]
+        before = k_flash.KERNEL.launches
+        if plain:
+            out = ref.flash_attention_ref(
+                *(t.transpose(1, 2) for t in ts)).transpose(1, 2)
+        else:
+            out = flash_attention(*ts, block_q=64, block_k=128)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        assert k_flash.KERNEL.launches == before + (0 if plain else 1)
+        grads.append([t.grad.float() for t in ts])
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, got, want in zip("qkv", *grads):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= rel * float(want.abs().max()), (name, err)
+
+
+def _adam_ill(got_states, want_states, rel=1e-3, b1=0.9, b2=0.95,
+              eps=1e-8):
+    """Per parameter, where an AdamW step is ill-conditioned: the first-
+    order bound on the step's difference from the measured row-wise
+    differences of m_hat and sqrt(n_hat) exceeds ``rel`` at some step
+    (tests/test_torch_train.py:_ill)."""
+    masks = None
+    for t, (gs, ws) in enumerate(zip(got_states, want_states), start=1):
+        ill = []
+        for gm, gn, wm, wn in zip(popt.tree_leaves(gs.mu),
+                                  popt.tree_leaves(gs.nu),
+                                  popt.tree_leaves(ws.mu),
+                                  popt.tree_leaves(ws.nu)):
+            mg, mw = gm.cpu() / (1 - b1 ** t), wm / (1 - b1 ** t)
+            sg = torch.sqrt(gn.cpu() / (1 - b2 ** t))
+            sw = torch.sqrt(wn / (1 - b2 ** t))
+            dm = (mg - mw).abs().amax(-1, keepdim=True)
+            ds = (sg - sw).abs().amax(-1, keepdim=True)
+            ill.append(dm / (sw + eps) + mw.abs() * ds / (sw + eps) ** 2
+                       > rel)
+        masks = ill if masks is None else [a | b for a, b in zip(masks, ill)]
+    return masks
+
+
+def _lm_train_run(device, steps, dtype=torch.float32, ckpt_dir=None,
+                  fault_hook=None):
+    """The reduced smollm-135m (flash route, seed-0 parameters) through
+    make_train_step and AdamW, on ``device``: (model, opt states after each
+    step, metrics, K8 launches a step)."""
+    from repro_torch.models.lm import make_train_step
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_reduced("smollm-135m"), dtype=dtype,
+                              attn_impl="pallas")
+    model = Transformer(cfg, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    opt = adamw()
+    step_fn = make_train_step(model, opt, constant_schedule(1e-3))
+    rng = np.random.default_rng(1)
+    toks = [torch.from_numpy(rng.integers(0, 512, (4, 64)).astype(np.int32))
+            for _ in range(steps)]
+    states, metrics, k8 = [], [], []
+
+    def step(params, state, s, batch):
+        before = k_flash.KERNEL.launches
+        out = step_fn(params, state, s, batch)
+        k8.append(k_flash.KERNEL.launches - before)
+        states.append(out[1])
+        metrics.append({k: float(v) for k, v in out[2].items()})
+        return out
+
+    tr = Trainer(TrainerConfig(ckpt_dir=str(ckpt_dir), ckpt_every=2), step,
+                 lambda s: {"tokens": toks[s], "targets": toks[s]},
+                 fault_hook=fault_hook)
+    model, _, _ = tr.run(model, opt.init(model), steps)
+    return model, states, metrics, k8
+
+
+def test_lm_train_step_on_card_matches_cpu(dev, tmp_path):
+    """One AdamW step of the reduced smollm-135m in fp32 on the card (K8
+    twice a layer: forward and remat recompute) against the CPU: loss
+    within rtol 1e-5, grad_norm 1e-4, the moments mu and nu within 1e-4 of
+    each leaf's largest entry, every parameter within 1e-3 of its leaf's
+    largest move plus 1e-7 (two moves where the CPU's step was
+    ill-conditioned, a mask built from those moments that may cover at
+    most 1% of the entries)."""
+    card, cstates, cm, k8 = _lm_train_run(dev, 1, ckpt_dir=tmp_path / "a")
+    cpu0 = Transformer(card.cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    cpu, states, pm, _ = _lm_train_run("cpu", 1, ckpt_dir=tmp_path / "b")
+    assert k8 == [2 * card.cfg.n_layers]
+    np.testing.assert_allclose(cm[0]["loss"], pm[0]["loss"], rtol=1e-5)
+    np.testing.assert_allclose(cm[0]["grad_norm"], pm[0]["grad_norm"],
+                               rtol=1e-4)
+    for g, w in zip(popt.tree_leaves((cstates[0].mu, cstates[0].nu)),
+                    popt.tree_leaves((states[0].mu, states[0].nu))):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    masks = _adam_ill(cstates, states)
+    n_ill = sum(int(m.sum()) for m in masks)
+    n_all = sum(m.numel() for m in masks)
+    assert n_ill <= 1e-2 * n_all, (n_ill, n_all)
+    for g, w, p0, ill in zip(card.parameters(), cpu.parameters(),
+                             cpu0.parameters(), masks):
+        move = float((w - p0).detach().abs().max())
+        err = (g.detach().cpu() - w.detach()).abs()
+        assert bool((err[~ill] <= 1e-3 * move + 1e-7).all())
+        assert bool((err[ill] <= 2 * move).all())
+
+
+def test_lm_trainer_replay_on_card(dev, tmp_path):
+    """A fault at step 3 restores the step-2 checkpoint on the card and
+    replays steps 2-4; each final bf16 parameter within 1e-3 of its leaf's
+    largest move since the seeded init in the uninterrupted run (bit for
+    bit in bf16 at these moves: a limit on the parameters' own scale would
+    pass a replay that lost its optimizer state)."""
+    init = Transformer(dataclasses.replace(
+        get_reduced("smollm-135m"), dtype=torch.bfloat16,
+        attn_impl="pallas"), device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    clean, *_ = _lm_train_run(dev, 5, torch.bfloat16, tmp_path / "a")
+    fired = []
+
+    def fault(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected device loss")
+
+    replay, _, metrics, _ = _lm_train_run(dev, 5, torch.bfloat16,
+                                          tmp_path / "b", fault)
+    assert fired == [3] and len(metrics) == 6   # steps 0-2, then 2-4
+    for g, w, p0 in zip(replay.parameters(), clean.parameters(),
+                        init.parameters()):
+        w = w.detach().float().cpu()
+        move = float((w - p0.detach().float()).abs().max())
+        err = float((g.detach().float().cpu() - w).abs().max())
+        assert err <= 1e-3 * move, (err, move)
 
 
 # ---------------------------------------------------------------------------

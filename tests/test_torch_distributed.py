@@ -160,9 +160,14 @@ def test_make_slot_mesh_and_placement():
         tmesh.make_slot_mesh(n + 1)
     with pytest.raises(ValueError, match="need 4 devices"):
         tmesh.make_slot_mesh(4, devices=["cpu"] * 3)
-    for fn in (tmesh.make_production_mesh, tmesh.make_host_mesh):
-        with pytest.raises(NotImplementedError, match="LM optimizers"):
-            fn()
+    with pytest.raises(NotImplementedError, match="LM sharding and dry run"):
+        tmesh.make_production_mesh()
+    host = tmesh.make_host_mesh(device="cpu")
+    assert host.shape == {"data": 1, "model": 1}
+    assert host.devices == (torch.device("cpu"),)
+    for kw in (dict(data=2), dict(model=2)):
+        with pytest.raises(NotImplementedError, match="LM sharding"):
+            tmesh.make_host_mesh(device="cpu", **kw)
 
     tree = WindowState(rows=torch.arange(24.).reshape(4, 3, 2),
                        onehot=torch.arange(8.).reshape(4, 2, 1),
@@ -177,7 +182,7 @@ def test_make_slot_mesh_and_placement():
         assert blk.rows.data_ptr() != tree.rows.data_ptr()
     with pytest.raises(ValueError, match="'slot'"):
         shd.shard_blocks(tree, axes, m2)
-    with pytest.raises(NotImplementedError, match="LM optimizers"):
+    with pytest.raises(NotImplementedError, match="LM sharding and dry run"):
         shd.shard_act(torch.zeros(2), ("batch",))
 
 

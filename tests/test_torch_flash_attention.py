@@ -9,8 +9,9 @@
   most where the f32 sums straddle a rounding boundary - and the argmax
   over D equal.
 * ``blockwise_attention``, ``flash_attention`` (the model's flash route,
-  blockwise on the CPU), ``decode_attention`` and ``KVCache`` against the
-  reference's at 1e-5 in fp32.
+  blockwise on the CPU; its gradient against the blockwise route's),
+  ``decode_attention`` and ``KVCache`` against the reference's at 1e-5 in
+  fp32.
 * The rule by which K8's bf16 route accepts an operand (the TMA unit's 16-
   byte alignment of the base and of every stride that is stepped), which
   the wrapper checks before any launch.
@@ -119,13 +120,22 @@ def test_blockwise_matches_reference(causal, window, tq, tk, h, kv,
 
 
 def test_flash_route_on_cpu_is_blockwise_and_forward_only():
+    """On the CPU the flash route's forward is the blockwise route's, and
+    its gradient (the recompute backward) is finite and equals autograd
+    through the blockwise route within fp32's limits (1e-5)."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(
         [(1, 40, 4, 16), (1, 40, 2, 16), (1, 40, 2, 16)], 2))
     got = patt.flash_attention(q, k, v)
     want = patt.blockwise_attention(q, k, v)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        patt.flash_attention(q.requires_grad_(), k, v)
+    grads = []
+    for fn in (patt.flash_attention, patt.blockwise_attention):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*ts, block_q=16, block_k=16).square().sum().backward()
+        grads.append([t.grad for t in ts])
+    for g, w in zip(*grads):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **FP32)
     with torch.no_grad():
         patt.flash_attention(q, k, v)
 
