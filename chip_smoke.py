@@ -273,6 +273,36 @@ Phases, each fatal on failure:
      its leaf's largest move plus 1e-7 where the CPU's step is well
      conditioned (ADAM_REL), within two moves elsewhere, and at most 1%
      of the entries ill-conditioned.
+ 11. The sharded LM on the card: a one-rank NCCL process group and
+     make_host_mesh(data=1, model=1), a DeviceMesh; smollm-135m at full
+     width, bf16, flash route, from phase 10's seed-0 init and its first
+     5 batches: 5 AdamW steps at (8, 2048) and a (4, 4096) prefill
+     unsharded, then the same with the parameters through
+     guarded_shardings and distribute_tensor, the optimizer state and
+     the batches placed (launch/steps.py).  K8's launches over a sharded
+     step (60) and a sharded prefill (30), the losses within rtol 1e-3,
+     the parameters within phase 10b's rule (1e-3 of each leaf's move
+     since init plus 1e-7, at most 1% of the entries exempt as
+     ill-conditioned, those within two moves), whether the two runs are
+     bit for bit equal, the prefill logits within LM_BF16_REL of max
+     |logits| with argmax equal, and the ms a step beside the unsharded
+     run's (DTensor's host cost: a finding, not a gate).
+ 11b. The dry run (python -m repro_torch.launch.dryrun, CPU processes
+     with no CUDA device visible, started after phase 11 so that no
+     timed phase shares the host's CPUs with it): every arch at
+     train_4k on pod16x16, smollm-135m and llama4-maverick at train_4k on
+     pod2x16x16, smollm-135m at train_4k with attn_impl=pallas.  Every
+     cell 'ok' (none of these is in a skip_shapes); each cell's
+     per-device argument bytes, peak bytes, FLOPs, HBM bytes, wire bytes
+     and dominant roofline term.  The other shapes are cut (PERF.md
+     section 4).
+ 12. The processes still running: the script is the subreaper of every
+     process it starts (prctl PR_SET_CHILD_SUBREAPER), so a descendant
+     whose parent has exited (a dry-run cell's pool worker,
+     multiprocessing's resource tracker) is re-parented to it.  It closes
+     its resource tracker, ends every child still there (SIGTERM, then
+     SIGKILL), reaps it and prints what it found; it does the same when a
+     phase fails, and fails if a process outlives SIGKILL.
 Phase 3 also holds K8's gradient (flash_attention's autograd: K8 forward,
 the recompute backward) against autograd through K8's plain version at
 (B=4, H=9, KV=3, T=2048, D=64), causal, on transposed views, in bf16
@@ -298,11 +328,13 @@ per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
 """
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -461,6 +493,13 @@ K8_CASES = (
     ("whisper cross", 1, 12, 12, 256, 1500, 64, False, 0, torch.bfloat16,
      "bthd"),
 )
+# the query-row split over 'model' (models.attention.local_heads): a rank's
+# rows of smollm's 9 heads at train_4k on 16 model ranks (256 of 4096),
+# the first rank's, a middle one's and the last one's, and an offset inside
+# a key tile (B, H, KV, Tq, Tk, D, q_offset, dtype)
+K8_OFFSET_CASES = tuple(
+    (4, 9, 3, 256, 4096, 64, off, dt) for off in (0, 1920, 3840, 1000)
+    for dt in (torch.bfloat16, torch.float32))
 K8_DENSE_MAX_BYTES = 8 << 30   # larger dense f32 scores: blockwise plain
 # |got - want| <= atol + rtol |want|, elementwise.  bf16: both sides round
 # to bf16 from f32 values that differ in their last bits, so they are one
@@ -534,6 +573,35 @@ ADAM_ILL_SHARE = 1e-2
 # 37 GB in bf16 with its untied embeddings).  llama4-maverick runs only
 # reduced, in the CPU tests: one full-width layer of its 128 experts is
 # 32 GB in bf16.
+SHARDED_STEPS = 5          # phase 11: phase 10's first batches, a run each
+SHARDED_PREFILL = (4, 4096)
+SHARDED_REL = 1e-3         # sharded vs unsharded loss, rtol
+# phase 11b: the dry run's cells, (arch, shape, mesh, --set overrides,
+# artifact tag): the train_4k column on pod16x16, two cells on pod2x16x16
+# and the flash route's cell.  The whole sweep (80 cells) took 925.7 s on
+# eight processes of the card's host, over this script's budget (PERF.md
+# section 4).  A process a cell, at most DRYRUN_PROCS at once, the longest
+# traces first (zamba2's and rwkv6's chunk loops, about 190 s each on the
+# card's host), so that the processes end together.
+DRYRUN_CELLS = (
+    ("zamba2-1.2b", "train_4k", "single", (), "smoke"),
+    ("rwkv6-7b", "train_4k", "single", (), "smoke"),
+    ("qwen1.5-110b", "train_4k", "single", (), "smoke"),
+    ("llama4-maverick-400b-a17b", "train_4k", "multi", (), "smoke"),
+    ("llama4-scout-17b-a16e", "train_4k", "single", (), "smoke"),
+    ("llama4-maverick-400b-a17b", "train_4k", "single", (), "smoke"),
+    ("smollm-135m", "train_4k", "multi", (), "smoke"),
+    ("gemma3-4b", "train_4k", "single", (), "smoke"),
+    ("qwen2-vl-7b", "train_4k", "single", (), "smoke"),
+    ("minitron-8b", "train_4k", "single", (), "smoke"),
+    ("whisper-small", "train_4k", "single", (), "smoke"),
+    ("smollm-135m", "train_4k", "single", (), "smoke"),
+    ("smollm-135m", "train_4k", "single", ("attn_impl=pallas",),
+     "smoke_pallas"),
+)
+DRYRUN_PROCS = 8      # the card's host has 8 CPUs
+DRYRUN_TIMEOUT = 300  # s: the phase's limit (PERF.md section 4)
+
 FAMILY_ARCHS = ("llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-1.2b",
                 "whisper-small", "qwen2-vl-7b", "gemma3-4b")
 FAMILY_DEPTH = {"llama4-scout-17b-a16e": dict(n_layers=8)}
@@ -3161,7 +3229,8 @@ def population_agreement_phase(cfg, data) -> None:
 
 def k8_records(dev) -> dict:
     """K8 against its plain version on the card over K8_CASES, each beside
-    the library's scaled_dot_product_attention; the JSON record holds the
+    the library's scaled_dot_product_attention, then at the query offsets
+    of K8_OFFSET_CASES (checked, not timed); the JSON record holds the
     prefill case's numbers and the largest error over the bf16 cases."""
     import torch.nn.functional as F
 
@@ -3241,6 +3310,25 @@ def k8_records(dev) -> dict:
             rec["routes"] = "; ".join(f"{str(t).split('.')[-1]}: {r}"
                                       for t, r in K8_ROUTES.items())
         del q, k, v, bufs
+    for b, h, kv, tq, tk, d, off, dtype in K8_OFFSET_CASES:
+        g = torch.Generator(device=dev).manual_seed(tq + off)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, h, tq, d), (b, kv, tk, d),
+                                 (b, kv, tk, d)))
+        got = ops.flash_attention(q, k, v, q_offset=off, backend="cuda")
+        want = ops.flash_attention(q, k, v, q_offset=off, backend="torch")
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        print(f"  K8 query offset {off} (B={b} H={h} KV={kv} Tq={tq} "
+              f"Tk={tk} D={d}, causal, {str(dtype).split('.')[-1]}): max abs "
+              f"err {e:.3e} (tolerance {K8_TOL[dtype]})")
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), **K8_TOL[dtype]),
+              f"K8 at query offset {off}: kernel disagrees with its plain "
+              f"version")
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, e)
+        del q, k, v, got, want
     rec["max_abs_err"] = err_bf16
     return {rec["name"]: rec}
 
@@ -4066,10 +4154,314 @@ def readout_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def sharded_group():
+    """A one-rank NCCL process group (file:// rendezvous in a temporary
+    directory) and the host mesh over it, a 1 x 1 ``DeviceMesh``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import LMMesh, make_host_mesh
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    mesh = make_host_mesh(data=1, model=1)
+    check(isinstance(mesh, LMMesh) and mesh.shape == {"data": 1, "model": 1},
+          f"the host mesh over one NCCL rank is {mesh}")
+    return mesh
+
+
+def sharded_run(mesh, batches, prefill_toks, lr_fn) -> dict:
+    """Phase 11's run of smollm-135m (bf16, flash route, the seed-0 init):
+    SHARDED_STEPS train steps at TRAIN_SHAPE and a SHARDED_PREFILL
+    prefill, sharded over ``mesh`` (parameters through guarded_shardings
+    and distribute_tensor, the optimizer state and batches placed) or
+    unsharded when ``mesh`` is None.  K8's launches counted over the
+    second step and over the prefill."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import place_batch, place_opt_state
+
+    model = lm_model(torch.bfloat16, "cuda")
+    init = [p.detach().float().cpu() for p in model.parameters()]
+    opt = adamw()
+    with shd.use_mesh(mesh):
+        if mesh is not None:
+            placements = shd.guarded_shardings(model, model.axes(), mesh)
+            model.distribute(mesh, placements=placements)
+            state = place_opt_state(opt, model, mesh)
+            place = lambda b: place_batch(b, mesh)  # noqa: E731
+        else:
+            state = opt.init(model)
+            place = lambda b: b  # noqa: E731
+        step_fn = make_train_step(model, opt, lr_fn)
+        losses, secs, k8 = [], [], {}
+        for s in range(SHARDED_STEPS):
+            batch = place(batches[s])
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            model, state, metrics = step_fn(model, state, s, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if s == 1:
+                k8["step"] = read_launches()["K8 flash_attention"]
+        toks = place({"tokens": prefill_toks})
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = make_prefill_step(model)(toks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        k8["prefill"] = read_launches()["K8 flash_attention"]
+        full = (lambda t: t.full_tensor()) if mesh is not None else \
+            (lambda t: t)
+        out = dict(
+            losses=losses, secs=secs, k8=k8, prefill_s=prefill_s,
+            logits=full(logits).float().cpu(), init=init,
+            params=[full(p).detach().float().cpu()
+                    for p in model.parameters()],
+            mu=[full(t).cpu() for t in tree_leaves(state.mu)],
+            nu=[full(t).cpu() for t in tree_leaves(state.nu)],
+            placements=sorted({str(tuple(p.placements))
+                               for p in model.parameters()})
+            if mesh is not None else None)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_lm_phase(card: str) -> None:
+    """Phase 11: smollm-135m at full width, bf16, flash route, sharded
+    over a one-rank NCCL mesh beside the same steps unsharded: K8 60 times
+    a step and 30 a prefill, the losses within SHARDED_REL, the parameters
+    within phase 10b's rule (1e-3 of each leaf's move since init plus
+    1e-7, at most ADAM_ILL_SHARE of the entries exempt as ill-conditioned
+    and those within two moves), the prefill logits within LM_BF16_REL of
+    max |logits| with argmax equal; each step's time beside the
+    unsharded one's."""
+    import torch.distributed as dist
+
+    cfg = get_config(LM_ARCH)
+    b, t = TRAIN_SHAPE
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=t,
+                                           global_batch=b))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch(s).items()}
+               for s in range(SHARDED_STEPS)]
+    prefill_toks = torch.from_numpy(lm_tokens(*SHARDED_PREFILL, cfg.vocab,
+                                              seed=3)).cuda()
+    lr_fn = cosine_schedule(TRAIN_LR, warmup=min(100, TRAIN_STEPS // 10 + 1),
+                            total=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    mesh = sharded_group()
+    try:
+        plain = sharded_run(None, batches, prefill_toks, lr_fn)
+        shard = sharded_run(mesh, batches, prefill_toks, lr_fn)
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(shard["losses"], plain["losses"]))
+    ratio, n_ill, n_all = 0.0, 0, 0
+    t = SHARDED_STEPS
+    for g, w, p0, gmu, gnu, mu, nu in zip(
+            shard["params"], plain["params"], plain["init"], shard["mu"],
+            shard["nu"], plain["mu"], plain["nu"]):
+        mg, mw = gmu / (1 - 0.9 ** t), mu / (1 - 0.9 ** t)
+        sg, sw = torch.sqrt(gnu / (1 - 0.95 ** t)), torch.sqrt(
+            nu / (1 - 0.95 ** t))
+        dm = (mg - mw).abs().amax(-1, keepdim=True)
+        ds = (sg - sw).abs().amax(-1, keepdim=True)
+        err = (g - w).abs()
+        ill = (dm / (sw + 1e-8) + mw.abs() * ds / (sw + 1e-8) ** 2
+               > ADAM_REL).expand_as(err)
+        move = float((w - p0).abs().max())
+        n_ill += int(ill.sum())
+        n_all += err.numel()
+        if bool((~ill).any()):
+            ratio = max(ratio, float(err[~ill].max()) / (1e-3 * move + 1e-7))
+        check(bool((err[ill] <= 2 * move).all()),
+              f"an ill-conditioned parameter moved {float(err.max())}")
+    same = all(torch.equal(a, b)
+               for a, b in zip(shard["params"], plain["params"]))
+    lg, lw = shard["logits"], plain["logits"]
+    logit_rel = float((lg - lw).abs().max()) / float(lw.abs().max())
+    argmax = bool(torch.equal(lg.argmax(-1), lw.argmax(-1)))
+    med = {k: statistics.median(r["secs"][1:]) * 1e3
+           for k, r in (("plain", plain), ("sharded", shard))}
+    print(f"  [{card}] {LM_ARCH} bf16 flash route, (B, T) = {TRAIN_SHAPE}, "
+          f"{SHARDED_STEPS} AdamW steps on phase 10's batches, unsharded "
+          f"and over a one-rank NCCL DeviceMesh (data 1, model 1; "
+          f"placements {shard['placements']}), {wall:.1f} s in all")
+    print(f"  losses unsharded " + " ".join(f"{x:.5f}" for x in
+                                              plain["losses"]))
+    print(f"  losses sharded   " + " ".join(f"{x:.5f}" for x in
+                                              shard["losses"]))
+    print(f"  K8 launches: a sharded step {shard['k8']['step']} (unsharded "
+          f"{plain['k8']['step']}; {2 * cfg.n_layers} expected), a sharded "
+          f"{SHARDED_PREFILL} prefill {shard['k8']['prefill']} (unsharded "
+          f"{plain['k8']['prefill']}; {cfg.n_layers} expected)")
+    print(f"  loss rel {loss_rel:.3e} (limit {SHARDED_REL}); parameters: "
+          f"worst |dp| / (1e-3 move + 1e-7) {ratio:.3f} (limit 1) outside "
+          f"the {n_ill} of {n_all} entries ({100 * n_ill / n_all:.3f}%, "
+          f"limit {100 * ADAM_ILL_SHARE:g}%) whose step is "
+          f"ill-conditioned; bit for bit equal: {same}")
+    print(f"  prefill {SHARDED_PREFILL}: logits rel {logit_rel:.3e} (limit "
+          f"{LM_BF16_REL}), argmax equal {argmax}; "
+          f"{shard['prefill_s'] * 1e3:.1f} ms sharded, "
+          f"{plain['prefill_s'] * 1e3:.1f} ms unsharded (host clock, first "
+          f"call)")
+    print(f"  [{card}] a step, steps 1-{SHARDED_STEPS - 1} median (host "
+          f"clock, synchronized): sharded {med['sharded']:.1f} ms, "
+          f"unsharded {med['plain']:.1f} ms "
+          f"({med['sharded'] / med['plain']:.3f}x"
+          f"; DTensor's host overhead)")
+    check(shard["k8"]["step"] == 2 * cfg.n_layers
+          and shard["k8"]["prefill"] == cfg.n_layers,
+          f"sharded K8 launches {shard['k8']}")
+    check(loss_rel <= SHARDED_REL, f"sharded vs unsharded loss {loss_rel}")
+    check(ratio <= 1.0 and n_ill <= ADAM_ILL_SHARE * n_all,
+          f"sharded vs unsharded parameters: {ratio}, {n_ill} ill")
+    check(logit_rel <= LM_BF16_REL and argmax,
+          f"sharded prefill logits {logit_rel}, argmax {argmax}")
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants (a dry-run
+    cell's pool worker, multiprocessing's resource tracker): they are
+    re-parented here instead of to init, so stop_children() finds them."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def children() -> dict[int, str]:
+    """This process's child processes (with become_subreaper(), every
+    descendant whose parent has exited too), pid -> its state letter and
+    command line ('Z' and its name alone once it has exited unreaped)."""
+    me, kids = os.getpid(), {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmd = (entry / "cmdline").read_bytes()
+        except OSError:
+            continue
+        name, rest = stat.split("(", 1)[1].rsplit(")", 1)
+        state, ppid = rest.split()[:2]
+        if int(ppid) == me:
+            cmd = cmd.replace(b"\0", b" ").decode(errors="replace").strip()
+            kids[int(entry.name)] = f"{state} {cmd or name}"
+    return kids
+
+
+def stop_children(grace: float = 5.0,
+                  limit: float = 30.0) -> dict[int, str]:
+    """End every process this script started that still runs, and reap it:
+    multiprocessing's resource tracker is closed as multiprocessing closes
+    it; any other child gets SIGTERM, then SIGKILL after ``grace`` seconds.
+    Returns what it found; raises if a process outlives ``limit``."""
+    from multiprocessing import resource_tracker
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    found, t0 = {}, time.perf_counter()
+    while True:
+        for pid in list(found):
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)
+        kids = children()
+        if not kids:
+            return found
+        waited = time.perf_counter() - t0
+        if waited > limit:
+            raise SmokeFailure(f"processes outlived SIGKILL: {kids}")
+        sig = signal.SIGTERM if waited < grace else signal.SIGKILL
+        for pid, cmd in kids.items():
+            found.setdefault(pid, cmd)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        time.sleep(0.05)
+
+
+def dryrun_phase() -> None:
+    """Phase 11b: the dry run's cells, each ``python -m
+    repro_torch.launch.dryrun`` in a process of its own on the host's CPUs
+    alone (a shape-only 'fake' group and fake tensors; no CUDA device
+    visible); every cell reads 'ok', or 'skipped' exactly where the
+    reference's skip_shapes says; each cell's per-device argument GiB,
+    FLOPs, bytes, wire bytes and dominant term."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch import dryrun
+
+    column = {a for a, s, m, sets, _ in DRYRUN_CELLS
+              if s == "train_4k" and m == "single" and not sets}
+    check(column == set(ALL_ARCHS), f"phase 11b's train_4k column lacks "
+                                    f"{set(ALL_ARCHS) - column}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    # a failing phase ends the script: main's stop_children() ends the
+    # cells' processes (each with its pool's worker) with it
+    pending, running = list(DRYRUN_CELLS), []
+    t0 = time.perf_counter()
+    while pending or running:
+        while pending and len(running) < DRYRUN_PROCS:
+            arch, shape, mesh, sets, tag = pending.pop(0)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--tag", tag, *(a for kv in sets for a in ("--set", kv))]
+            log = tempfile.TemporaryFile(mode="w+")
+            running.append((cmd, time.perf_counter(), log, subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                text=True)))
+        for item in [r for r in running if r[3].poll() is not None]:
+            running.remove(item)
+            cmd, start, log, proc = item
+            log.seek(0)
+            out = log.read()
+            log.close()
+            print(f"  {' '.join(cmd[3:])}: exit {proc.returncode} after "
+                  f"{time.perf_counter() - start:.1f} s")
+            check(proc.returncode == 0, f"the dry run failed:\n"
+                                        f"{out[-4000:]}")
+        check(time.perf_counter() - t0 <= DRYRUN_TIMEOUT,
+              f"the dry run ran over {DRYRUN_TIMEOUT} s")
+        time.sleep(0.2)
+    for arch, shape, mesh, _, tag in DRYRUN_CELLS:
+        mesh = "pod2x16x16" if mesh == "multi" else "pod16x16"
+        rec = json.loads(dryrun.artifact_path(arch, shape, mesh,
+                                              tag).read_text())
+        skip = shape in get_config(arch).skip_shapes
+        want = "skipped" if skip else "ok"
+        check(rec["status"] == want, f"{arch} x {shape} x {mesh} ({tag}): "
+                                     f"{rec['status']} {rec.get('error')}")
+        if skip:
+            print(f"  {arch:26s} {shape:12s} {mesh:10s} skipped (the "
+                  f"reference's skip_shapes)")
+            continue
+        m = rec["memory"]
+        route = " pallas" if tag != "smoke" else ""
+        print(f"  {arch:26s} {shape:12s} {mesh:10s}{route} "
+              f"args {m['argument_size'] / 2 ** 30:.3f} GiB, temp "
+              f"{m['temp_size'] / 2 ** 30:.2f} GiB, flops "
+              f"{rec['flops_per_device']:.3e}, "
+              f"bytes {rec['bytes_per_device']:.3e}, wire "
+              f"{rec['collective']['wire_bytes']:.3e}, "
+              f"{rec['roofline']['dominant']} "
+              f"(useful {rec['useful_flops_ratio']:.3f}; traced in "
+              f"{rec['compile_s']:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    become_subreaper()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4232,6 +4624,22 @@ def main() -> int:
     print("[10b] one train step at full width, card vs CPU")
     train_agreement_phase()
     print(f"  phase 10b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[11] the sharded LM on the card: {LM_ARCH} over a one-rank "
+          f"NCCL DeviceMesh beside the unsharded run")
+    sharded_lm_phase(card)
+    print(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[11b] the dry run: every arch at train_4k on pod16x16, two cells "
+          "on pod2x16x16, the flash route's cell")
+    dryrun_phase()
+    print(f"  phase 11b in {time.perf_counter() - t0:.1f} s")
+    left = stop_children()
+    running = sum(not cmd.startswith("Z ") for cmd in left.values())
+    print(f"[12] the script's descendants at its end: {len(left)}, all "
+          f"reaped ({running} still running, ended; {len(left) - running} "
+          f"exited, orphans re-parented here)"
+          + "".join(f"\n  {pid} {cmd[:160]}" for pid, cmd in left.items()))
 
     for name, count in launches.items():
         records[name]["launches"] = count
@@ -4249,4 +4657,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -2,8 +2,9 @@
 the four assigned input shapes.
 
 A copy of ``repro.configs.base`` with the same fields, defaults and methods;
-``dtype`` is a torch dtype.  ``input_specs`` (shape stand-ins for the
-multi-pod dry-run) waits for the dry-run (ROADMAP.md, Queue 1).
+``dtype`` is a torch dtype.  ``input_specs`` gives a step's inputs as
+tensors on the meta device (shapes and dtypes, never allocated), the
+stand-ins of the reference's ShapeDtypeStructs.
 """
 from __future__ import annotations
 
@@ -149,3 +150,33 @@ class ArchConfig:
         moe_all = self.n_layers * self.n_experts * 3 * d * ff
         moe_active = self.n_layers * self.top_k * 3 * d * ff
         return total - moe_all + moe_active
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, *,
+                batch_override: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of a step function.
+
+    train:   tokens + targets (B, T)
+    prefill: tokens (B, T)
+    decode:  token (B, 1) + cache (built separately, with the decode step)
+    For input_mode='embeds' the token stream is replaced by precomputed
+    frame/patch embeddings (B, T, d_model) - the assigned frontend stub.
+    """
+    b = batch_override or shape.global_batch
+    t = shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        if cfg.input_mode == "embeds":
+            return {"embeds": spec((b, t, cfg.d_model), cfg.dtype),
+                    "targets": spec((b, t))}
+        return {"tokens": spec((b, t)), "targets": spec((b, t))}
+    if shape.kind == "prefill":
+        if cfg.input_mode == "embeds":
+            return {"embeds": spec((b, t, cfg.d_model), cfg.dtype)}
+        return {"tokens": spec((b, t))}
+    # decode: one new token against a cache of seq_len
+    return {"token": spec((b, 1))}

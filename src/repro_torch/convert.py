@@ -44,6 +44,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.online import OnlineState
 from repro_torch.core.types import (DFRParams, QuantParams, RidgeState,
@@ -212,39 +213,59 @@ def _is_layer_list(node) -> bool:
         all(isinstance(c, (Mapping, nn.Module)) for c in node)
 
 
-def to_reference_layout(tree):
+def _stack(*leaves):
+    return torch.stack(leaves)
+
+
+def to_reference_layout(tree, stack=_stack, is_leaf=None):
     """A tree of tensors in the reference's layout: a ``ParamTree`` as the
     dict of its names, a list of layers (an ``nn.ModuleList``, or a list of
     dicts as an optimizer state mirrors it) as one dict with every leaf
-    stacked on a leading axis (``torch.stack``, dtype and device kept);
-    dicts, NamedTuples, tuples and other lists as they are.  The walk is
+    stacked on a leading axis (``stack(*layer_leaves)``, by default
+    ``torch.stack``: dtype and device kept; on meta tensors nothing is
+    allocated); dicts, NamedTuples, tuples and other lists as they are.
+    ``is_leaf`` marks the leaves of a tree that are not tensors (logical
+    axes, say, stacked by their own ``stack``).  The walk is
     ``optim.optimizers``'s (``_children``, ``_rebuild``, ``tree_map``)."""
     if _is_layer_list(tree):
-        layers = [to_reference_layout(c) for c in tree]
-        return tree_map(lambda *leaves: torch.stack(leaves), *layers)
-    kids = _children(tree)
+        layers = [to_reference_layout(c, stack, is_leaf) for c in tree]
+        return tree_map(stack, *layers, is_leaf=is_leaf)
+    kids = _children(tree, is_leaf)
     if kids is None:
-        return tree.detach()
-    return _rebuild(tree, [to_reference_layout(c) for _, c in kids])
+        return tree.detach() if isinstance(tree, torch.Tensor) else tree
+    return _rebuild(tree, [to_reference_layout(c, stack, is_leaf)
+                           for _, c in kids])
 
 
-def from_reference_layout(template, tree):
+def _take(t, i):
+    return t[i]
+
+
+def from_reference_layout(template, tree, take=_take, is_leaf=None):
     """The inverse of ``to_reference_layout``: ``template``'s structure
     filled from ``tree``.  A ``ParamTree``'s parameters are overwritten in
     place (each cast to its dtype) and the module itself returned; a list
-    of layers takes its layers from the stacked leaves' slices; any other
-    tensor is replaced by the tree's."""
+    of layers takes layer i's leaves as ``take(stacked_leaf, i)`` (by
+    default the slice); any other tensor is replaced by the tree's leaf,
+    placed as the template's leaf is where that is a DTensor.
+    ``is_leaf`` marks ``tree``'s leaves that are not tensors."""
     if _is_layer_list(template):
-        layers = [from_reference_layout(c, tree_map(lambda t: t[i], tree))
-                  for i, c in enumerate(template)]
+        layers = [from_reference_layout(
+            c, tree_map(lambda t: take(t, i), tree, is_leaf=is_leaf), take,
+            is_leaf) for i, c in enumerate(template)]
         return template if isinstance(template, nn.ModuleList) else layers
     kids = _children(template)
     if kids is None:
+        if isinstance(template, DTensor) and not isinstance(tree, DTensor):
+            tree = distribute_tensor(tree.to(template.dtype),
+                                     template.device_mesh,
+                                     template.placements)
         if isinstance(template, nn.Parameter):
             with torch.no_grad():
                 template.copy_(tree)
             return template
         return tree
-    new = [from_reference_layout(c, tree[k]) for k, c in kids]
+    new = [from_reference_layout(c, tree[k], take, is_leaf)
+           for k, c in kids]
     return template if isinstance(template, nn.Module) else \
         _rebuild(template, new)

@@ -5,7 +5,9 @@
 // with g = H / KV it computes
 //   out[b, h] = softmax(scale * q[b, h] k[b, h / g]^T + mask) v[b, h / g]
 // where a key is live if k_pos < Tk, and k_pos <= q_pos when causal, and
-// k_pos > q_pos - window when window > 0.  Scores, the running max m, the
+// k_pos > q_pos - window when window > 0; row i of q sits at q_pos =
+// q_offset + i (a slice of the query rows, as when they split over
+// devices, with k and v whole).  Scores, the running max m, the
 // running sum l and the accumulator are fp32; a masked score has
 // probability 0, so a row with no live key ends with l = 0 and the output
 // acc / max(l, 1e-30) = 0, as the TPU kernel gives.  The output is stored
@@ -103,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, Strides sq,
              Strides sk, Strides sv, Strides so, int tq, int tk, int group,
-             int causal, int window, float scale) {
+             int causal, int window, int qoff, float scale) {
   constexpr int D = DL * LPR;
   constexpr int kRows = kThreads / LPR;    // query rows per block
   constexpr int kPart = DL + kPad;         // floats per lane part
@@ -119,6 +121,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int part = tid % LPR;
   const int q0 = qt * kRows;
   const int qpos = q0 + tid / LPR;
+  const int qabs = qpos + qoff;  // the row's position, for the mask
 
   float qr[DL], acc[DL];
   {
@@ -134,8 +137,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the block's key range, from its tile indices (block-uniform)
   const int q_last = min(q0 + kRows, tq) - 1;
-  const int k_end = causal ? min(tk, q_last + 1) : tk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(tk, q_last + qoff + 1) : tk;
+  const int k_begin = window > 0 ? max(0, q0 + qoff - window + 1) : 0;
   const T* kb = k + b * sk.b + (h / group) * sk.h;
   const T* vb = v + b * sv.b + (h / group) * sv.h;
   const float* kpart = ks + part * kPart;
@@ -181,8 +184,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (LPR > 2) s[c] += __shfl_xor_sync(0xffffffffu, s[c], 2);
         const int key = t0 + c0 + c;
         bool ok = key < tk;
-        if (causal) ok = ok && key <= qpos;
-        if (window > 0) ok = ok && key > qpos - window;
+        if (causal) ok = ok && key <= qabs;
+        if (window > 0) ok = ok && key > qabs - window;
         s[c] = ok ? s[c] * scale : kNegInf;
         live |= static_cast<unsigned>(ok) << c;
         m_new = fmaxf(m_new, s[c]);
@@ -222,7 +225,7 @@ template <typename T, int DL, int LPR>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    Strides sq, Strides sk, Strides sv, Strides so, int B,
                    int H, int KV, int tq, int tk, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   int qoff, float scale, cudaStream_t stream) {
   constexpr int kRows = kThreads / LPR;
   const int smem = 2 * kBlockK * LPR * (DL + kPad) * static_cast<int>(
       sizeof(float));
@@ -234,25 +237,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, tq, tk,
-      H / KV, causal, window, scale);
+      H / KV, causal, window, qoff, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(int D, const void* q, const void* k, const void* v,
                        void* o, Strides sq, Strides sk, Strides sv,
                        Strides so, int B, int H, int KV, int tq, int tk,
-                       int causal, int window, float scale,
+                       int causal, int window, int qoff, float scale,
                        cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<float, 32, 1>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq,
-                                  tk, causal, window, scale, stream);
+                                  tk, causal, window, qoff, scale, stream);
     case 64:
       return launch<float, 64, 1>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq,
-                                  tk, causal, window, scale, stream);
+                                  tk, causal, window, qoff, scale, stream);
     case 128:
       return launch<float, 64, 2>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq,
-                                  tk, causal, window, scale, stream);
+                                  tk, causal, window, qoff, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -644,7 +647,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, Strides so, int tq, int tk,
-                   int group, int causal, int window, float scale_log2) {
+                   int group, int causal, int window, int qoff,
+                   float scale_log2) {
   using C = WgCfg<D>;
   constexpr int BN = kBlockN;
   constexpr int S = C::kStages;
@@ -665,8 +669,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qt * kBlockM;
-  const KeyRange blk =
-      key_range(q0, min(q0 + kBlockM, tq) - 1, tk, causal, window);
+  const KeyRange blk = key_range(q0 + qoff, min(q0 + kBlockM, tq) - 1 + qoff,
+                                 tk, causal, window);
   const int t_first = blk.begin / BN;
   const int n_tiles = blk.end > blk.begin
                           ? (blk.end + BN - 1) / BN - t_first
@@ -718,10 +722,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int wg = (threadIdx.x - 128) / 128;
     const int lt = threadIdx.x % 128;
     const int lane = lt % 32;
-    const int r0w = q0 + wg * kWgRows;          // the warpgroup's rows
+    // the warpgroup's rows and this thread's, as positions (the mask's)
+    const int r0w = q0 + qoff + wg * kWgRows;
     const int r1w = r0w + kWgRows - 1;
-    const int row_a = r0w + (lt / 32) * 16 + lane / 4;  // this thread's rows
-    const int row_b = row_a + 8;
+    const int pos_a = r0w + (lt / 32) * 16 + lane / 4;
+    const int pos_b = pos_a + 8;
+    const int row_a = pos_a - qoff, row_b = pos_b - qoff;  // and as rows
     const int col_t = 2 * (lane % 4);           // this thread's first column
     const KeyRange wr = key_range(r0w, r1w, tk, causal, window);
     // the warpgroup's tiles [it_lo, it_hi) of the block's n_tiles; the
@@ -764,7 +770,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<0>();
         fence_regs(s);
         mbar_arrive(empty_k(st));
-        const MaskArgs ma{(t_first + it_lo) * BN, row_a, row_b, col_t, tk,
+        const MaskArgs ma{(t_first + it_lo) * BN, pos_a, pos_b, col_t, tk,
                           causal, window};
         tile_softmax(s, rs, corr_a, corr_b, ma, r0w, r1w, scale_log2);
         split_p(s, p_hi, p_lo);
@@ -787,7 +793,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();  // S done; P V may still run
         fence_regs(s);
         mbar_arrive(empty_k(st));
-        const MaskArgs ma{(t_first + it) * BN, row_a, row_b, col_t, tk,
+        const MaskArgs ma{(t_first + it) * BN, pos_a, pos_b, col_t, tk,
                           causal, window};
         tile_softmax(s, rs, corr_a, corr_b, ma, r0w, r1w, scale_log2);
         wgmma_wait<0>();
@@ -895,7 +901,7 @@ template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          Strides sq, Strides sk, Strides sv, Strides so, int B,
                          int H, int KV, int tq, int tk, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         int qoff, float scale, cudaStream_t stream) {
   using C = WgCfg<D>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, tq, H, B, sq, C::kCol, kBlockM, C::kSwizzle) ||
@@ -909,25 +915,25 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((tq + kBlockM - 1) / kBlockM, H, B);
   kernel<<<grid, kTmaThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, tq, tk, H / KV, causal,
-      window, scale * kLog2e);
+      window, qoff, scale * kLog2e);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(int D, const void* q, const void* k, const void* v,
                         void* o, Strides sq, Strides sk, Strides sv,
                         Strides so, int B, int H, int KV, int tq, int tk,
-                        int causal, int window, float scale,
+                        int causal, int window, int qoff, float scale,
                         cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_wgmma<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq, tk,
-                              causal, window, scale, stream);
+                              causal, window, qoff, scale, stream);
     case 64:
       return launch_wgmma<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq, tk,
-                              causal, window, scale, stream);
+                              causal, window, qoff, scale, stream);
     case 128:
       return launch_wgmma<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, tq, tk,
-                               causal, window, scale, stream);
+                               causal, window, qoff, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -937,13 +943,15 @@ cudaError_t launch_bf16(int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 float32 (SIMT route), 1 bfloat16 (wgmma + TMA route).  Strides
 // in elements, for the (B, H, T) dimensions of q, k, v and out in turn.
+// q_offset is the position of q's first row (the mask's), where the query
+// rows are one slice of a longer sequence.
 extern "C" int dfr_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qsh, long long qst, long long ksb, long long ksh, long long kst,
     long long vsb, long long vsh, long long vst, long long osb,
     long long osh, long long ost, int B, int H, int KV, int tq, int tk,
-    int D, int dtype, int causal, int window, float scale, int device,
-    void* stream) {
+    int D, int dtype, int causal, int window, int q_offset, float scale,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq{qsb, qsh, qst}, sk{ksb, ksh, kst}, sv{vsb, vsh, vst},
@@ -951,10 +959,10 @@ extern "C" int dfr_flash_attention(
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     err = launch_f32(D, q, k, v, o, sq, sk, sv, so, B, H, KV, tq, tk, causal,
-                     window, scale, st);
+                     window, q_offset, scale, st);
   else if (dtype == 1)
     err = launch_bf16(D, q, k, v, o, sq, sk, sv, so, B, H, KV, tq, tk, causal,
-                      window, scale, st);
+                      window, q_offset, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

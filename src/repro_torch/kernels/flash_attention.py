@@ -17,6 +17,14 @@ strides multiples of 16 bytes; a bf16 call that breaks this raises and
 never drops to the SIMT kernel.  Its plain version is ``kernels.ref.
 flash_attention_ref``; ``kernels.ops.flash_attention`` chooses between them
 by the tensors' device.
+
+``flash_attention_k8`` is K8 registered with ``torch.library`` as the op
+``repro_torch::flash_attention_k8``: on a CUDA tensor it launches the
+kernel (``flash_attention_cuda``); on a fake tensor (the dry run,
+``launch.steps.lower_cell``) it gives the output's shape alone, and the
+FLOP counter (``torch.utils.flop_counter``) counts it at 4 * D FLOPs a
+live (query, key) pair and head: the two products of the pair, as the
+kernel skips dead key tiles.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 
 KERNEL = CudaKernel(
     "flash_attention", "dfr_flash_attention",
-    [_P] * 4 + [_L] * 12 + [_I] * 9 + [_F, _I, _P],
+    [_P] * 4 + [_L] * 12 + [_I] * 10 + [_F, _I, _P],
 )
 HEAD_DIMS = (32, 64, 128)   # the tiles' widths on both routes
 TMA_ALIGN = 16              # bytes: TMA base addresses and strides
@@ -96,10 +104,12 @@ def flash_attention_cuda(
     *,
     causal: bool = True,
     window: int = 0,
+    q_offset: int = 0,
     softmax_scale: Optional[float] = None,
 ) -> Tensor:
     """Launch K8 once.  Returns out (B, H, Tq, D) in q's dtype, a view of a
-    contiguous (B, Tq, H, D) buffer."""
+    contiguous (B, Tq, H, D) buffer.  Row i of q is masked as position
+    ``q_offset + i``."""
     b, h, kv, tq, tk, d = _check(q, k, v)
     dev = q.device
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
@@ -108,8 +118,53 @@ def flash_attention_cuda(
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         b, h, kv, tq, tk, d, DTYPES[q.dtype], int(bool(causal)), int(window),
-        float(scale),
+        int(q_offset), float(scale),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream_handle(dev),
     )
     return out
+
+
+def live_pairs(tq: int, tk: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
+    """The (query, key) pairs K8's mask keeps: key j is live for the query
+    at position i when j <= i (causal) and j > i - window (window > 0)."""
+    total = 0
+    for i in range(q_offset, q_offset + tq):
+        hi = min(i + 1, tk) if causal else tk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+@torch.library.custom_op("repro_torch::flash_attention_k8", mutates_args=())
+def flash_attention_k8(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       window: int, q_offset: int) -> Tensor:
+    """K8 as a dispatcher op: (B, H, Tq, D) out of q (B, H, Tq, D) and k/v
+    (B, KV, Tk, D).  A CUDA tensor launches the kernel; there is no CPU
+    kernel (the CPU runs the plain versions)."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+
+@flash_attention_k8.register_fake
+def _(q, k, v, causal, window, q_offset):
+    b, h, tq, d = q.shape
+    return q.new_empty((b, tq, h, d)).transpose(1, 2)
+
+
+def _k8_flops(q_shape, k_shape, v_shape, causal, window, q_offset, *args,
+              **kwargs):
+    b, h, tq, d = q_shape
+    return 4 * d * b * h * live_pairs(tq, k_shape[2], causal, window,
+                                      q_offset)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula(torch.ops.repro_torch.flash_attention_k8)(
+        _k8_flops)
+
+
+_register_flops()

@@ -423,12 +423,13 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    q_offset: int = 0,
     backend: Optional[str] = None,
 ) -> Tensor:
     """Causal / sliding-window GQA attention (K8) in the reference's
-    (B, H, T, D) layout, scaled by D^-1/2.  'cuda' launches K8, which
-    chooses its own tiles; 'torch' is the plain version
-    ``ref.flash_attention_ref``."""
+    (B, H, T, D) layout, scaled by D^-1/2, row i of q at position
+    ``q_offset + i``.  'cuda' launches K8, which chooses its own tiles;
+    'torch' is the plain version ``ref.flash_attention_ref``."""
     be = resolve_backend(backend, q)
     fn = flash_attention_cuda if be == "cuda" else kref.flash_attention_ref
-    return fn(q, k, v, causal=causal, window=window)
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)

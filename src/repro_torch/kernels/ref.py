@@ -257,12 +257,13 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    q_offset: int = 0,
     softmax_scale: Optional[float] = None,
 ) -> Tensor:
     """Plain K8: the dense masked softmax of the reference's
     ``ref.flash_attention_ref``, in fp32, returned in q's dtype.  A key is
     live if k_pos <= q_pos (causal) and k_pos > q_pos - window (window >
-    0).  A row with no live key gives 0, as the kernels do (the reference's
+    0), where row i of q sits at q_pos = q_offset + i.  A row with no live key gives 0, as the kernels do (the reference's
     dense oracle averages such a row's values instead)."""
     b, h, tq, d = q.shape
     _, kv, tk, _ = k.shape
@@ -270,7 +271,7 @@ def flash_attention_ref(
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     qg = q.reshape(b, kv, g, tq, d).to(torch.float32)
     s = torch.einsum("bkgtd,bksd->bkgts", qg, k.to(torch.float32)) * scale
-    q_pos = torch.arange(tq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
     k_pos = torch.arange(tk, device=q.device)[None, :]
     mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
     if causal:

@@ -9,10 +9,20 @@ optimizer and a cosine schedule with the reference's warmup,
 ``models.lm.make_train_step``, and ``runtime.Trainer`` with its
 checkpoints, resume and straggler watchdog.  The model runs on
 ``--device``: the CUDA device by default (this raises on a host without
-one), ``--device cpu`` for the CPU.  ``--mesh host`` is one device;
-``--mesh production`` and ``--model-parallel`` above 1 raise
-(ROADMAP.md, Queue 1, 'LM sharding and dry run').  The parameters come
-from the seed-0 init.
+one), ``--device cpu`` for the CPU.  The parameters come from the seed-0
+init.
+
+Under ``torchrun`` (its environment names the rank and world size) each
+rank joins the default process group (NCCL on CUDA, one card a rank;
+gloo on the CPU) and the model trains sharded over the host mesh,
+``data`` = world // ``--model-parallel`` by ``model`` =
+``--model-parallel`` (``launch.mesh.make_host_mesh``): FSDP over data,
+tensor parallel over model, the batch split over data.  Rank 0 prints.
+``--mesh production`` builds the 16x16 production mesh, which raises
+unless the job has 256 ranks.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \
+        --device cpu --model-parallel 2 --steps 3
 """
 from __future__ import annotations
 
@@ -22,11 +32,15 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.types import resolve_device
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.distributed.sharding import use_mesh
+from repro_torch.launch.mesh import (LMMesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.steps import place_batch, place_opt_state
 from repro_torch.models.lm import make_train_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim.optimizers import make_optimizer
@@ -55,10 +69,18 @@ def main(argv=None) -> None:
 
     device = resolve_device(None if args.device == "cuda" else args.device,
                             "launch.train")
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     mesh = (make_production_mesh() if args.mesh == "production"
             else make_host_mesh(model=args.model_parallel, device=device))
-    print(f"mesh: {mesh.shape}")
+    sharded = isinstance(mesh, LMMesh)
+    say(f"mesh: {mesh.shape}")
     model = Transformer(cfg, device=device)
 
     stream = TokenStream(TokenStreamConfig(
@@ -66,29 +88,41 @@ def main(argv=None) -> None:
     opt = make_optimizer(args.optimizer)
     lr_fn = cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                             total=args.steps)
-    step_fn = make_train_step(model, opt, lr_fn, accum=args.accum)
-    opt_state = opt.init(model)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch {cfg.name}: {n_params/1e6:.1f}M params")
+    say(f"arch {cfg.name}: {n_params/1e6:.1f}M params")
+    if sharded:
+        model.distribute(mesh)
+        opt_state = place_opt_state(opt, model, mesh)
+    else:
+        opt_state = opt.init(model)
+    step_fn = make_train_step(model, opt, lr_fn, accum=args.accum)
 
     def batch_fn(step):
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in stream.batch(step).items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in stream.batch(step).items()}
+        return place_batch(batch, mesh) if sharded else batch
 
     trainer = Trainer(
         TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
         step_fn, batch_fn)
-    model, opt_state, start = trainer.restore(model, opt_state)
-    if start:
-        print(f"resumed from step {start}")
+    with use_mesh(mesh if sharded else None):
+        model, opt_state, start = trainer.restore(model, opt_state)
+        if start:
+            say(f"resumed from step {start}")
+        _run(args, trainer, model, opt_state, start, say)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _run(args, trainer, model, opt_state, start, say) -> None:
     t0 = time.time()
 
     class LogList(list):
         def append(self, rec):  # live progress printing
             super().append(rec)
             if rec["step"] % args.log_every == 0:
-                print(f"step {rec['step']:5d} loss {rec['loss']:.4f} "
-                      f"({rec['sec']:.2f}s/step)", flush=True)
+                say(f"step {rec['step']:5d} loss {rec['loss']:.4f} "
+                    f"({rec['sec']:.2f}s/step)", flush=True)
 
     trainer.metrics_log = LogList(trainer.metrics_log)
     model, opt_state, step = trainer.run(model, opt_state, args.steps,
@@ -97,8 +131,8 @@ def main(argv=None) -> None:
     toks = (args.steps - start) * args.batch * args.seq
     final = trainer.metrics_log[-1]["loss"] if trainer.metrics_log else \
         float("nan")
-    print(f"done: {step} steps, {toks/dt/1e3:.1f}k tok/s, "
-          f"final loss {final:.4f}")
+    say(f"done: {step} steps, {toks/dt/1e3:.1f}k tok/s, "
+        f"final loss {final:.4f}")
 
 
 if __name__ == "__main__":

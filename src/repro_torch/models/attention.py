@@ -9,8 +9,8 @@ The port of ``repro.models.attention``.  Layout: q (B, T, H, D), k/v
   blocks, each (block_q, block_k) tile scored in f32 with an online softmax.
 * ``flash_attention`` is the counterpart of the reference's
   ``make_flash_scoped``: a ``torch.autograd.Function`` whose forward runs
-  K8 (``kernels.ops.flash_attention``) on transposed views of CUDA
-  tensors, and the blockwise route on the CPU, as the reference keeps
+  K8 (``kernels.flash_attention.flash_attention_k8``) on transposed views
+  of CUDA tensors, and the blockwise route on the CPU, as the reference keeps
   non-TPU hosts off its kernel.  Its backward, on every device, is
   ``flash_attention_backward``: the reference's recompute (the scores
   rebuilt tile by tile from q, k and v; no Pallas backward exists), in
@@ -18,8 +18,15 @@ The port of ``repro.models.attention``.  Layout: q (B, T, H, D), k/v
   schedule (gemma3) attends blockwise with the layer's window on every
   device, and takes the blockwise route's autograd, as the reference keeps
   such configs off its kernel (``use_kernel = not cfg.window_pattern``).
+* ``local_heads`` runs an attention function on each rank's batch rows
+  and heads under a mesh (``distributed.sharding``): batch over the data
+  axes, query heads over 'model' where the heads divide, each rank's keys
+  and values the KV heads its query heads read (GQA).  Attention is local
+  per head, so the flash route runs K8 on each rank's local tensors.
 * ``decode_attention`` and ``KVCache`` serve one token per row against a
-  padded cache.  ``KVCache.append`` writes into the cache's buffers in
+  padded cache; ``decode_attend`` is a decode layer's attention with the
+  cache append, on each rank's shard of a sharded cache.
+  ``KVCache.append`` writes into the cache's buffers in
   place (the reference's functional update returns new arrays; the port
   keeps one buffer per layer instead of a copy per step).
 """
@@ -28,11 +35,17 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.types import Tensor
-from repro_torch.kernels import ops as kops
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels.flash_attention import flash_attention_k8
 
 NEG_INF = -1e30
+# the most elements of one (query rows x key block) score tile of the
+# blockwise route: 2^26 f32, 256 MiB
+_TILE_ELEMENTS = 1 << 26
 
 
 def _pad_seq(x: Tensor, pad: int) -> Tensor:
@@ -55,7 +68,10 @@ def blockwise_attention(
     softmax_scale: Optional[float] = None,
 ) -> Tensor:
     """Online-softmax attention over KV blocks, the reference's arithmetic
-    block for block (masked scores -1e30, the padding masked by position)."""
+    block for block (masked scores -1e30, the padding masked by position).
+    Query blocks run through the key loop together while one score tile
+    stays within ``_TILE_ELEMENTS``; each query row sees the same key
+    blocks in the same order either way."""
     b, tq, h, d = q.shape
     _, tk, kv, _ = k.shape
     if h % kv:
@@ -72,25 +88,31 @@ def blockwise_attention(
     dev = q.device
     qf = q.reshape(b, tqp, kv, g, d).to(torch.float32)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
+    # query blocks go through the key loop together, as many as keep one
+    # score tile within _TILE_ELEMENTS (each row's arithmetic is the same
+    # whatever its neighbours)
+    per_block = b * kv * block_q * g * block_k
+    span = block_q * max(1, min(tqp // block_q, _TILE_ELEMENTS // per_block))
     outs = []
-    for q0 in range(0, tqp, block_q):
-        qi = qf[:, q0:q0 + block_q]                        # (B, bq, KV, G, D)
-        q_pos = q_offset + q0 + torch.arange(block_q, device=dev)
-        acc = torch.zeros((b, kv, block_q, g, d), dtype=torch.float32,
+    for q0 in range(0, tqp, span):
+        rows = min(span, tqp - q0)
+        qi = qf[:, q0:q0 + rows]                           # (B, r, KV, G, D)
+        q_pos = q_offset + q0 + torch.arange(rows, device=dev)
+        acc = torch.zeros((b, kv, rows, g, d), dtype=torch.float32,
                           device=dev)
-        m = torch.full((b, kv, block_q, g), NEG_INF, dtype=torch.float32,
+        m = torch.full((b, kv, rows, g), NEG_INF, dtype=torch.float32,
                        device=dev)
-        l = torch.zeros((b, kv, block_q, g), dtype=torch.float32, device=dev)
+        l = torch.zeros((b, kv, rows, g), dtype=torch.float32, device=dev)
         for k0 in range(0, tkp, block_k):
             kj, vj = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
             k_pos = k0 + torch.arange(block_k, device=dev)
             s = torch.einsum("bqkgd,bskd->bkqgs", qi, kj) * scale
             mask = (k_pos[None, :] <= q_pos[:, None]) if causal else \
-                torch.ones((block_q, block_k), dtype=torch.bool, device=dev)
+                torch.ones((rows, block_k), dtype=torch.bool, device=dev)
             mask = mask & (k_pos[None, :] > q_pos[:, None] - w_eff)
             mask = mask & (k_pos[None, :] < tk)            # kv padding
             s = torch.where(mask[None, None, :, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))           # (B, KV, bq, G)
+            m_new = torch.maximum(m, s.amax(-1))           # (B, KV, r, G)
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
@@ -111,6 +133,7 @@ def flash_attention_backward(
     dout: Tensor,             # (B, Tq, H, D): the output's cotangent
     *,
     causal: bool = True,
+    q_offset: int = 0,        # absolute position of q[0] (a slice of rows)
     block_q: int = 512,
     block_k: int = 1024,
     softmax_scale: Optional[float] = None,
@@ -148,8 +171,8 @@ def flash_attention_backward(
     for q0 in range(0, tq, block_q):
         q1 = min(q0 + block_q, tq)
         qi, doi = qf[:, q0:q1], dof[:, q0:q1]
-        q_pos = torch.arange(q0, q1, device=dev)
-        k_end = min(q1, tk) if causal else tk
+        q_pos = q_offset + torch.arange(q0, q1, device=dev)
+        k_end = min(q_offset + q1, tk) if causal else tk
 
         def tile(k0):
             k1 = min(k0 + block_k, tk)
@@ -192,26 +215,29 @@ class _FlashAttention(torch.autograd.Function):
     """K8 forward (the blockwise route on the CPU), recompute backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
-        if q.is_cuda:
-            out = kops.flash_attention(
+    def forward(ctx, q, k, v, causal, block_q, block_k, q_offset):
+        if q.is_cuda or is_fake(q):
+            # K8 through its dispatcher op: the kernel on the card, the
+            # output's shape alone on the dry run's fake tensors
+            out = flash_attention_k8(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, window=0, backend="cuda").transpose(1, 2)
+                causal, 0, q_offset).transpose(1, 2)
         else:
             out = blockwise_attention(q, k, v, causal=causal,
-                                      block_q=block_q, block_k=block_k)
+                                      q_offset=q_offset, block_q=block_q,
+                                      block_k=block_k)
         ctx.save_for_backward(q, k, v, out)
-        ctx.tiles = (causal, block_q, block_k)
+        ctx.tiles = (causal, block_q, block_k, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        causal, block_q, block_k = ctx.tiles
+        causal, block_q, block_k, q_offset = ctx.tiles
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout, causal=causal, block_q=block_q,
-            block_k=block_k)
-        return dq, dk, dv, None, None, None
+            q, k, v, out, dout, causal=causal, q_offset=q_offset,
+            block_q=block_q, block_k=block_k)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -220,6 +246,7 @@ def flash_attention(
     v: Tensor,                # (B, S, KV, D)
     *,
     causal: bool = True,
+    q_offset: int = 0,        # absolute position of q[0] (a slice of rows)
     block_q: int = 512,
     block_k: int = 1024,
 ) -> Tensor:
@@ -229,7 +256,7 @@ def flash_attention(
     the gradient is ``flash_attention_backward`` at those tiles on every
     device.  No window: configs with a window schedule stay on the
     blockwise route, as the reference keeps them off its kernel."""
-    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k, q_offset)
 
 
 def decode_attention(
@@ -297,3 +324,116 @@ class KVCache(NamedTuple):
             self.k[:, pos:pos + t_new] = k_new.to(self.k.dtype)
             self.v[:, pos:pos + t_new] = v_new.to(self.v.dtype)
         return KVCache(k=self.k, v=self.v, length=self.length + t_new)
+
+
+def _head_split(h: int, kv: int) -> Tuple[bool, int]:
+    """How attention's heads split over the active mesh's 'model' axis:
+    (query heads sharded, KV heads each rank reads: 0 when the KV heads
+    shard with the query heads, else the count of the slice a rank takes
+    of the replicated KV heads).  The query heads shard where they divide
+    and every rank's heads read one contiguous run of KV heads."""
+    m = shd.current().axis_size("model")
+    if m == 1 or h % m:
+        return False, 0
+    if kv % m == 0:
+        return True, 0
+    hl, g = h // m, h // kv
+    if hl % g and g % hl:
+        return False, 0
+    return True, max(1, hl // g)
+
+
+def _kv_slice(x: Tensor, h_local: int, g: int, count: int) -> Tensor:
+    """This rank's run of KV heads (axis 2) for its query heads."""
+    r = shd.current().mesh.device_mesh.get_local_rank("model")
+    start = (r * h_local) // g
+    return x[:, :, start:start + count]
+
+
+def local_heads(fn, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """``fn(q, k, v, q_offset)`` (attention with q (B, T, H, D), k/v (B, S,
+    KV, D), the output like q; ``q_offset`` the position of q's first row)
+    on each rank's rows and heads when q is a DTensor under a mesh; ``fn(q,
+    k, v, 0)`` otherwise.  Where the query heads do not split over 'model',
+    the query rows split over 'model' instead, each rank attending all keys
+    from its rows' offset."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, 0)
+    h, kv = q.shape[2], k.shape[2]
+    m = shd.current().axis_size("model")
+    sharded, count = _head_split(h, kv)
+    if not sharded and m > 1 and q.shape[1] % m == 0:
+        def by_rows(q, k, v):
+            r = shd.current().mesh.device_mesh.get_local_rank("model")
+            return fn(q, k, v, r * q.shape[1])
+
+        rows = ("batch", "q_rows", None, None)
+        whole = ("batch", None, None, None)
+        out = shd.local_region(by_rows, (rows, whole, whole), 0,
+                               grad_partial=(1, 2),
+                               rules={"q_rows": "model"})(q, k, v)
+        # the rows gathered back: the output projection reads them whole
+        return shd.relayout(out, whole)
+    qa = ("batch", None, "heads" if sharded else None, None)
+    kva = ("batch", None, "kv" if sharded and not count else None, None)
+    if count:
+        hl, g = h // m, h // kv
+
+        def body(q, k, v):
+            return fn(q, _kv_slice(k, hl, g, count),
+                      _kv_slice(v, hl, g, count), 0)
+    else:
+        def body(q, k, v):
+            return fn(q, k, v, 0)
+    return shd.local_region(body, (qa, kva, kva), 0,
+                            grad_partial=(1, 2) if count else ())(q, k, v)
+
+
+def decode_attend(q: Tensor, cache: "KVCache", *, window=0,
+                  new_kv: Optional[Tuple[Tensor, Tensor]] = None,
+                  rope=None):
+    """A decode layer's attention for one token a row, q (B, 1, H, D).
+    With ``new_kv`` (k, v of the token) ``rope(q, k, length)`` ropes both
+    (if given), the token is appended to the cache in place, and (out,
+    cache advanced) is returned; without, the cache is attended as it is
+    (cross attention) and out alone returned.  On DTensors under a mesh
+    each step runs on the local shards: the rope and the append where the
+    cache lives (its batch rows, and its KV heads or head_dim slice over
+    'model'), the attention on local query heads where the KV heads shard
+    with them, else with the cache gathered over 'model'."""
+    def attend(q, kc, vc, length):
+        return decode_attention(q, kc, vc, length, window=window)
+
+    if new_kv is None:
+        return local_heads_decode(attend, q, cache.k, cache.v, cache.length)
+    k, v = new_kv
+    if rope is not None:
+        roped = shd.local_region(
+            rope, (("batch", None, None, None), ("batch", None, None, None),
+                   (None,)), (0, 1))
+        q, k = roped(q, k, cache.length)
+    cax = ("batch", None, "kv", "kv_alt")
+
+    def append(kc, vc, length, k, v):
+        return KVCache(kc, vc, length).append(k, v).length
+
+    length = shd.local_region(
+        append, (cax, cax, ("batch",), cax, cax), 2)(
+            cache.k, cache.v, cache.length, k, v)
+    cache = KVCache(k=cache.k, v=cache.v, length=length)
+    return local_heads_decode(attend, q, cache.k, cache.v, cache.length), \
+        cache
+
+
+def local_heads_decode(fn, q, kc, vc, length):
+    """``fn(q, kc, vc, length)`` on each rank's rows and heads (see
+    ``local_heads``); the cache length goes with the rows."""
+    if not isinstance(q, DTensor):
+        return fn(q, kc, vc, length)
+    h, kv = q.shape[2], kc.shape[2]
+    sharded, count = _head_split(h, kv)
+    sharded = sharded and not count
+    qa = ("batch", None, "heads" if sharded else None, None)
+    kva = ("batch", None, "kv" if sharded else None, None)
+    return shd.local_region(fn, (qa, kva, kva, ("batch",)), 0)(
+        q, kc, vc, length)

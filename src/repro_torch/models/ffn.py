@@ -1,28 +1,32 @@
 """Feed-forward blocks: SwiGLU / GeLU MLPs.
 
-The port of ``repro.models.ffn``.  The reference's ``fsdp_gather`` and
-``shard_act`` are the identity without a device mesh, so they have no
-counterpart here.
+The port of ``repro.models.ffn``: tensor parallel over d_ff, the weights
+gathered over the FSDP axes at their use (``distributed.sharding``; both
+are the identity without a mesh).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import Tensor
+from repro_torch.distributed.sharding import fsdp_gather, shard_act
 from repro_torch.models.layers import dense_init
 
 
-def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
              dtype=torch.bfloat16, gated: bool = True) -> Dict[str, Tensor]:
     p = {
-        "w_up": dense_init(generator, (d_model, d_ff), dtype),
-        "w_down": dense_init(generator, (d_ff, d_model), dtype),
+        "w_up": dense_init(generator, (d_model, d_ff), ("embed", "mlp"),
+                           dtype),
+        "w_down": dense_init(generator, (d_ff, d_model), ("mlp", "embed"),
+                             dtype),
     }
     if gated:
-        p["w_gate"] = dense_init(generator, (d_model, d_ff), dtype)
+        p["w_gate"] = dense_init(generator, (d_model, d_ff),
+                                 ("embed", "mlp"), dtype)
     return p
 
 
@@ -37,10 +41,12 @@ def _act(x: Tensor, activation: str) -> Tensor:
 def mlp_apply(p: Mapping[str, Tensor], x: Tensor,
               activation: str = "silu") -> Tensor:
     """x: (B, T, d_model)."""
-    up = x @ p["w_up"].to(x.dtype)
+    up = x @ fsdp_gather(p["w_up"], ("embed", "mlp")).to(x.dtype)
     if "w_gate" in p:
-        gate = x @ p["w_gate"].to(x.dtype)
+        w_gate = fsdp_gather(p["w_gate"], ("embed", "mlp"))
+        gate = x @ w_gate.to(x.dtype)
         h = _act(gate, "silu" if activation == "silu" else "gelu") * up
     else:
         h = _act(up, "gelu" if activation == "gelu" else "silu")
-    return h @ p["w_down"].to(x.dtype)
+    h = shard_act(h, ("batch", None, "act_model"))
+    return h @ fsdp_gather(p["w_down"], ("mlp", "embed")).to(x.dtype)

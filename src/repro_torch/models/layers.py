@@ -5,9 +5,14 @@ distributions from an explicit ``torch.Generator`` (the same laws, not the
 same numbers: ``convert.lm_params_from_numpy`` carries the reference's own
 values over).  They draw in fp32 on the generator's device and cast: a CPU
 generator gives the same parameters on every device, a CUDA generator draws
-a model too large for the host straight onto the card.  The reference's
-``PV`` leaves and ``split_tree`` carry logical sharding axes; they wait for
-the multi-device LM item (ROADMAP.md, Queue 1).
+a model too large for the host straight onto the card.  With no generator
+(``None``) they draw nothing and return tensors on the meta device: the
+shapes and dtypes alone, as the reference's ``eval_shape`` gives them.
+
+Each init takes the leaf's logical axes (``("embed", "heads")``: the
+reference's ``PV`` axes) and sets them on the tensor it returns as
+``tensor.axes``; ``models.transformer.ParamTree`` keeps them beside the
+parameter, and ``distributed.sharding`` maps them onto a mesh.
 """
 from __future__ import annotations
 
@@ -16,11 +21,36 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.types import Tensor
+from repro_torch.distributed.sharding import reduce_partial
+
+Axes = Tuple[Optional[str], ...]
+
+
+def with_axes(t: Tensor, axes: Axes) -> Tensor:
+    """``t`` with its logical axes set as ``t.axes``."""
+    if len(axes) != t.ndim:
+        raise ValueError(f"axes {axes} do not match shape {tuple(t.shape)}")
+    t.axes = tuple(axes)
+    return t
+
+
+def init_device(generator: Optional[torch.Generator]) -> torch.device:
+    """Where an init puts its tensors: the generator's device, or the meta
+    device when there is no generator."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def normal(generator: Optional[torch.Generator], shape) -> Tensor:
+    """Standard normal fp32 draws on the generator's device (nothing drawn
+    on the meta device without a generator)."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=init_device(generator))
 
 
 def dense_init(
-    generator: torch.Generator,
+    generator: Optional[torch.Generator],
     shape: Tuple[int, ...],
+    axes: Axes,
     dtype=torch.bfloat16,
     scale: Optional[float] = None,
     fan_in: Optional[int] = None,
@@ -28,17 +58,23 @@ def dense_init(
     """Normal weights with std ``fan_in ** -0.5`` (fan_in = shape[0])."""
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (w * scale).to(dtype)
+    return with_axes((normal(generator, shape) * scale).to(dtype), axes)
 
 
-def zeros_init(shape, dtype=torch.bfloat16, device=None) -> Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+def zeros_init(shape, axes: Axes, dtype=torch.bfloat16,
+               device=None) -> Tensor:
+    return with_axes(torch.zeros(shape, dtype=dtype, device=device), axes)
 
 
-def ones_init(shape, dtype=torch.bfloat16, device=None) -> Tensor:
-    return torch.ones(shape, dtype=dtype, device=device)
+def ones_init(shape, axes: Axes, dtype=torch.bfloat16,
+              device=None) -> Tensor:
+    return with_axes(torch.ones(shape, dtype=dtype, device=device), axes)
+
+
+def full_init(shape, value: float, axes: Axes, dtype=torch.bfloat16,
+              device=None) -> Tensor:
+    return with_axes(torch.full(shape, value, dtype=dtype, device=device),
+                     axes)
 
 
 # ---------------------------------------------------------------------------
@@ -127,15 +163,19 @@ def sinusoidal(max_len: int, d: int) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed_init(generator: torch.Generator, vocab: int, d_model: int,
-               dtype=torch.bfloat16) -> Tensor:
-    w = torch.randn((vocab, d_model), generator=generator,
-                    dtype=torch.float32, device=generator.device)
-    return (w * (d_model ** -0.5)).to(dtype)
+def embed_init(generator: Optional[torch.Generator], vocab: int,
+               d_model: int, dtype=torch.bfloat16) -> Tensor:
+    w = normal(generator, (vocab, d_model))
+    return with_axes((w * (d_model ** -0.5)).to(dtype),
+                     ("vocab", "embed_no_shard"))
 
 
 def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
-    return table[ids]
+    """Rows of the table (``F.embedding``).  A sharded table (a DTensor,
+    vocab over 'model') has DTensor shard the lookup: each rank reads its
+    own rows, and the partial rows are summed at once (the masked partial
+    sum lives only until the next operation)."""
+    return reduce_partial(torch.nn.functional.embedding(ids, table))
 
 
 def unembed(x: Tensor, table: Tensor) -> Tensor:

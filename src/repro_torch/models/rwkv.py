@@ -18,34 +18,45 @@ state.  Head layout (B, T, H, D).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import Tensor
-from repro_torch.models.layers import dense_init, rms_norm, zeros_init
+from repro_torch.distributed.sharding import (fsdp_gather, local_region,
+                                              reduce_partial, shard_act,
+                                              split_last)
+from repro_torch.models.layers import (dense_init, full_init, init_device,
+                                       rms_norm, zeros_init)
 
 
-def rwkv_block_init(generator: torch.Generator, d_model: int,
+def rwkv_block_init(generator: Optional[torch.Generator], d_model: int,
                     head_dim: int = 64, lora_dim: int = 64,
                     dtype=torch.bfloat16) -> Dict[str, Tensor]:
     n_heads = d_model // head_dim
-    dev = generator.device
+    dev = init_device(generator)
+
+    def dense(shape, axes):
+        return dense_init(generator, shape, axes, dtype)
+
     return {
-        "w_r": dense_init(generator, (d_model, d_model), dtype),
-        "w_k": dense_init(generator, (d_model, d_model), dtype),
-        "w_v": dense_init(generator, (d_model, d_model), dtype),
-        "w_g": dense_init(generator, (d_model, d_model), dtype),
-        "w_o": dense_init(generator, (d_model, d_model), dtype),
+        "w_r": dense((d_model, d_model), ("embed", "heads")),
+        "w_k": dense((d_model, d_model), ("embed", "heads")),
+        "w_v": dense((d_model, d_model), ("embed", "heads")),
+        "w_g": dense((d_model, d_model), ("embed", "heads")),
+        "w_o": dense((d_model, d_model), ("heads", "embed")),
         # data-dependent decay: low-rank lambda(x) = (tanh(x A)) B + bias
-        "w_dec_a": dense_init(generator, (d_model, lora_dim), dtype),
-        "w_dec_b": dense_init(generator, (lora_dim, d_model), dtype),
-        "dec_bias": torch.full((d_model,), -6.0, dtype=dtype, device=dev),
-        "bonus": zeros_init((n_heads, head_dim), dtype, dev),
+        "w_dec_a": dense((d_model, lora_dim), ("embed", None)),
+        "w_dec_b": dense((lora_dim, d_model), (None, "heads")),
+        "dec_bias": full_init((d_model,), -6.0, ("heads",), dtype, dev),
+        "bonus": zeros_init((n_heads, head_dim), ("heads", "head_dim"),
+                            dtype, dev),
         # token-shift mixing coefficients
-        "mix": torch.full((5, d_model), 0.5, dtype=dtype, device=dev),
-        "ln_x": zeros_init((d_model,), dtype, dev),
+        "mix": full_init((5, d_model), 0.5, (None, "embed_no_shard"), dtype,
+                         dev),
+        "ln_x": zeros_init((d_model,), ("embed_no_shard",), dtype, dev),
     }
 
 
@@ -64,13 +75,16 @@ def _projections(p, x: Tensor, x_prev: Tensor, n_heads: int, head_dim: int):
     xs = _token_shift(x, x_prev)
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xg, xd = (x * mix[i] + xs * (1 - mix[i]) for i in range(5))
-    r = (xr @ p["w_r"].to(x.dtype)).reshape(b, t, n_heads, head_dim)
-    k = (xk @ p["w_k"].to(x.dtype)).reshape(b, t, n_heads, head_dim)
-    v = (xv @ p["w_v"].to(x.dtype)).reshape(b, t, n_heads, head_dim)
-    g = F.silu((xg @ p["w_g"].to(x.dtype)).to(torch.float32))
+    w_r, w_k, w_v, w_g = (fsdp_gather(p[n], ("embed", "heads"))
+                          for n in ("w_r", "w_k", "w_v", "w_g"))
+    r = split_last(xr @ w_r.to(x.dtype), n_heads, head_dim)
+    k = split_last(xk @ w_k.to(x.dtype), n_heads, head_dim)
+    v = split_last(xv @ w_v.to(x.dtype), n_heads, head_dim)
+    g = F.silu((xg @ w_g.to(x.dtype)).to(torch.float32))
     lam = torch.tanh(xd @ p["w_dec_a"].to(x.dtype)) @ p["w_dec_b"].to(x.dtype)
-    lam = lam.to(torch.float32) + p["dec_bias"].to(torch.float32)
-    w = torch.exp(-torch.exp(lam)).reshape(b, t, n_heads, head_dim)
+    lam = reduce_partial(lam).to(torch.float32) + \
+        p["dec_bias"].to(torch.float32)
+    w = split_last(torch.exp(-torch.exp(lam)), n_heads, head_dim)
     return r, k, v, g, w
 
 
@@ -126,13 +140,30 @@ def rwkv_block_apply(
     n_heads = d // head_dim
     r, k, v, g, w = _projections(p, x, state.x_last, n_heads, head_dim)
     bonus = p["bonus"].to(torch.float32)
-    out, s_new = rwkv_attention_chunked(r, k, v, w, bonus, state.s,
-                                        chunk=min(chunk, t))
+    heads = ("batch", None, "heads", None)
+    scan = local_region(
+        functools.partial(rwkv_attention_chunked, chunk=min(chunk, t)),
+        (heads, heads, heads, heads, ("heads", None),
+         ("batch", "heads", None, None)), (0, 5))
+    out, s_new = scan(r, k, v, w, bonus, state.s)
     # per-head group norm (ln_x)
     out = rms_norm(out.reshape(b, t, d), p["ln_x"], eps)
     out = out * g.to(out.dtype)
-    y = out.to(x.dtype) @ p["w_o"].to(x.dtype)
+    out = shard_act(out, ("batch", None, "act_model"))
+    w_o = fsdp_gather(p["w_o"], ("heads", "embed"))
+    y = out.to(x.dtype) @ w_o.to(x.dtype)
     return y, RwkvState(s=s_new.to(state.s.dtype), x_last=x[:, -1, :])
+
+
+def _recur(rf: Tensor, kf: Tensor, vf: Tensor, wf: Tensor, bonus: Tensor,
+           s: Tensor) -> Tuple[Tensor, Tensor]:
+    """One token's recurrence, f32: o = q (diag(u) k^T v + S) (B, H, D)
+    and the new state diag(w) S + k^T v (B, H, dk, dv)."""
+    s = s.to(torch.float32)
+    kv = torch.einsum("bhd,bhe->bhde", kf, vf)
+    o = torch.einsum("bhd,bhde->bhe", rf * bonus[None], kv) + torch.einsum(
+        "bhd,bhde->bhe", rf, s)
+    return o, wf[..., None] * s + kv
 
 
 def rwkv_decode_step(
@@ -145,12 +176,11 @@ def rwkv_decode_step(
     r, k, v, g, w = _projections(p, x, state.x_last, n_heads, head_dim)
     rf, kf, vf, wf = (a[:, 0].to(torch.float32) for a in (r, k, v, w))
     bonus = p["bonus"].to(torch.float32)
-    s = state.s.to(torch.float32)  # (B, H, dk, dv)
-    # o = q (diag(u) k^T v + S)
-    kv = torch.einsum("bhd,bhe->bhde", kf, vf)
-    o = torch.einsum("bhd,bhde->bhe", rf * bonus[None], kv) + torch.einsum(
-        "bhd,bhde->bhe", rf, s)
-    s_new = wf[..., None] * s + kv
+    heads = ("batch", "heads", None)
+    o, s_new = local_region(
+        _recur, (heads, heads, heads, heads, ("heads", None),
+                 ("batch", "heads", None, None)), (0, 5))(
+        rf, kf, vf, wf, bonus, state.s)
     out = rms_norm(o.reshape(b, 1, d).to(x.dtype), p["ln_x"], eps)
     out = out * g.to(out.dtype)
     y = out.to(x.dtype) @ p["w_o"].to(x.dtype)

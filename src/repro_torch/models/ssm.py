@@ -15,13 +15,17 @@ Layout: x (B, T, D); heads H = d_inner / P.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import Tensor
-from repro_torch.models.layers import (dense_init, ones_init, rms_norm,
+from repro_torch.distributed.sharding import (fsdp_gather, local_region,
+                                              shard_act, zeros)
+from repro_torch.models.layers import (dense_init, full_init, init_device,
+                                       ones_init, rms_norm, with_axes,
                                        zeros_init)
 
 CONV_K = 4  # depthwise conv kernel width
@@ -32,30 +36,31 @@ class SsmState(NamedTuple):
     conv: Tensor    # (B, CONV_K - 1, conv_dim) conv tail
 
 
-def ssm_block_init(generator: torch.Generator, d_model: int,
+def ssm_block_init(generator: Optional[torch.Generator], d_model: int,
                    ssm_state: int = 64, head_dim: int = 64, expand: int = 2,
                    dtype=torch.bfloat16) -> Dict[str, Tensor]:
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
     conv_dim = d_inner + 2 * ssm_state
-    dev = generator.device
+    dev = init_device(generator)
     return {
         # fused input projection: [x (d_inner), z gate (d_inner), b (N),
         # c (N), dt (H)]
         "w_in": dense_init(generator,
                            (d_model, 2 * d_inner + 2 * ssm_state + n_heads),
-                           dtype),
-        "conv_w": dense_init(generator, (CONV_K, conv_dim), dtype,
-                             scale=CONV_K ** -0.5),
-        "conv_b": zeros_init((conv_dim,), dtype, dev),
-        "a_log": torch.log(torch.linspace(1.0, 16.0, n_heads,
-                                          device=dev)).to(torch.float32),
+                           ("embed", "mlp"), dtype),
+        "conv_w": dense_init(generator, (CONV_K, conv_dim), ("conv", "mlp"),
+                             dtype, scale=CONV_K ** -0.5),
+        "conv_b": zeros_init((conv_dim,), ("mlp",), dtype, dev),
+        "a_log": with_axes(torch.log(torch.linspace(
+            1.0, 16.0, n_heads, device=dev)).to(torch.float32), ("heads",)),
         # softplus^-1(0.01)
-        "dt_bias": torch.full((n_heads,), -4.6, dtype=torch.float32,
-                              device=dev),
-        "d_skip": ones_init((n_heads,), torch.float32, dev),
-        "norm_w": zeros_init((d_inner,), dtype, dev),
-        "w_out": dense_init(generator, (d_inner, d_model), dtype),
+        "dt_bias": full_init((n_heads,), -4.6, ("heads",), torch.float32,
+                             dev),
+        "d_skip": ones_init((n_heads,), ("heads",), torch.float32, dev),
+        "norm_w": zeros_init((d_inner,), ("mlp",), dtype, dev),
+        "w_out": dense_init(generator, (d_inner, d_model), ("mlp", "embed"),
+                            dtype),
     }
 
 
@@ -124,7 +129,7 @@ def ssm_block_apply(
     n_heads = d_inner // head_dim
     n = ssm_state
 
-    proj = x @ p["w_in"].to(x.dtype)
+    proj = x @ fsdp_gather(p["w_in"], ("embed", "mlp")).to(x.dtype)
     xz, z, bm, cm, dt = torch.split(
         proj, [d_inner, d_inner, n, n, n_heads], dim=-1)
     conv_in = torch.cat([xz, bm, cm], dim=-1)
@@ -138,13 +143,18 @@ def ssm_block_apply(
     xr = xz.reshape(b, t, n_heads, head_dim).to(torch.float32)
     xh = xr * dt[..., None]
 
-    y, s_new = ssd_chunked(xh, a_log_step, bm, cm, state.s,
-                           chunk=min(chunk, t))
+    scan = local_region(
+        functools.partial(ssd_chunked, chunk=min(chunk, t)),
+        (("batch", None, "heads", None), ("batch", None, "heads"),
+         ("batch", None, None), ("batch", None, None),
+         ("batch", "heads", None, None)), (0, 4))
+    y, s_new = scan(xh, a_log_step, bm, cm, state.s)
     y = y + p["d_skip"][None, None, :, None] * xr
     y = y.reshape(b, t, d_inner).to(x.dtype)
     y = rms_norm(y, p["norm_w"], eps)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    out = y @ p["w_out"].to(x.dtype)
+    y = shard_act(y, ("batch", None, "act_model"))
+    out = y @ fsdp_gather(p["w_out"], ("mlp", "embed")).to(x.dtype)
     return out, SsmState(s=s_new.to(state.s.dtype),
                          conv=new_tail.to(state.conv.dtype))
 
@@ -156,8 +166,8 @@ def ssm_state_init(batch: int, d_model: int, ssm_state: int = 64,
     n_heads = d_inner // head_dim
     conv_dim = d_inner + 2 * ssm_state
     return SsmState(
-        s=torch.zeros((batch, n_heads, ssm_state, head_dim), dtype=dtype,
-                      device=device),
-        conv=torch.zeros((batch, CONV_K - 1, conv_dim), dtype=dtype,
-                         device=device),
+        s=zeros((batch, n_heads, ssm_state, head_dim),
+                ("batch", "heads", None, None), dtype, device),
+        conv=zeros((batch, CONV_K - 1, conv_dim), ("batch", None, "mlp"),
+                   dtype, device),
     )

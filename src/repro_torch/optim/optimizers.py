@@ -15,23 +15,36 @@ nested dict, list, tuple or NamedTuple with tensors at its leaves; an
 ``nn.Module`` whose children read by name (``models.transformer.ParamTree``)
 counts as a dict and an ``nn.ModuleList`` as a list, so ``init(model)``
 and ``update(grads, state, model, lr)`` take the model itself, and the
-trees they return are plain dicts and lists in its layout.
+trees they return are plain dicts and lists in its layout.  The same walk
+(``tree_map``, ``tree_leaves``; ``is_leaf`` stops it early, at a tuple of
+logical axes say) serves every tree of the port's LM: parameters,
+optimizer states, logical axes and placements.
+
+Sharded leaves (``DTensor``s over a mesh, ``distributed.sharding``) keep
+their placements: a state leaf is made like its parameter (``zeros_like``),
+the plain scalars (the rate, the bias corrections) combine with them as
+replicated values, and ``clip_by_global_norm`` sums each leaf's squares
+over all its shards before the square root.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.types import Tensor
 
 
-
-def _children(node) -> Optional[List[Tuple[Any, Any]]]:
-    """(key, child) pairs of an inner node, None for a leaf (a tensor)."""
-    if isinstance(node, Tensor):
+def _children(node, is_leaf: Optional[Callable[[Any], bool]] = None
+              ) -> Optional[List[Tuple[Any, Any]]]:
+    """(key, child) pairs of an inner node, None for a leaf (a tensor, or
+    a node ``is_leaf`` accepts)."""
+    if isinstance(node, Tensor) or (is_leaf is not None and is_leaf(node)):
         return None
     if isinstance(node, dict):
         return list(node.items())
@@ -56,22 +69,32 @@ def _rebuild(node, values: List[Any]):
     return tuple(values)
 
 
-def tree_leaves(tree) -> List[Tensor]:
-    """The tensors of a tree, in the order of its children."""
-    kids = _children(tree)
+def tree_leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                ) -> List[Any]:
+    """The leaves of a tree, in the order of its children."""
+    kids = _children(tree, is_leaf)
     if kids is None:
         return [tree]
-    return [leaf for _, c in kids for leaf in tree_leaves(c)]
+    return [leaf for _, c in kids for leaf in tree_leaves(c, is_leaf)]
 
 
-def tree_map(fn: Callable[..., Any], tree, *rest):
+def tree_map(fn: Callable[..., Any], tree, *rest,
+             is_leaf: Optional[Callable[[Any], bool]] = None):
     """``fn`` leaf by leaf over trees of one structure (the first tree's:
     the others are indexed by its keys), rebuilt as plain containers."""
-    kids = _children(tree)
+    kids = _children(tree, is_leaf)
     if kids is None:
         return fn(tree, *rest)
     return _rebuild(tree, [
-        tree_map(fn, c, *(r[k] for r in rest)) for k, c in kids])
+        tree_map(fn, c, *(r[k] for r in rest), is_leaf=is_leaf)
+        for k, c in kids])
+
+
+def _count(params) -> Tensor:
+    """The int32 step count, a plain scalar on the parameters' device."""
+    p = tree_leaves(params)[0]
+    dev = p.device_mesh.device_type if isinstance(p, DTensor) else p.device
+    return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,14 +105,42 @@ class Optimizer:
 
 
 def _f32_zeros(p: Tensor) -> Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """f32 zeros shaped (and, for a DTensor, placed) like ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
+def _zeros_along(p: Tensor, shape) -> Tensor:
+    """f32 zeros of a plain global shape on ``p``'s device (a factored
+    state leaf; a sharded optimizer state places them afterwards,
+    ``launch.steps.place_opt_state``)."""
+    dev = p.device_mesh.device_type if isinstance(p, DTensor) else p.device
+    return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+
+def _square_sum(g: Tensor) -> Tensor:
+    """The f32 sum of g's squares over every shard: a plain scalar."""
+    s = torch.sum(g.to(torch.float32) ** 2)
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
+def _replicated(fn: Callable) -> Callable:
+    """``fn`` with plain tensors (scalars such as the rate) treated as
+    replicated values wherever they meet a DTensor."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with implicit_replication():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+@_replicated
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by min(1, max_norm / (norm + 1e-9)) in their dtypes,
-    the f32 global norm)."""
-    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                        for g in tree_leaves(grads)))
+    the f32 global norm: a plain scalar, summed over every shard of a
+    sharded gradient)."""
+    gn = torch.sqrt(sum(_square_sum(g) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 
@@ -100,6 +151,7 @@ def sgd(momentum: float = 0.0) -> Optimizer:
             return ()
         return tree_map(_f32_zeros, params)
 
+    @_replicated
     def update(grads, state, params, lr):
         if momentum == 0.0:
             new = tree_map(lambda p, g: (p.to(torch.float32) - lr * g.to(
@@ -123,11 +175,11 @@ class AdamState(NamedTuple):
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
     def init(params):
-        dev = tree_leaves(params)[0].device
         return AdamState(mu=tree_map(_f32_zeros, params),
                          nu=tree_map(_f32_zeros, params),
-                         count=torch.zeros((), dtype=torch.int32, device=dev))
+                         count=_count(params))
 
+    @_replicated
     def update(grads, state, params, lr):
         c = state.count + 1
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
@@ -166,19 +218,18 @@ def adafactor(eps: float = 1e-30, decay: float = 0.8,
 
     def init(params):
         def rows(p):
-            return _f32_zeros(p) if p.ndim < 2 else torch.zeros(
-                p.shape[:-1], dtype=torch.float32, device=p.device)
+            return _f32_zeros(p) if p.ndim < 2 else _zeros_along(
+                p, p.shape[:-1])
 
         def cols(p):
-            shape = (1,) if p.ndim < 2 else p.shape[:-2] + p.shape[-1:]
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            return _zeros_along(p, (1,) if p.ndim < 2 else
+                                p.shape[:-2] + p.shape[-1:])
 
-        dev = tree_leaves(params)[0].device
         return FactorState(row=tree_map(rows, params),
                            col=tree_map(cols, params),
-                           count=torch.zeros((), dtype=torch.int32,
-                                             device=dev))
+                           count=_count(params))
 
+    @_replicated
     def update(grads, state, params, lr):
         c = state.count + 1
         beta = 1.0 - c.to(torch.float32) ** -decay

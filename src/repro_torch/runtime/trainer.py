@@ -16,9 +16,10 @@ Checkpoints hold ``(params, opt_state)`` in the reference's layout
 (``convert.to_reference_layout``: the model's layer lists stacked, an
 ``AdamState``'s ``mu``/``nu`` trees likewise), through the port's
 ``CheckpointManager``, so a checkpoint that either package's ``Trainer``
-writes restores in the other's.  ``TrainerConfig.compress_grads`` (the
-reference's int8 gradient compression across the pod axis) raises
-``NotImplementedError`` when set: it waits for the LM's sharding.
+writes restores in the other's.  ``TrainerConfig.compress_grads`` raises
+``NotImplementedError`` when set: the reference's ``Trainer`` never reads
+the field and its train step never compresses, so there is nothing to
+port.
 """
 from __future__ import annotations
 
@@ -26,14 +27,21 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional, Tuple
 
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
 from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import population
-from repro_torch.core.types import unported
 from repro_torch.data.timeseries import RegressionBatch
-from repro_torch.launch.mesh import LM_SHARDING
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.runtime.straggler import StragglerWatchdog
+
+
+def _whole(t):
+    """A sharded leaf's whole value (a collective over its mesh)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 class ElasticRestart(Exception):
@@ -66,7 +74,10 @@ class Trainer:
         fault_hook: Optional[Callable[[int], None]] = None,
     ):
         if cfg.compress_grads:
-            raise unported("TrainerConfig(compress_grads=True)", LM_SHARDING)
+            raise NotImplementedError(
+                "TrainerConfig(compress_grads=True): the reference's Trainer "
+                "never reads compress_grads and its train step compresses "
+                "nothing, so the port has no compression to run")
         self.cfg = cfg
         self.train_step = train_step
         self.batch_fn = batch_fn
@@ -78,18 +89,28 @@ class Trainer:
     # -- checkpoints ---------------------------------------------------------
 
     def _save(self, params, opt_state, step: int, metadata=None) -> None:
-        self.ckpt.save(convert.to_reference_layout((params, opt_state)),
-                       step, metadata)
+        """Save (params, opt_state) in the reference's layout.  A sharded
+        state (DTensors over a process group) is gathered whole on every
+        rank and written by rank 0 alone."""
+        tree = tree_map(_whole, convert.to_reference_layout(
+            (params, opt_state)))
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.ckpt.save(tree, step, metadata)
 
     def _restore(self, params, opt_state):
         """(params, opt_state, step) from the newest checkpoint that reads
-        back, on the parameters' device; None if there is none.  The
-        checkpoint is matched against the state's shapes on the meta
-        device, so no copy of the weights is made for it."""
+        back, on the parameters' device (each sharded leaf placed as it
+        was); None if there is none.  The checkpoint is matched against the
+        state's shapes on the meta device, so no copy of the weights is
+        made for it."""
         template = (params, opt_state)
-        shapes = tree_map(lambda t: t.detach().to("meta"), template)
+        shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"), template)
+        leaf = tree_leaves(params)[0]
+        dev = leaf.device_mesh.device_type if isinstance(leaf, DTensor) \
+            else leaf.device
         res = self.ckpt.restore_latest(convert.to_reference_layout(shapes),
-                                       tree_leaves(params)[0].device)
+                                       dev)
         if res is None:
             return None
         tree, step, _ = res

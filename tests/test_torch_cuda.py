@@ -1061,6 +1061,26 @@ def test_k8_kernel_matches_plain(dev, d, h, kv, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **K8_TOL[dtype])
 
 
+@pytest.mark.parametrize("q_offset,window", [(64, 0), (1000, 0),
+                                             (957, 0), (500, 150)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8_query_offset_matches_plain(dev, q_offset, window, dtype):
+    """A slice of 200 query rows at ``q_offset`` against 1200 keys, as
+    when the rows split over 'model': the mask's diagonal moves by the
+    offset, inside a key tile where the offset is no multiple of one."""
+    q, k, v = _qkv_operands(dev, 2, 9, 3, 200, 1200, 64, dtype,
+                            seed=q_offset)
+    before = k_flash.KERNEL.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset, backend="cuda")
+    want = ops.flash_attention(q, k, v, causal=True, window=window,
+                               q_offset=q_offset, backend="torch")
+    torch.cuda.synchronize()
+    assert k_flash.KERNEL.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), **K8_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k8_fully_masked_rows_are_zero(dev, dtype):
     """Non-causal with a window of 16 over 32 keys: query rows 48.. see no
@@ -1392,6 +1412,97 @@ def test_lm_trainer_replay_on_card(dev, tmp_path):
         move = float((w - p0.detach().float()).abs().max())
         err = float((g.detach().float().cpu() - w).abs().max())
         assert err <= 1e-3 * move, (err, move)
+
+
+def test_lm_sharded_step_on_one_card_mesh(dev, tmp_path):
+    """The reduced smollm-135m (fp32, flash route) sharded over a one-rank
+    NCCL mesh (data 1, model 1): two AdamW steps and a prefill against the
+    same steps unsharded on the card, at the limits the card is held to
+    against the CPU (loss rtol 1e-5, grad_norm 1e-4, the moments within
+    1e-4 of each leaf's largest entry, each parameter within 1e-3 of its
+    leaf's move plus 1e-7 outside the ill-conditioned entries, at most 1%
+    of them, held to two moves; the prefill logits within 1e-3 of max
+    |logits|); K8 twice a layer a step and once a layer a prefill.  The
+    moments are held after the first step."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import place_batch, place_opt_state
+    from repro_torch.models.lm import make_prefill_step, make_train_step
+    from repro_torch.optim import adamw, constant_schedule
+
+    cfg = dataclasses.replace(get_reduced("smollm-135m"), attn_impl="pallas")
+    rng = np.random.default_rng(1)
+    toks = [torch.from_numpy(rng.integers(0, 512, (4, 64)).astype(
+        np.int32)).to(dev) for _ in range(3)]
+
+    def run(mesh):
+        model = Transformer(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        opt = adamw()
+        with shd.use_mesh(mesh):
+            if mesh is not None:
+                model.distribute(mesh)
+                state = place_opt_state(opt, model, mesh)
+                place = lambda b: place_batch(b, mesh)  # noqa: E731
+            else:
+                state = opt.init(model)
+                place = lambda b: b  # noqa: E731
+            step_fn = make_train_step(model, opt, constant_schedule(1e-3))
+            metrics, states, k8 = [], [], []
+            for s in range(2):
+                before = k_flash.KERNEL.launches
+                model, state, m = step_fn(
+                    model, state, s, place({"tokens": toks[s],
+                                            "targets": toks[s]}))
+                k8.append(k_flash.KERNEL.launches - before)
+                metrics.append({k: float(v) for k, v in m.items()})
+                states.append(popt.AdamState(*[popt.tree_map(
+                    lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                               else t).cpu(), x) for x in state]))
+            before = k_flash.KERNEL.launches
+            logits = make_prefill_step(model)(place({"tokens": toks[2]}))
+            k8.append(k_flash.KERNEL.launches - before)
+            full = (lambda t: t.full_tensor()) if mesh is not None else \
+                (lambda t: t)
+            params = [full(p).detach().cpu() for p in model.parameters()]
+        return params, states, metrics, k8, full(logits).cpu()
+
+    init = [p.detach().cpu() for p in Transformer(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)
+    ).parameters()]
+    plain = run(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        sharded = run(make_host_mesh(data=1, model=1))
+    finally:
+        dist.destroy_process_group()
+    (gp, gs, gm, gk, gl), (wp, ws, wm, wk, wl) = sharded, plain
+    assert gk == wk == [2 * cfg.n_layers] * 2 + [cfg.n_layers]
+    for g, w in zip(gm, wm):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
+                                   rtol=1e-4)
+    # the first step's moments (the second's gradients are taken at
+    # parameters that already differ where the first step was
+    # ill-conditioned, as in test_lm_train_step_on_card_matches_cpu)
+    for g, w in zip(popt.tree_leaves((gs[0].mu, gs[0].nu)),
+                    popt.tree_leaves((ws[0].mu, ws[0].nu))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    masks = _adam_ill(gs, ws)
+    n_ill = sum(int(m.sum()) for m in masks)
+    assert n_ill <= 1e-2 * sum(m.numel() for m in masks)
+    for g, w, p0, ill in zip(gp, wp, init, masks):
+        move = float((w - p0).abs().max())
+        err = (g - w).abs()
+        ill = ill.expand_as(err)
+        assert bool((err[~ill] <= 1e-3 * move + 1e-7).all())
+        assert bool((err[ill] <= 2 * move).all())
+    np.testing.assert_allclose(gl.numpy(), wl.numpy(), rtol=0,
+                               atol=1e-3 * float(wl.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -160,13 +160,18 @@ def test_make_slot_mesh_and_placement():
         tmesh.make_slot_mesh(n + 1)
     with pytest.raises(ValueError, match="need 4 devices"):
         tmesh.make_slot_mesh(4, devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="LM sharding and dry run"):
-        tmesh.make_production_mesh()
+    # the production mesh needs 256 (512) ranks; no process group is one
+    for multi, need in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {need} ranks, the "
+                                             f"world size is 1"):
+            tmesh.make_production_mesh(multi_pod=multi)
     host = tmesh.make_host_mesh(device="cpu")
     assert host.shape == {"data": 1, "model": 1}
     assert host.devices == (torch.device("cpu"),)
+    # a host mesh over several ranks needs their process group: it is built
+    # over four gloo ranks in tests/test_torch_sharded_lm.py
     for kw in (dict(data=2), dict(model=2)):
-        with pytest.raises(NotImplementedError, match="LM sharding"):
+        with pytest.raises(ValueError, match="start a process group"):
             tmesh.make_host_mesh(device="cpu", **kw)
 
     tree = WindowState(rows=torch.arange(24.).reshape(4, 3, 2),
@@ -182,8 +187,9 @@ def test_make_slot_mesh_and_placement():
         assert blk.rows.data_ptr() != tree.rows.data_ptr()
     with pytest.raises(ValueError, match="'slot'"):
         shd.shard_blocks(tree, axes, m2)
-    with pytest.raises(NotImplementedError, match="LM sharding and dry run"):
-        shd.shard_act(torch.zeros(2), ("batch",))
+    # without a mesh context the LM's constraint is the identity
+    x = torch.zeros(2)
+    assert shd.shard_act(x, ("batch",)) is x
 
 
 # ---------------------------------------------------------------------------

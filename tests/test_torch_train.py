@@ -119,6 +119,35 @@ def test_flash_gradients_match_reference(causal, bq, bk):
                                    atol=1e-6, err_msg=f"d{name} vs blockwise")
 
 
+@pytest.mark.parametrize("q_offset", [32, 50])
+def test_flash_gradients_with_query_offset(q_offset):
+    """A slice of the query rows at ``q_offset`` against all 96 keys (the
+    row split over 'model'): the flash route's output and gradient against
+    ``jax.vjp`` of the reference's blockwise attention at that offset."""
+    rng = np.random.default_rng(q_offset)
+    q = rng.normal(size=(2, 46, 4, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 96, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    ct = rng.normal(size=q.shape).astype(np.float32)
+
+    def ref(q_, k_, v_, ct_):
+        out, vjp = jax.vjp(lambda a, b, c: ratt.blockwise_attention(
+            a, b, c, causal=True, q_offset=q_offset, block_q=32,
+            block_k=64), q_, k_, v_)
+        return out, vjp(ct_)
+
+    want_out, want = jax.jit(ref)(q, k, v, ct)
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = patt.flash_attention(*ts, causal=True, q_offset=q_offset,
+                               block_q=32, block_k=64)
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=1e-5, atol=1e-6)
+    for name, t, w in zip("qkv", ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"d{name} vs jax.vjp")
+
+
 # ---------------------------------------------------------------------------
 # make_train_step against the reference's
 # ---------------------------------------------------------------------------
@@ -396,10 +425,9 @@ def test_trainer_gives_up_after_max_retries(tmp_path):
 
 
 def test_trainer_compress_grads_is_unported(tmp_path):
-    """The reference's int8 gradient compression across the pod axis
-    waits for the LM's sharding: the knob raises instead of running
-    uncompressed."""
-    with pytest.raises(NotImplementedError, match="LM sharding"):
+    """The reference's Trainer never reads compress_grads: the knob raises
+    instead of running uncompressed."""
+    with pytest.raises(NotImplementedError, match="never reads"):
         Trainer(TrainerConfig(ckpt_dir=str(tmp_path / "z"),
                               compress_grads=True), _quad_step, _quad_batch)
 
