@@ -6,7 +6,9 @@ kernels are built for sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, in the order 1-4h, 6-6d, 8-8c, 10, 11,
+then 11b's dry run with 5, 7, 9, 9b and 10b beside it, then 12 (every
+timed phase runs alone on the host):
   1. TF32 off for matmuls and cuDNN (the s=931 ridge solves need full
      fp32), and bf16 matmuls with fp32 reductions only; print the card's
      name and power limit.
@@ -60,6 +62,15 @@ Phases, each fatal on failure:
      window of 12 rows (two passes: folded into an fp32 copy), each bit
      for bit equal to its plain version, flags too, and timed beside the
      fp32 fold and beside the fp32-copy route at the server's window.
+     Past one warp (Nx > 32): K1 and K2 at the server round's 128 samples
+     and K6 and K7 at the minibatch of 4, the chunk of 256 and all 6600
+     ARAB samples (masked at that width), at Nx = 64 and 128, each against
+     its plain version and beside its byte bound and its chain bound (the
+     step at ceil(Nx / 32) nodes a lane, scan_step_n, measured in phase
+     2), K7 also beside one bmm; K3 at 32 factors of s = 4161 (Nx = 64,
+     passes of 4 rows) and at two factors of its limit (max_factor: one
+     row a pass), windows of 4, against its plain version (printed: bit
+     for bit), timed at 4161.
   4. The port's main paths at full width: the paper's ARAB configuration
      (Nx=30, linear f, 13 inputs, 10 classes, s=931), its full 6600-sample
      training set split into 64 streams, served by StreamServer with 32
@@ -146,15 +157,15 @@ Phases, each fatal on failure:
      with each block's tensors on its own card; with one, a line says real
      placement was not exercised.
   5. Agreement: a reduced episode of each kind (8 streams on 4 slots, the
-     first 800 ARAB samples, same widths) served on the card and on the CPU;
-     each retirement path on the first 400, and the bf16 path on the first
-     400 (at least BF16_AGREE of the predictions); the population search (the
+     first 200 ARAB samples, same widths) served on the card and on the CPU;
+     each retirement path on the first 200, and the bf16 path on the first
+     200 (at least BF16_AGREE of the predictions); the population search (the
      first 512 training samples, divs=3, one round; the cull's draws from
      the same CPU generator on both): the same best (p, q, beta), accuracy
      within one test sample.
   6. The training path at full width: DFRModel.fit(train, minibatch=4) on
      the whole ARAB training split (6600 samples, Nx=30, s=931, FIT_EPOCHS
-     = 10 epochs, cut from the paper's 25, the paper's recipe with
+     = 3 epochs, cut from the paper's 25, the paper's recipe with
      select='val'), with every launch count
      set to 0 before it and read after it (K6, K7, K4a and K4b); the wall
      time of the SGD and of the ridge fits, the chosen beta, the train and
@@ -200,9 +211,21 @@ Phases, each fatal on failure:
      K1's truncated gradients over all 6600 samples (full BPTT on the
      largest batch that fits), beside the storage words and one (B, T,
      Nx) state tensor.
+  6d. The slice's path past one warp: the paper's ARAB at Nx = 64 (s =
+     4161, nothing else cut).  DFRModel.fit(train, minibatch=4) cut to 2
+     epochs (K6, K7, K4a, K4b launched, no other kernel), its wall time,
+     beta and test accuracy (> 3/C); the fp32 StreamServer with the
+     recompute refresh (K1 and K2 once a round, cholesky_ex) and with the
+     incremental refresh (K1, K2 and K3 once a round; the live factor
+     still factors its statistics) as phase 4 serves ARAB, each captured
+     and eager (equal bit for bit), its samples/s, peak memory and, from
+     one profiled captured wave, the device's busy time a round and idle
+     share.  Int8 and bf16 at Nx = 64 are not served: K5 takes Nx <= 32
+     (ROADMAP Queue 2).
   7. Card against CPU on a reduced fit (Nx=30, the first 512 ARAB training
-     samples, 2 epochs): the same beta, at least 0.98 of the test split's
-     predictions equal, and |dW| / max |W|.
+     samples, 2 epochs), and at Nx = 64 on the first 256 (1 epoch): the
+     same beta, at least 0.98 of the test split's predictions equal, and
+     |dW| / max |W|.
   8. The LM main path at full width: smollm-135m (configs/smollm_135m.py, 30
      layers, d_model 576, 9 query heads over 3 KV heads, head_dim 64) with
      attn_impl='pallas', bf16, parameters from the port's seeded init.
@@ -251,12 +274,12 @@ Phases, each fatal on failure:
      whisper so in bf16 at 8c's 1500 frames and BOS (K8's bf16 route at the
      decoder's 1 x 1 and 1 x 1500), within phase 9's bf16 limits.
  10. LM training at smollm-135m's full width: (a) ``python -m
-     repro_torch.launch.train --steps 20 --batch 8 --seq 512`` at its
+     repro_torch.launch.train --steps 10 --batch 8 --seq 512`` at its
      defaults (attn_impl='xla', AdamW, the cosine schedule) as a
-     subprocess, 20 finite losses and 'done:', then again to step 25 from
-     its checkpoint ('resumed from step 20'); (b) the Trainer in process
+     subprocess, 10 finite losses and 'done:', then again to step 13 from
+     its checkpoint ('resumed from step 10'); (b) the Trainer in process
      on the flash route, bf16, AdamW and a cosine schedule at peak 1e-3,
-     (B, T) = (8, 2048), 30 steps: K8's launches over one step set to 0
+     (B, T) = (8, 2048), 20 steps: K8's launches over one step set to 0
      before and read after (60: forward and remat recompute, a layer),
      the median step time (host clock, the loss waited on), tokens/s,
      peak allocated memory, one step under torch.profiler (the device's
@@ -288,10 +311,14 @@ Phases, each fatal on failure:
      |logits| with argmax equal, and the ms a step beside the unsharded
      run's (DTensor's host cost: a finding, not a gate).
  11b. The dry run (python -m repro_torch.launch.dryrun, CPU processes
-     with no CUDA device visible, started after phase 11 so that no
-     timed phase shares the host's CPUs with it): every arch at
-     train_4k on pod16x16, smollm-135m and llama4-maverick at train_4k on
-     pod2x16x16, smollm-135m at train_4k with attn_impl=pallas.  Every
+     with no CUDA device visible, started after phase 11, so that no
+     timed phase shares the host's CPUs with it; the untimed card-vs-CPU
+     phases 5, 7, 9, 9b and 10b run beside it, its processes at the lowest
+     CPU priority, nice 19): every arch at train_4k on pod16x16 (the
+     deep archs at DRYRUN_DEPTH's layers, smollm and whisper at full
+     depth),
+     smollm-135m and llama4-maverick at train_4k on pod2x16x16,
+     smollm-135m at train_4k with attn_impl=pallas.  Every
      cell 'ok' (none of these is in a skip_shapes); each cell's
      per-device argument bytes, peak bytes, FLOPs, HBM bytes, wire bytes
      and dominant roofline term.  The other shapes are cut (PERF.md
@@ -324,7 +351,9 @@ torch.nn.functional.scaled_dot_product_attention on the same inputs (timed
 here only; the port never calls it).  K8's JSON record also names both
 routes.
 The last line is {"ok": true, "device": {...}}; the line before it is the
-per-kernel JSON record.  Exits non-zero, printing no result, without a CUDA
+per-kernel JSON record, each kernel with its range on the card ("nodes")
+and, for K1, K2, K3, K6 and K7, phase 3's numbers past one warp ("wide").
+Exits non-zero, printing no result, without a CUDA
 device or without the repository's sources.
 """
 import contextlib
@@ -334,11 +363,13 @@ import gc
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -436,14 +467,15 @@ K5_CHAIN_OPS = {"fp32 FMA": 17, "fp32 min/max": 4, "IDP4A": 4,
 CHAIN = {}  # chain_latency.measure() and the SM clock, set in phase 2
 # the training path: ridge tiles (the DFRModel path's block), the chunk of
 # fit_ridge, the sizes of the card-vs-CPU fit, and the epochs of the
-# full-width fit, cut from the paper's 25 to keep the script well inside
-# its time (the SGD reaches the clamp p = 10^-3.75 within two epochs on
-# ARAB, and each epoch costs 5-12 s of host-bound steps)
+# full-width fit, cut from the paper's 25 to keep the script inside its
+# 1,200 s on a slow host (the SGD reaches the clamp p = 10^-3.75 within two
+# epochs on ARAB, and each epoch costs 5-12 s of host-bound steps; 3 and 10
+# epochs gave test accuracies 0.9264 and 0.9255 on the card, PERF.md)
 TILE = 128
 CHUNK = 256
 FIT_MINIBATCH = 4   # fit_sgd's minibatch in phase 6
 AGREE_SAMPLES, AGREE_EPOCHS = 512, 2
-FIT_EPOCHS = 10
+FIT_EPOCHS = 3
 ONLINE_LR = 0.01  # OnlineDFR's SGD rate at ARAB's width
 K4A_REL = 1e-5   # K4a: the same rounded operations as its plain version
 K4B_REL = 1e-4   # K4b: dot products in another order
@@ -548,10 +580,11 @@ K8_GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # state; this one is bit for bit in bf16 at these moves (the replay was
 # bit for bit in every run so far, though the card's embedding backward
 # need not sum in one order); 10b: one step card vs CPU at full width and
-# TRAIN_AGREE's depth and shape, fp32
-TRAIN_CLI = dict(steps=20, resume=25, batch=8, seq=512, ckpt_every=10)
+# TRAIN_AGREE's depth and shape, fp32.  The CLI's and the Trainer's steps
+# are cut to keep the script inside its time
+TRAIN_CLI = dict(steps=10, resume=13, batch=8, seq=512, ckpt_every=10)
 TRAIN_SHAPE = (8, 2048)
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 TRAIN_LR = 1e-3
 TRAIN_COUNT_STEP = 5
 REPLAY = dict(steps=10, fault_at=7, ckpt_every=5)
@@ -581,24 +614,41 @@ SHARDED_REL = 1e-3         # sharded vs unsharded loss, rtol
 # and the flash route's cell.  The whole sweep (80 cells) took 925.7 s on
 # eight processes of the card's host, over this script's budget (PERF.md
 # section 4).  A process a cell, at most DRYRUN_PROCS at once, the longest
-# traces first (zamba2's and rwkv6's chunk loops, about 190 s each on the
-# card's host), so that the processes end together.
-DRYRUN_CELLS = (
-    ("zamba2-1.2b", "train_4k", "single", (), "smoke"),
-    ("rwkv6-7b", "train_4k", "single", (), "smoke"),
-    ("qwen1.5-110b", "train_4k", "single", (), "smoke"),
-    ("llama4-maverick-400b-a17b", "train_4k", "multi", (), "smoke"),
-    ("llama4-scout-17b-a16e", "train_4k", "single", (), "smoke"),
-    ("llama4-maverick-400b-a17b", "train_4k", "single", (), "smoke"),
-    ("smollm-135m", "train_4k", "multi", (), "smoke"),
-    ("gemma3-4b", "train_4k", "single", (), "smoke"),
-    ("qwen2-vl-7b", "train_4k", "single", (), "smoke"),
-    ("minitron-8b", "train_4k", "single", (), "smoke"),
-    ("whisper-small", "train_4k", "single", (), "smoke"),
-    ("smollm-135m", "train_4k", "single", (), "smoke"),
-    ("smollm-135m", "train_4k", "single", ("attn_impl=pallas",),
-     "smoke_pallas"),
-)
+# traces first, so that the processes end together.  A cell's trace grows
+# with its layers, so the deep archs run at DRYRUN_DEPTH's layers, at full
+# width, to keep the script inside its time: each cut keeps its arch's
+# layer pattern (zamba2's shared block every 6 layers, gemma3's 5:1
+# windows) and, above 5e10 parameters, Adafactor (launch/steps.py:
+# pick_optimizer); smollm and whisper run at full depth
+DRYRUN_DEPTH = {"zamba2-1.2b": 12, "rwkv6-7b": 8, "qwen1.5-110b": 40,
+                "llama4-scout-17b-a16e": 24,
+                "llama4-maverick-400b-a17b": 12, "gemma3-4b": 12,
+                "qwen2-vl-7b": 8, "minitron-8b": 8}
+
+
+def dryrun_sets(arch: str, *extra: str) -> tuple:
+    """A dry-run cell's ``--set`` overrides: its DRYRUN_DEPTH, then
+    ``extra``."""
+    return ((f"n_layers={DRYRUN_DEPTH[arch]}",) if arch in DRYRUN_DEPTH
+            else ()) + extra
+
+
+DRYRUN_CELLS = tuple(
+    (arch, "train_4k", mesh, dryrun_sets(arch, *extra), tag)
+    for arch, mesh, extra, tag in (
+        ("zamba2-1.2b", "single", (), "smoke"),
+        ("rwkv6-7b", "single", (), "smoke"),
+        ("qwen1.5-110b", "single", (), "smoke"),
+        ("whisper-small", "single", (), "smoke"),
+        ("smollm-135m", "multi", (), "smoke"),
+        ("smollm-135m", "single", (), "smoke"),
+        ("smollm-135m", "single", ("attn_impl=pallas",), "smoke_pallas"),
+        ("llama4-scout-17b-a16e", "single", (), "smoke"),
+        ("llama4-maverick-400b-a17b", "multi", (), "smoke"),
+        ("llama4-maverick-400b-a17b", "single", (), "smoke"),
+        ("gemma3-4b", "single", (), "smoke"),
+        ("qwen2-vl-7b", "single", (), "smoke"),
+        ("minitron-8b", "single", (), "smoke")))
 DRYRUN_PROCS = 8      # the card's host has 8 CPUs
 DRYRUN_TIMEOUT = 300  # s: the phase's limit (PERF.md section 4)
 
@@ -614,6 +664,33 @@ WHISPER_FRAMES = 1500
 # route runs at the decoder's shapes of 8c
 FAMILY_AGREE = ([(arch, torch.float32, 256) for arch in FAMILY_ARCHS]
                 + [("whisper-small", torch.bfloat16, WHISPER_FRAMES)])
+
+# Nx > 32: phase 3 holds K1, K2, K6 and K7 at WIDE_NODES beside their plain
+# versions (K1 and K2 at the server round's 128 samples, K6 and K7 at
+# phase 3's three sample counts), K3 at the factor of Nx = WIDE_NX and at
+# its limit; phase 6d runs the slice's path, the paper's ARAB at Nx =
+# WIDE_NX (s = 4161): the fit cut to WIDE_FIT_EPOCHS, both fp32 refresh
+# modes served captured and eager, and a fit on WIDE_AGREE's subset on
+# the card and on the CPU
+WIDE_NODES = (64, 128)
+WIDE_NX = 64
+WIDE_FIT_EPOCHS = 2
+WIDE_AGREE = dict(samples=256, epochs=1)
+# K3's (factors, rows, s): the factor of Nx = WIDE_NX, and K3's limit
+# (s None: k_cholupdate.max_factor())
+WIDE_K3 = ((32, 4, WIDE_NX * WIDE_NX + WIDE_NX + 1), (2, 4, None))
+# each kernel's range on the card, in the JSON line (the node caps of K1,
+# K2, K5, K6 and K7 and K3's factor s, max_factor, read from their
+# libraries at the end)
+KERNEL_NODES = {"K4a chol_tile": "any s, tiles of bs <= 1024",
+                "K4b trsm_tile": "any s, tiles", "K8 flash_attention":
+                "no node axis"}
+WIDE_PATHS = {
+    "fp32 Nx=64": (dict(), ("K1 train_forward", "K2 streaming_logits")),
+    "incremental Nx=64": (dict(refresh_mode="incremental"),
+                          ("K1 train_forward", "K2 streaming_logits",
+                           "K3 cholupdate_window_t")),
+}
 
 KERNELS = {"K1 train_forward": k_train.KERNEL,
            "K2 streaming_logits": k_streaming.KERNEL,
@@ -708,9 +785,15 @@ DRIFT_ADAPTIVE_MODES = {"plain": {}, "blocked": dict(step_block=4),
                         "int8": dict(quantize="int8")}
 DRIFT_GAIN = 0.3
 K3_FORGET = 0.95   # phase 3's scale operand: sqrt(lambda) on live rows
-# phase 5's subset for the retirement paths: the first 400 ARAB samples in
-# 8 streams on 4 slots (the CPU folds K3's plain version at s = 931)
-RETIRE_AGREE_SAMPLES = 400
+# phase 5's subsets: the first AGREE_SERVE_SAMPLES ARAB samples (fp32,
+# int8) and RETIRE_AGREE_SAMPLES (bf16, the retirement paths: the CPU folds
+# K3's plain version at s = 931) in 8 streams on 4 slots, cut to keep the
+# script inside its time (these CPU runs set the length of the last group,
+# phase 11b's dry run beside them).  The retirement paths keep 200: at 100,
+# forget, window and adaptive gave one card-vs-CPU |dW| (4.788e-09), so the
+# retirement barely acted there
+AGREE_SERVE_SAMPLES = 200
+RETIRE_AGREE_SAMPLES = 200
 # the hyperparameter search at ARAB's full width: the population's grid
 # (K = divs^2 members), its refinement (tests/test_population.py's
 # classification case), K1's plain version on K x POP_PLAIN_SAMPLES of the
@@ -797,6 +880,14 @@ READOUT_ON_PATH = ("K1 train_forward", "K6 reservoir_states",
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+T_START = time.perf_counter()
+
+
+def header(line: str) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{line} [at {time.perf_counter() - T_START:.1f} s]")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1255,11 +1346,14 @@ def check_rel(name: str, got, want, tol: float) -> float:
     return e
 
 
-def training_kernel_records(model: DFRModel, train) -> dict:
-    """K6, K7, K4a and K4b against their plain versions on the card at the
-    training path's shapes: ARAB's masked training split (a fit_ridge chunk
-    and the whole split) at the initial (p, q), and the blocked solve's
-    tiles of the ridge system those features give, with tiles of 128."""
+def k6_k7_stats(model: DFRModel, train, cycles: float) -> dict:
+    """K6 and K7 against their plain versions on ``model``'s masked ARAB
+    training split at its initial (p, q): at fit_sgd's minibatch, a
+    fit_ridge chunk and the whole split, each timed beside its byte bound,
+    K6 beside its chain bound (``cycles`` a step) and with its frozen rows
+    equal to the last live state, K7 beside one bmm.  Returns, per sample
+    count, (K6 err, ms, plain ms, bound, K7 err, ms, plain ms, bound, bmm
+    ms)."""
     cfg = model.cfg
     nx, nr, dev = cfg.n_nodes, cfg.n_rep, model.device
     params = model.init_params()
@@ -1267,7 +1361,6 @@ def training_kernel_records(model: DFRModel, train) -> dict:
     lens = train.length.to(dev)
     j_all = masking.apply_mask(model.mask, u)
     f = cfg.f()
-    records = {}
 
     def k6(j, ln, backend):
         return ops.reservoir_states(j, ln, params.p, params.q, nx, f=f,
@@ -1284,7 +1377,7 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         x = k6(j, ln, "cuda")
         x_plain = k6(j, ln, "torch")
         torch.cuda.synchronize()
-        e6 = compare(f"K6 at B={n}", (x,), (x_plain,))
+        e6 = compare(f"K6 at B={n} Nx={nx}", (x,), (x_plain,))
         step = torch.arange(t_len, device=dev)
         last = x[torch.arange(n, device=dev), (ln.long() - 1).clamp(min=0)]
         frozen = (step[None, :] >= ln[:, None]) & (ln > 0)[:, None]
@@ -1296,7 +1389,7 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         r = k7(x_plain, ln, "cuda")
         r_plain = k7(x_plain, ln, "torch")
         torch.cuda.synchronize()
-        e7 = compare(f"K7 at B={n}", (r,), (r_plain,))
+        e7 = compare(f"K7 at B={n} Nx={nx}", (r,), (r_plain,))
         ms6 = device_ms(lambda: k6(j, ln, "cuda"))
         ms7 = device_ms(lambda: k7(x, ln, "cuda"))
         plain6 = wall_ms(lambda: k6(j, ln, "torch"), reps=3)
@@ -1319,12 +1412,25 @@ def training_kernel_records(model: DFRModel, train) -> dict:
         print(f"  K6 at B={n} T={t_len} Nx={nx} ({live} live steps): kernel "
               f"{ms6:.4f} ms, plain {plain6:.3f} ms, bound {b6[0]:.5f} ms "
               f"({b6[1]}); "
-              + chain_bound(int(ln.max()),
-                            CHAIN["step_cycles"]["K1/K2/K6 scan_step"],
-                            "scan_step"))
-        print(f"  K7 at B={n}: kernel {ms7:.4f} ms, plain {plain7:.3f} ms, "
-              f"one bmm {lib7:.4f} ms, bound {b7[0]:.5f} ms ({b7[1]})")
+              + chain_bound(int(ln.max()), cycles, "its step"))
+        print(f"  K7 at B={n} Nx={nx}: kernel {ms7:.4f} ms, plain "
+              f"{plain7:.3f} ms, one bmm {lib7:.4f} ms, bound {b7[0]:.5f} ms "
+              f"({b7[1]})")
         stats[n] = (e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7)
+    return stats
+
+
+def training_kernel_records(model: DFRModel, train) -> dict:
+    """K6, K7, K4a and K4b against their plain versions on the card at the
+    training path's shapes: ARAB's masked training split (a fit_ridge chunk
+    and the whole split) at the initial (p, q), and the blocked solve's
+    tiles of the ridge system those features give, with tiles of 128."""
+    cfg = model.cfg
+    dev = model.device
+    params = model.init_params()
+    records = {}
+    stats = k6_k7_stats(model, train,
+                        CHAIN["step_cycles"]["K1/K2/K6 scan_step"])
     e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7 = stats[train.batch]
     records["K6 reservoir_states"] = record(
         "K6 reservoir_states", "src/repro_torch/kernels/csrc/reservoir.cu",
@@ -1413,6 +1519,118 @@ def training_kernel_records(model: DFRModel, train) -> dict:
                     bnd, lib)
     ridge_solve_check(A, B, cfg.betas)
     return records
+
+
+def wide_kernel_records(cfg, train, records: dict,
+                        dev=torch.device("cuda")) -> None:
+    """K1, K2, K6 and K7 past one warp (Nx > 32): at each of WIDE_NODES,
+    K1 and K2 at the server round's 128 samples (phase 3's operands and
+    lengths at that width) and K6 and K7 on ARAB's training split masked at
+    that width (``k6_k7_stats``), each against its plain version and timed
+    beside its byte bound and its chain bound (the step at ceil(Nx / 32)
+    nodes a lane, ``scan_step_n``, measured by launch/chain_latency.py).
+    Each record gains a ``wide`` entry per width."""
+    S, W, T, _, ny = STREAM_SHAPE
+    n = S * W
+    for nx in WIDE_NODES:
+        cycles = CHAIN["step_cycles"][f"scan_step_n NPL={-(-nx // 32)}"]
+        rng = np.random.default_rng(nx)
+        lengths = rng.integers(1, T + 1, n)
+        lengths[:6] = STREAM_LENGTHS
+        j, lens, p, q, Wr, b = (torch.from_numpy(a).to(dev) for a in (
+            rng.normal(size=(S, W, T, nx)).astype(np.float32),
+            lengths.reshape(S, W).astype(np.int32),
+            rng.uniform(0.01, 0.5, S).astype(np.float32),
+            rng.uniform(-0.5, 0.5, S).astype(np.float32),
+            (0.01 * rng.normal(size=(S, ny, nx * (nx + 1)))).astype(
+                np.float32),
+            rng.normal(size=(S, ny)).astype(np.float32)))
+        f = DFRConfig(n_in=1, n_classes=ny, n_nodes=nx).f()
+        live = int(lengths.sum())
+        chain_ms = int(lengths.max()) * cycles / CHAIN["clock_hz"] * 1e3
+        for name, fn, work in (
+            ("K1 train_forward",
+             lambda be: ops.train_forward(j, lens, p, q, nx, f=f,
+                                          backend=be),
+             kernel_cost.train_forward(live, S, n, nx)),
+            ("K2 streaming_logits",
+             lambda be: ops.streaming_logits_slots(j, lens, p, q, Wr, b, nx,
+                                                   f=f, backend=be),
+             kernel_cost.streaming_logits(live, S, n, nx, ny)),
+        ):
+            got, want = as_tuple(fn("cuda")), as_tuple(fn("torch"))
+            torch.cuda.synchronize()
+            err = compare(f"{name} at Nx={nx}", got, want)
+            ms = device_ms(lambda: fn("cuda"))
+            plain_ms = wall_ms(lambda: fn("torch"), reps=3)
+            bnd, by = work.bound()
+            print(f"  {name} at Nx={nx}: kernel {ms:.4f} ms (device time, "
+                  f"median of 50), plain {plain_ms:.3f} ms, bound "
+                  f"{bnd:.5f} ms ({by}) at B={n} T={T} Ny={ny}, {live} live "
+                  f"steps; " + chain_bound(int(lengths.max()), cycles,
+                                           "scan_step_n"))
+            records[name].setdefault("wide", {})[nx] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                chain_ms=chain_ms, max_abs_err=err)
+        model = DFRModel.create(dataclasses.replace(cfg, n_nodes=nx),
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        stats = k6_k7_stats(model, train, cycles)
+        for size, st in stats.items():
+            e6, ms6, plain6, b6, e7, ms7, plain7, b7, lib7 = st
+            records["K6 reservoir_states"].setdefault("wide", {})[
+                f"{nx}/{size}"] = dict(ms=ms6, plain_ms=plain6,
+                                       bound_ms=b6[0], bound_by=b6[1],
+                                       max_abs_err=e6)
+            records["K7 dprr_features"].setdefault("wide", {})[
+                f"{nx}/{size}"] = dict(ms=ms7, plain_ms=plain7,
+                                       bound_ms=b7[0], bound_by=b7[1],
+                                       library_ms=lib7, max_abs_err=e7)
+
+
+def wide_k3_records(records: dict, dev=torch.device("cuda")) -> None:
+    """K3 at the factor of Nx = WIDE_NX (s = 4161: passes of 4 rows, so a
+    window of 4 folds in one) and at its limit (``max_factor``: one row a
+    pass), sign +1, against its plain version (<= K3_REL of max |Lt|,
+    whether bit for bit printed); timed at s = 4161 beside its byte and
+    chain bounds."""
+    name = "K3 cholupdate_window_t"
+    for k, w, s in WIDE_K3:
+        s = s or k_cholupdate.max_factor()
+        g = torch.Generator().manual_seed(s)
+        Lt = torch.triu(0.05 * torch.randn(k, s, s, generator=g), 1)
+        Lt = (Lt + torch.diag_embed(1.0 + torch.rand(k, s, generator=g))
+              ).to(dev)
+        X = (0.3 * torch.randn(k, w, s, generator=g)).to(dev)
+        t0 = time.perf_counter()
+        want = ops.cholupdate_window_t(Lt, X, 1.0, backend="torch")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        got = ops.cholupdate_window_t(Lt, X, 1.0, backend="cuda")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        e = float((got - want).abs().max())
+        rel = e / float(want.abs().max())
+        rows = k_cholupdate.pass_rows(s, False)
+        print(f"  {name} at K={k} W={w} s={s} ({rows} rows a pass): max "
+              f"abs err {e:.3e}, relative to max |Lt| {rel:.3e} (tolerance "
+              f"{K3_REL}); equal to its plain version "
+              f"bit for bit: {bool(torch.equal(got, want))}; plain "
+              f"{plain_s:.2f} s")
+        check(rel <= K3_REL, f"{name} at s={s}: kernel disagrees with its "
+                             f"plain version")
+        if s != WIDE_K3[0][2]:
+            continue
+        ms = device_ms(lambda dst: ops.cholupdate_window_t(
+            dst, X, out=dst, backend="cuda"), reps=10, setup=Lt.clone)
+        bnd, by = kernel_cost.cholupdate(k, w, s).bound()
+        chain_ms = s * w * K3_ROTATION_CYCLES / CHAIN["clock_hz"] * 1e3
+        print(f"  {name} at K={k} W={w} s={s}: kernel {ms:.4f} ms (device "
+              f"time, median of 10), plain {1e3 * plain_s:.1f} ms (once), "
+              f"bound {bnd:.5f} ms ({by}); chain bound {chain_ms:.4f} ms")
+        records[name].setdefault("wide", {})[s] = dict(
+            ms=ms, plain_ms=1e3 * plain_s, bound_ms=bnd, bound_by=by,
+            chain_ms=chain_ms, max_abs_err=e)
 
 
 def capture_tiles(A, B) -> dict:
@@ -1605,7 +1823,8 @@ def serving_run(cfg, arrays, path: str, kind: str, profile=None,
 def path_config(cfg, path: str) -> tuple:
     """(config, server knobs) of a path of PATHS, RETIRE_PATHS or
     BF16_PATHS: a ``dtype`` knob goes onto the config."""
-    knobs = dict({**PATHS, **RETIRE_PATHS, **BF16_PATHS}[path][0])
+    knobs = dict({**PATHS, **RETIRE_PATHS, **BF16_PATHS,
+                  **WIDE_PATHS}[path][0])
     dtype = knobs.pop("dtype", None)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
@@ -1639,7 +1858,7 @@ def main_path_phase(card: str, cfg, arrays, path: str) -> dict:
     """The main path ``path`` through the captured round (the default on
     the card): one measured wave with every kernel's launch count set to 0
     just before it and read just after."""
-    knobs, on_path = {**PATHS, **BF16_PATHS}[path]
+    knobs, on_path = {**PATHS, **BF16_PATHS, **WIDE_PATHS}[path]
     res = serving_run(cfg, arrays, path, "captured")
     srv, done, rounds = res["srv"], res["done"], res["rounds"]
     launches, served = res["launches"], res["served"]
@@ -1888,7 +2107,8 @@ def drift_phase(card: str) -> None:
             ("forget", "window", "adaptive")) + f" (at least {DRIFT_GAIN})")
 
 
-def agreement_phase(cfg, arrays, path: str, n_samples: int = 800,
+def agreement_phase(cfg, arrays, path: str,
+                    n_samples: int = AGREE_SERVE_SAMPLES,
                     agree_min: float = 0.98) -> None:
     cfg, knobs = path_config(cfg, path)
     t_max = arrays[0].shape[1]
@@ -2111,13 +2331,14 @@ def profile_training(card: str, model: DFRModel, train, params,
         check(busy > 0, "the profiler saw no device time")
 
 
-def training_agreement_phase(cfg, data) -> None:
-    """The same reduced fit on the card and on the CPU."""
+def training_agreement_phase(cfg, data, samples: int = AGREE_SAMPLES,
+                             epochs: int = AGREE_EPOCHS) -> None:
+    """The same reduced fit (the first ``samples`` training samples,
+    ``epochs`` epochs) on the card and on the CPU."""
     train, test = data
-    sub = TimeSeriesBatch(u=train.u[:AGREE_SAMPLES],
-                          length=train.length[:AGREE_SAMPLES],
-                          label=train.label[:AGREE_SAMPLES])
-    small = dataclasses.replace(cfg, epochs=AGREE_EPOCHS)
+    sub = TimeSeriesBatch(u=train.u[:samples], length=train.length[:samples],
+                          label=train.label[:samples])
+    small = dataclasses.replace(cfg, epochs=epochs)
     mask = DFRModel.create(small, device="cpu").mask
     out = {}
     for device in ("cuda", "cpu"):
@@ -2130,7 +2351,8 @@ def training_agreement_phase(cfg, data) -> None:
     (pg, bg, yg, tg), (pc, bc, yc, tc) = out["cuda"], out["cpu"]
     agree = float((yg == yc).float().mean())
     dW = float((pg.W.cpu() - pc.W).abs().max() / pc.W.abs().max())
-    print(f"  DFRModel.fit, {AGREE_SAMPLES} samples, {AGREE_EPOCHS} epochs: "
+    print(f"  DFRModel.fit, Nx={cfg.n_nodes}, {samples} samples, {epochs} "
+          f"epochs: "
           f"card {tg:.1f} s, CPU {tc:.1f} s; beta card {bg:g}, CPU {bc:g}; "
           f"{agree:.4f} of {test.batch} test predictions agree; |dp| "
           f"{abs(float(pg.p) - float(pc.p)):.3e}, |dq| "
@@ -2138,6 +2360,66 @@ def training_agreement_phase(cfg, data) -> None:
           f"{dW:.3e}")
     check(bg == bc, f"card and CPU chose beta {bg:g} and {bc:g}")
     check(agree >= 0.98, f"card and CPU agree on {agree:.4f} < 0.98")
+
+
+def wide_path_phase(card: str, data) -> None:
+    """Phase 6d, the slice's path past one warp: the paper's ARAB at Nx =
+    WIDE_NX (s = 4161).  DFRModel.fit(train, minibatch=4) cut to
+    WIDE_FIT_EPOCHS (K6, K7, K4a, K4b; launches set to 0 before and read
+    after), its wall time, beta and test accuracy (> 3/C); each fp32 refresh
+    mode of WIDE_PATHS served as phase 4 serves (a warm-up and a measured
+    wave of 64 streams on 32 slots, windows of 4, a refresh every 5
+    rounds), captured (launches a round checked) and eager, equal bit for
+    bit, and its captured wave profiled for the device's busy share.
+    Phase 7 holds a fit on WIDE_AGREE's subset on the card against the
+    CPU's."""
+    train, test = data
+    cfg = paper_dfr_config("ARAB", n_nodes=WIDE_NX)
+    arrays = (train.u.numpy(), train.length.numpy(), train.label.numpy())
+    model = DFRModel.create(dataclasses.replace(cfg, epochs=WIDE_FIT_EPOCHS),
+                            generator=torch.Generator().manual_seed(0))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    params = model.fit(train, minibatch=FIT_MINIBATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tag = f"[{card}] DFRModel.fit Nx={WIDE_NX}"
+    print(f"  {tag}: ARAB s={cfg.s}, {train.batch} samples, "
+          f"{WIDE_FIT_EPOCHS} epochs (CUT from the paper's {cfg.epochs}), "
+          f"minibatch 4, select='val': {wall:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check_launches(tag, launches, TRAINING_KERNELS)
+    beta, dist = chosen_beta(model, train, params)
+    acc = float(model.accuracy(test, params))
+    print(f"  {tag}: p {float(params.p):.6g}, q {float(params.q):.6g}, beta "
+          f"{beta:g}, test accuracy {acc:.4f} on {test.batch}")
+    check(dist[beta] <= 1e-3, "no beta of the sweep gives the fitted W")
+    check(acc > 3.0 / cfg.n_classes, f"test accuracy {acc}")
+    del model, params
+
+    for path in WIDE_PATHS:
+        cap = main_path_phase(card, cfg, arrays, path)
+        eager = serving_run(cfg, arrays, path, "eager")
+        print(f"  [{card}] {path} eager: " + run_line(eager))
+        preds, states = same_serving(eager, cap)
+        print(f"  {path}: eager against captured: predictions "
+              f"{'equal' if preds else 'DIFFER'}, final states "
+              f"{'equal bit for bit' if states else 'DIFFER'}")
+        check(preds and states, f"{path}: the eager round serves another "
+                                f"episode")
+        check(eager["replays"] == 0, "the eager round replayed a graph")
+        rates = [r["served"] / r["wall"] for r in (cap, eager)]
+        peak = cap["peak_alloc"] / 2**20
+        del cap, eager
+        prof = profile_phase(card, cfg, arrays, path, "captured")
+        print(f"  {path}: samples/s captured {rates[0]:.1f}, eager "
+              f"{rates[1]:.1f}; device busy {prof['busy_ms']:.3f} ms a "
+              f"round, idle {prof['idle']:.1f}% (profiled captured wave); "
+              f"peak memory of the captured server {peak:.1f} MiB")
 
 
 def k1_population_phase(cfg, train, mask) -> None:
@@ -3807,7 +4089,7 @@ def train_phase(card: str) -> None:
     print(f"  [{card}] Trainer, {LM_ARCH} bf16, attn_impl='pallas', "
           f"remat '{cfg.remat_policy}', (B, T) = {TRAIN_SHAPE}, AdamW, "
           f"cosine peak {TRAIN_LR}: {step} steps in {wall:.2f} s "
-          f"(3 checkpoints included); step 0 {log[0]['sec']:.4f} s, steps "
+          f"({step // 10} checkpoints included); step 0 {log[0]['sec']:.4f} s, steps "
           f"1-{step - 1} median {med:.4f} s (min {min(secs):.4f}, max "
           f"{max(secs):.4f}; host clock, the loss waited on) = "
           f"{b * t / med:.1f} tokens/s; max_memory_allocated {peak:.1f} MiB")
@@ -4389,49 +4671,76 @@ def stop_children(grace: float = 5.0,
         time.sleep(0.05)
 
 
-def dryrun_phase() -> None:
-    """Phase 11b: the dry run's cells, each ``python -m
-    repro_torch.launch.dryrun`` in a process of its own on the host's CPUs
-    alone (a shape-only 'fake' group and fake tensors; no CUDA device
-    visible); every cell reads 'ok', or 'skipped' exactly where the
-    reference's skip_shapes says; each cell's per-device argument GiB,
-    FLOPs, bytes, wire bytes and dominant term."""
+def start_dryrun() -> tuple:
+    """Phase 11b's cells, started in the background after phase 11, the
+    last timed phase: each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own at the lowest CPU priority (``nice 19``; a
+    shape-only 'fake' group and fake tensors, no CUDA device visible), at
+    most DRYRUN_PROCS at once, from a thread of this process, while the
+    untimed card-vs-CPU phases run.  Returns (the thread, its results: each cell's
+    command, exit code, seconds and output, and an error if the cells ran
+    over DRYRUN_TIMEOUT); ``dryrun_phase`` reads them."""
     from repro_torch.configs import ALL_ARCHS
-    from repro_torch.launch import dryrun
 
     column = {a for a, s, m, sets, _ in DRYRUN_CELLS
-              if s == "train_4k" and m == "single" and not sets}
+              if s == "train_4k" and m == "single" and sets == dryrun_sets(a)}
     check(column == set(ALL_ARCHS), f"phase 11b's train_4k column lacks "
                                     f"{set(ALL_ARCHS) - column}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    # a failing phase ends the script: main's stop_children() ends the
-    # cells' processes (each with its pool's worker) with it
-    pending, running = list(DRYRUN_CELLS), []
-    t0 = time.perf_counter()
-    while pending or running:
-        while pending and len(running) < DRYRUN_PROCS:
-            arch, shape, mesh, sets, tag = pending.pop(0)
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--mesh", mesh,
-                   "--tag", tag, *(a for kv in sets for a in ("--set", kv))]
-            log = tempfile.TemporaryFile(mode="w+")
-            running.append((cmd, time.perf_counter(), log, subprocess.Popen(
-                cmd, env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
-                text=True)))
-        for item in [r for r in running if r[3].poll() is not None]:
-            running.remove(item)
-            cmd, start, log, proc = item
-            log.seek(0)
-            out = log.read()
-            log.close()
-            print(f"  {' '.join(cmd[3:])}: exit {proc.returncode} after "
-                  f"{time.perf_counter() - start:.1f} s")
-            check(proc.returncode == 0, f"the dry run failed:\n"
-                                        f"{out[-4000:]}")
-        check(time.perf_counter() - t0 <= DRYRUN_TIMEOUT,
-              f"the dry run ran over {DRYRUN_TIMEOUT} s")
-        time.sleep(0.2)
+    nice = [shutil.which("nice"), "-n", "19"] if shutil.which("nice") else []
+    state = dict(results=[], error=None)
+
+    def run() -> None:
+        # a failing phase ends the script: main's stop_children() ends the
+        # cells' processes (each with its pool's worker) with it
+        pending, running = list(DRYRUN_CELLS), []
+        t0 = time.perf_counter()
+        while pending or running:
+            while pending and len(running) < DRYRUN_PROCS:
+                arch, shape, mesh, sets, tag = pending.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", mesh,
+                       "--tag", tag,
+                       *(a for kv in sets for a in ("--set", kv))]
+                log = tempfile.TemporaryFile(mode="w+")
+                running.append((cmd, time.perf_counter(), log,
+                                subprocess.Popen(
+                                    nice + cmd, env=env, cwd=ROOT,
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    text=True)))
+            for item in [r for r in running if r[3].poll() is not None]:
+                running.remove(item)
+                cmd, start, log, proc = item
+                log.seek(0)
+                state["results"].append((cmd, proc.returncode,
+                                         time.perf_counter() - start,
+                                         log.read()))
+                log.close()
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT:
+                state["error"] = f"the dry run ran over {DRYRUN_TIMEOUT} s"
+                return
+            time.sleep(0.2)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, state
+
+
+def dryrun_phase(started: tuple) -> None:
+    """Phase 11b: the dry run's cells started by ``start_dryrun``, waited
+    for; every cell reads 'ok', or 'skipped' exactly where the reference's
+    skip_shapes says; each cell's per-device argument GiB, FLOPs, bytes,
+    wire bytes and dominant term."""
+    from repro_torch.launch import dryrun
+
+    thread, state = started
+    thread.join(DRYRUN_TIMEOUT)
+    check(not thread.is_alive(), f"the dry run ran over {DRYRUN_TIMEOUT} s")
+    for cmd, code, secs, out in state["results"]:
+        print(f"  {' '.join(cmd[3:])}: exit {code} after {secs:.1f} s")
+        check(code == 0, f"the dry run failed:\n{out[-4000:]}")
+    check(state["error"] is None, str(state["error"]))
     for arch, shape, mesh, _, tag in DRYRUN_CELLS:
         mesh = "pod2x16x16" if mesh == "multi" else "pod16x16"
         rec = json.loads(dryrun.artifact_path(arch, shape, mesh,
@@ -4446,6 +4755,9 @@ def dryrun_phase() -> None:
             continue
         m = rec["memory"]
         route = " pallas" if tag != "smoke" else ""
+        if arch in DRYRUN_DEPTH:
+            route += (f" at {DRYRUN_DEPTH[arch]} of "
+                      f"{get_config(arch).n_layers} layers,")
         print(f"  {arch:26s} {shape:12s} {mesh:10s}{route} "
               f"args {m['argument_size'] / 2 ** 30:.3f} GiB, temp "
               f"{m['temp_size'] / 2 ** 30:.2f} GiB, flops "
@@ -4466,18 +4778,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
-    print(f"[1] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-          f"matmul.allow_bf16_reduced_precision_reduction="
-          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    bf16_reduction = \
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    header(f"[1] {card}; torch {torch.__version__}, CUDA "
+           f"{torch.version.cuda}; matmul.allow_tf32="
+           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+           f"{torch.backends.cudnn.allow_tf32}, "
+           f"matmul.allow_bf16_reduced_precision_reduction={bf16_reduction}")
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
     logs = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")),
                         verbose=True)
-    print(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(parallel nvcc, {', '.join(sorted(logs)) or 'already built'})")
+    header(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
+           f"(parallel nvcc, {', '.join(sorted(logs)) or 'already built'})")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4511,19 +4825,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cfg, arrays, data = load_arab()
-    print(f"[3] kernels vs plain versions on the card (ARAB data made in "
-          f"{time.perf_counter() - t0:.1f} s)")
+    header(f"[3] kernels vs plain versions on the card (ARAB data made in "
+           f"{time.perf_counter() - t0:.1f} s)")
     records = kernel_phase(dev)
     records.update(training_kernel_records(
         DFRModel.create(cfg, generator=torch.Generator().manual_seed(0)),
         data[0]))
+    wide_kernel_records(cfg, data[0], records)
+    wide_k3_records(records)
     records.update(k8_records(dev))
     k8_grad_phase(dev)
     k1_population_phase(cfg, data[0], masking.make_mask(
         torch.Generator().manual_seed(cfg.mask_seed), cfg.n_nodes, cfg.n_in,
         cfg.dtype))
-    print("[4] main paths: StreamServer on ARAB at full width (fp32, "
-          "int8 and bf16)")
+    header("[4] main paths: StreamServer on ARAB at full width (fp32, "
+           "int8 and bf16)")
     launches, main_runs = {}, {}
     for path in {**PATHS, **BF16_PATHS}:
         t0 = time.perf_counter()
@@ -4534,121 +4850,137 @@ def main() -> int:
         # each kernel reports the launches of the first path it is on
         for name in PATHS[path][1]:
             launches.setdefault(name, res["launches"][name])
-    print("[4b] where the server's time goes (torch.profiler)")
+    header("[4b] where the server's time goes (torch.profiler)")
     profiles = {}
     for path in PATHS:
         for kind in KINDS:
             profiles[path, kind] = profile_phase(card, cfg, arrays, path,
                                                  kind)
-    print("[4] the bf16 path beside fp32: one profiled captured wave")
+    header("[4] the bf16 path beside fp32: one profiled captured wave")
     t0 = time.perf_counter()
     profiles["bf16", "captured"] = profile_phase(card, cfg, arrays, "bf16",
                                                  "captured")
     bf16_phase(card, main_runs, profiles)
     print(f"  in {time.perf_counter() - t0:.1f} s")
-    print("[4c] captured, eager, and pipelined and blocked rounds, "
-          "alternated")
+    header("[4c] captured, eager, and pipelined and blocked rounds, "
+           "alternated")
     for path in {**PATHS, **BF16_PATHS}:
         t0 = time.perf_counter()
         rounds_phase(card, cfg, arrays, path)
         if path in BF16_PATHS:
             print(f"  bf16 path in {time.perf_counter() - t0:.1f} s")
-    print("[4d] the retirement modes at full width: captured, eager, and "
-          "pipelined and blocked rounds, alternated")
+    header("[4d] the retirement modes at full width: captured, eager, and "
+           "pipelined and blocked rounds, alternated")
     for path in RETIRE_PATHS:
         retirement_phase(card, cfg, arrays, path)
-    print("[4e] the reference's drift cells on the card")
+    header("[4e] the reference's drift cells on the card")
     drift_phase(card)
-    print("[4f] the warm-pool autotuner on phase 4's servers, and the "
-          "reference's tuner episode")
+    header("[4f] the warm-pool autotuner on phase 4's servers, and the "
+           "reference's tuner episode")
     autotuner_phase(card, cfg, arrays)
-    print("[4g] the calibrated planner at full width")
+    header("[4g] the calibrated planner at full width")
     t0 = time.perf_counter()
     planner_phase(card, cfg, arrays)
     print(f"  phase 4g in {time.perf_counter() - t0:.1f} s")
-    print("[4h] multi-device serving: phase 4's servers on 2 and 4 slot "
-          "blocks of one card")
+    header("[4h] multi-device serving: phase 4's servers on 2 and 4 slot "
+           "blocks of one card")
     t0 = time.perf_counter()
     sharded_phase(card, cfg, arrays, main_runs)
     print(f"  phase 4h in {time.perf_counter() - t0:.1f} s")
-    print("[5] agreement, card vs CPU")
-    for path in PATHS:
-        agreement_phase(cfg, arrays, path)
-    t0 = time.perf_counter()
-    agreement_phase(cfg, arrays, "bf16", n_samples=RETIRE_AGREE_SAMPLES,
-                    agree_min=BF16_AGREE)
-    print(f"  bf16 path in {time.perf_counter() - t0:.1f} s")
-    for path in RETIRE_PATHS:
-        agreement_phase(cfg, arrays, path, n_samples=RETIRE_AGREE_SAMPLES)
-    population_agreement_phase(cfg, data)
-    print("[6] the training path at full width: DFRModel.fit, OnlineDFR")
+    header("[6] the training path at full width: DFRModel.fit, OnlineDFR")
     fit_launches, fit = training_phase(card, cfg, data)
     launches.update(fit_launches)
-    print("[6b] the hyperparameter search at full width: grid searches, the "
-          "population, the paper's Table 5")
+    header("[6b] the hyperparameter search at full width: grid searches, the "
+           "population, the paper's Table 5")
     population_phase(card, cfg, data, fit)
     t0 = time.perf_counter()
     checkpoint_phase(card, cfg, data)
     print(f"  the checkpoint in {time.perf_counter() - t0:.1f} s")
-    print("[6c] the paper's memory algorithms at full width: Table 8, Fig. "
-          "9, the packed update, the gradient paths, Table 7")
+    header("[6c] the paper's memory algorithms at full width: Table 8, Fig. "
+           "9, the packed update, the gradient paths, Table 7")
     memory_phase(card, cfg, data, fit)
-    print("[7] training path agreement, card vs CPU")
-    training_agreement_phase(cfg, data)
-    print(f"[8] the LM main path at full width: {LM_ARCH}, "
-          f"attn_impl='pallas', bf16")
+    t0 = time.perf_counter()
+    header(f"[6d] the slice's path past one warp: ARAB at Nx={WIDE_NX}, "
+           f"DFRModel.fit and both fp32 refresh modes")
+    wide_path_phase(card, data)
+    print(f"  phase 6d in {time.perf_counter() - t0:.1f} s")
+    header(f"[8] the LM main path at full width: {LM_ARCH}, "
+           f"attn_impl='pallas', bf16")
     launches.update(lm_phase(card))
     t0 = time.perf_counter()
-    print(f"[8b] the LM-feature readout at full width: {LM_ARCH}'s hidden "
-          f"states through DistributedDFRReadout, 1 rank and 2 gloo ranks")
+    header(f"[8b] the LM-feature readout at full width: {LM_ARCH}'s hidden "
+           f"states through DistributedDFRReadout, 1 rank and 2 gloo ranks")
     readout_phase(card)
     print(f"  phase 8b in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("[8c] the other LM families at their published widths, bf16, "
-          "attn_impl='pallas'")
+    header("[8c] the other LM families at their published widths, bf16, "
+           "attn_impl='pallas'")
     families_phase(card)
     print(f"  phase 8c in {time.perf_counter() - t0:.1f} s")
-    print("[9] the LM at full width, card vs CPU")
-    lm_agreement_phase()
     t0 = time.perf_counter()
-    print("[9b] the LM families at full width and one layer, card vs CPU")
-    families_agreement_phase()
-    print(f"  phase 9b in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    print(f"[10] LM training at full width: {LM_ARCH}, launch.train, the "
-          f"Trainer, a replay")
+    header(f"[10] LM training at full width: {LM_ARCH}, launch.train, the "
+           f"Trainer, a replay")
     train_cli_phase()
     train_phase(card)
     print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("[10b] one train step at full width, card vs CPU")
-    train_agreement_phase()
-    print(f"  phase 10b in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    print(f"[11] the sharded LM on the card: {LM_ARCH} over a one-rank "
-          f"NCCL DeviceMesh beside the unsharded run")
+    header(f"[11] the sharded LM on the card: {LM_ARCH} over a one-rank "
+           f"NCCL DeviceMesh beside the unsharded run")
     sharded_lm_phase(card)
     print(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
+    # the timed phases are done: the dry run's processes (phase 11b) run
+    # from here on, beside the card-vs-CPU phases, whose wall times then
+    # share the host's CPUs with them
     t0 = time.perf_counter()
-    print("[11b] the dry run: every arch at train_4k on pod16x16, two cells "
-          "on pod2x16x16, the flash route's cell")
-    dryrun_phase()
+    header("[11b] the dry run started: every arch at train_4k on pod16x16, "
+           "two cells on pod2x16x16, the flash route's cell; the card-vs-CPU "
+           "phases beside it (their wall times share the host's CPUs)")
+    dryrun = start_dryrun()
+    header("[5] agreement, card vs CPU")
+    for path in PATHS:
+        agreement_phase(cfg, arrays, path)
+    agreement_phase(cfg, arrays, "bf16", n_samples=RETIRE_AGREE_SAMPLES,
+                    agree_min=BF16_AGREE)
+    for path in RETIRE_PATHS:
+        agreement_phase(cfg, arrays, path, n_samples=RETIRE_AGREE_SAMPLES)
+    population_agreement_phase(cfg, data)
+    header("[7] training path agreement, card vs CPU")
+    training_agreement_phase(cfg, data)
+    training_agreement_phase(paper_dfr_config("ARAB", n_nodes=WIDE_NX), data,
+                             **WIDE_AGREE)
+    header("[10b] one train step at full width, card vs CPU")
+    train_agreement_phase()
+    header("[9] the LM at full width, card vs CPU")
+    lm_agreement_phase()
+    header("[9b] the LM families at full width and one layer, card vs CPU")
+    families_agreement_phase()
+    header("[11b] the dry run: every cell waited for")
+    dryrun_phase(dryrun)
     print(f"  phase 11b in {time.perf_counter() - t0:.1f} s")
     left = stop_children()
     running = sum(not cmd.startswith("Z ") for cmd in left.values())
-    print(f"[12] the script's descendants at its end: {len(left)}, all "
-          f"reaped ({running} still running, ended; {len(left) - running} "
-          f"exited, orphans re-parented here)"
+    header(f"[12] the script's descendants at its end: {len(left)}, all "
+           f"reaped ({running} still running, ended; {len(left) - running} "
+           f"exited, orphans re-parented here)"
           + "".join(f"\n  {pid} {cmd[:160]}" for pid, cmd in left.items()))
 
     for name, count in launches.items():
         records[name]["launches"] = count
+    nodes = {**KERNEL_NODES, "K3 cholupdate_window_t":
+             f"s 1-{k_cholupdate.max_factor()}",
+             **{name: f"Nx 1-{KERNELS[name].max_nodes()}" for name in
+                ("K1 train_forward", "K2 streaming_logits",
+                 "K5 streaming_logits_q8", "K6 reservoir_states",
+                 "K7 dprr_features")}}
+    for name, r in records.items():
+        r["nodes"] = nodes[name]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "nodes")
     print(card_line())
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + (("routes",) if "routes" in r else ())}
+        {k: r[k] for k in keys + tuple(x for x in ("routes", "wide")
+                                       if x in r)}
         for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

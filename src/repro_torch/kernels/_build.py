@@ -25,7 +25,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-MAX_NODES = 32  # one warp per sample: lane n holds node n
 BACKENDS = ("cuda", "torch")
 # launches recorded into a CUDA graph, counted here instead of in
 # ``CudaKernel.launches`` while a capture is being tallied
@@ -132,12 +131,21 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._err = None
+        self._max_nodes = None
 
     def _function(self):
         if self._fn is None:
             self._fn, self._err = c_function(self.name, self.symbol,
                                              self.argtypes)
         return self._fn
+
+    def max_nodes(self) -> int:
+        """The largest Nx the kernel takes: its library's ``dfr_max_nodes``
+        (K1, K2, K6 and K7 up to four nodes a lane of one warp, K5 one)."""
+        if self._max_nodes is None:
+            fn, _ = c_function(self.name, "dfr_max_nodes", [])
+            self._max_nodes = int(fn())
+        return self._max_nodes
 
     def launch(self, *args) -> None:
         """Launch on the current stream; raise on a CUDA error."""
@@ -165,10 +173,20 @@ def check_operand(name: str, t, dtype, dev, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_samples(j_seq, lengths, n_sys: int) -> tuple:
+def check_nodes(kernel: CudaKernel, label: str, nx: int) -> None:
+    """Raise unless 1 <= nx <= the kernel's node cap (``label`` names it)."""
+    cap = kernel.max_nodes()
+    if not (1 <= nx <= cap):
+        raise ValueError(f"{label} takes 1 <= Nx <= {cap} on the card, got "
+                         f"Nx={nx}; ROADMAP Queue 2 lists the wider kernels "
+                         f"still to port")
+
+
+def check_samples(j_seq, lengths, n_sys: int, kernel: CudaKernel,
+                  label: str) -> tuple:
     """Validate the flat sample operands shared by K1, K2 and K5 (see
-    ``kernels.ref``) for ``n_sys`` systems and return (N, T, Nx, samples
-    per system, device)."""
+    ``kernels.ref``) for ``n_sys`` systems, Nx at most the kernel's node
+    cap, and return (N, T, Nx, samples per system, device)."""
     dev = j_seq.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel needs CUDA tensors, got {dev}")
@@ -176,9 +194,7 @@ def check_samples(j_seq, lengths, n_sys: int) -> tuple:
     if j_seq.ndim != 3:
         raise ValueError(f"j_seq must be (N, T, Nx), got {tuple(j_seq.shape)}")
     n, t_len, nx = j_seq.shape
-    if not (1 <= nx <= MAX_NODES):
-        raise ValueError(f"the CUDA kernels take 1 <= Nx <= {MAX_NODES} "
-                         f"(one warp per sample), got Nx={nx}")
+    check_nodes(kernel, label, nx)
     if n < 1 or t_len < 1:
         raise ValueError(f"empty j_seq {tuple(j_seq.shape)}")
     check_operand("lengths", lengths, torch.int32, dev, (n,))
@@ -187,12 +203,14 @@ def check_samples(j_seq, lengths, n_sys: int) -> tuple:
     return n, t_len, nx, n // n_sys, dev
 
 
-def check_sample_operands(j_seq, lengths, p, q) -> tuple:
-    """``check_samples`` plus the per-system gains p, q (S,) of K1 and K2."""
+def check_sample_operands(j_seq, lengths, p, q, kernel: CudaKernel,
+                          label: str) -> tuple:
+    """``check_samples`` plus the per-system gains p, q (S,) of K1, K2 and
+    K6."""
     if p.ndim != 1 or q.shape != p.shape:
         raise ValueError(f"p and q must be (S,), got {tuple(p.shape)} and "
                          f"{tuple(q.shape)}")
-    out = check_samples(j_seq, lengths, p.shape[0])
+    out = check_samples(j_seq, lengths, p.shape[0], kernel, label)
     for name, t in (("p", p), ("q", q)):
         check_operand(name, t, torch.float32, out[-1])
     return out

@@ -30,8 +30,6 @@ from repro_torch.kernels._build import (CudaKernel, c_function, check_operand,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-MAX_FACTOR = 4096  # csrc/cholupdate.cu: passes of 5 rows in shared memory
-
 KERNEL = CudaKernel(
     "cholupdate", "dfr_cholupdate_window_t",
     [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
@@ -44,6 +42,15 @@ def pass_rows(s: int, bf16: bool) -> int:
     bf16 factor takes at most that many rows (csrc/cholupdate.cu)."""
     fn, _ = c_function("cholupdate", "dfr_cholupdate_pass_rows", [_I, _I])
     return int(fn(int(s), int(bf16)))
+
+
+@functools.lru_cache(maxsize=None)
+def max_factor(bf16: bool = False) -> int:
+    """The largest factor s one launch takes: the largest whose pass of one
+    sample row fits in shared memory (csrc/cholupdate.cu's smem_bytes);
+    about 5,800, so Nx <= 75 at s = Nx^2 + Nx + 1."""
+    fn, _ = c_function("cholupdate", "dfr_cholupdate_max_factor", [_I])
+    return int(fn(int(bf16)))
 
 
 def cholupdate_window_t_cuda(Lt: Tensor, X: Tensor, sign: float,
@@ -61,14 +68,17 @@ def cholupdate_window_t_cuda(Lt: Tensor, X: Tensor, sign: float,
     if Lt.ndim != 3 or Lt.shape[1] != Lt.shape[2]:
         raise ValueError(f"Lt must be (K, s, s), got {tuple(Lt.shape)}")
     k, s, _ = Lt.shape
-    if not (1 <= s <= MAX_FACTOR) or k < 1:
-        raise ValueError(f"K3 takes K >= 1 factors of 1 <= s <= {MAX_FACTOR}"
-                         f", got {tuple(Lt.shape)}")
+    bf16 = Lt.dtype == torch.bfloat16
+    cap = max_factor(bf16)
+    if not (1 <= s <= cap) or k < 1:
+        raise ValueError(
+            f"K3 (cholupdate) takes K >= 1 factors of 1 <= s <= {cap} on the "
+            f"card (one sample row a pass in shared memory), got "
+            f"{tuple(Lt.shape)}; longer factors are ROADMAP Queue 2's item 2")
     if X.ndim != 3 or X.shape[0] != k or X.shape[2] != s:
         raise ValueError(f"X must be ({k}, W, {s}), got {tuple(X.shape)}")
     if sign not in (1.0, -1.0):
         raise ValueError(f"sign must be +1 or -1, got {sign!r}")
-    bf16 = Lt.dtype == torch.bfloat16
     check_operand("Lt", Lt, torch.bfloat16 if bf16 else torch.float32, dev)
     check_operand("X", X, torch.float32, dev)
     w = X.shape[1]

@@ -59,7 +59,8 @@
 // slower: its trailing update did W rotations a tick on partial rows in
 // shared memory.
 // Shared memory: about 4 s (rows + 9) bytes; passes of 8 rows up to
-// s = 3400, fewer above (5 at s = 4096).
+// s = 3400, fewer above (5 at s = 4096, 4 at s = 4161), and one row a pass
+// up to max_factor (about 5,800; dfr_cholupdate_max_factor).
 //
 // A bf16 factor folds in one pass (W at most the pass's rows): its rows
 // are read as bf16 (the diagonals into fp32 shared memory, the rest by the
@@ -455,6 +456,17 @@ int pass_rows(int s) {
   return rows;
 }
 
+// The largest s whose one-row pass fits in shared memory: K3's limit.
+template <typename T>
+int max_factor() {
+  int lo = 1, hi = 1 << 16;  // smem_bytes(lo, 1) fits, smem_bytes(hi, 1) not
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    (smem_bytes<T>(mid, 1) <= kMaxSmem ? lo : hi) = mid;
+  }
+  return lo;
+}
+
 template <typename T>
 int launch(T* Lt, const float* X, const float* scale, int* flags, int n_sys,
            int s, int w, float sign, cudaStream_t stream) {
@@ -478,6 +490,11 @@ int launch(T* Lt, const float* X, const float* scale, int* flags, int n_sys,
 // of W rows folds in one pass, which a bf16 factor needs).
 extern "C" int dfr_cholupdate_pass_rows(int s, int bf16) {
   return bf16 ? pass_rows<__nv_bfloat16>(s) : pass_rows<float>(s);
+}
+
+// The largest factor s one launch takes (fp32, or bf16 when bf16 != 0).
+extern "C" int dfr_cholupdate_max_factor(int bf16) {
+  return bf16 ? max_factor<__nv_bfloat16>() : max_factor<float>();
 }
 
 // Lt is float, or bf16 when bf16 != 0 (then w at most the pass's rows).

@@ -27,13 +27,22 @@
 // order.  No shuffles.  Lane n also sums x(k)_n, the ones column of
 // [x(k-1), 1], from one more load a step.  The tile leaves through shared
 // memory in r's layout, so the stores are contiguous.
+//
+// Above 32 nodes (dprr_wide_kernel) a sample takes one block of NPL^2
+// warps, NPL = ceil(Nx / 32): the block stages the live rows, padded to
+// 32 NPL floats, in the same 64-row ring, and warp t keeps the register
+// tile above of the padded output's 32 x 32 tile (t / NPL, t % NPL); the
+// diagonal tiles' warps sum the ones column.  r leaves through dynamic
+// shared memory over the ring.
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "npl.cuh"
 
 namespace {
 
-constexpr int kCols = 32;        // a padded row: Nx <= 32
+constexpr int kCols = 32;        // a padded row: Nx <= 32 (one warp)
+constexpr int kMaxNodes = 4 * kCols;  // NPL <= 4 (dprr_wide_kernel)
 constexpr int kWarps = 2;        // samples a block
 constexpr int kChunkRows = 16;   // rows a cp.async group
 constexpr int kRingRows = 64;    // four chunks: in use, before it, 2 ahead
@@ -82,16 +91,8 @@ dprr_kernel(const float* __restrict__ X, const int* __restrict__ lengths,
     for (int k = c * kChunkRows; k < k1; ++k) {
       const float* const xk = xs + (k & (kRingRows - 1)) * kCols;
       const float* const xp = xs + ((k - 1) & (kRingRows - 1)) * kCols;
-      const float4 a0 = *reinterpret_cast<const float4*>(xk + 8 * g);
-      const float4 a1 = *reinterpret_cast<const float4*>(xk + 8 * g + 4);
-      const float4 p4 = *reinterpret_cast<const float4*>(xp + 4 * h);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
       sum += xk[lane];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], p[v], acc[u][v]);
+      dfr::fold_tile(xk + 8 * g, xp + 4 * h, &acc);
     }
     __syncwarp();        // chunk c - 1's slot is free
     issue(c + kAhead + 1);
@@ -118,16 +119,120 @@ dprr_kernel(const float* __restrict__ X, const int* __restrict__ lengths,
   for (int i = lane; i < nr + nx; i += 32) rb[i] = out[i];
 }
 
+// Floats of dynamic shared memory a wide sample takes: the ring, and r
+// over it after the loop.
+constexpr int wide_smem_floats(int nx, int npl) {
+  return kRingRows * 32 * npl > nx * (nx + 1) ? kRingRows * 32 * npl
+                                              : nx * (nx + 1);
+}
+
+// Chunk c of a wide sample (rows 16c .. 16c + 15, below len) into its
+// ring slot, the block's threads copying consecutive words.  Every thread
+// commits a group, empty or not, so the threads' group counts stay equal.
+template <int kStride, int kThreads>
+__device__ __forceinline__ void issue_wide(float* xs,
+                                           const float* __restrict__ xb,
+                                           int c, int chunks, int len,
+                                           int nx) {
+  if (c < chunks) {
+    const int k0 = c * kChunkRows, k1 = min(k0 + kChunkRows, len);
+    const float* const src = xb + k0 * nx;
+    for (int e = threadIdx.x; e < (k1 - k0) * nx; e += kThreads) {
+      const int row = e / nx;
+      cp_async4(xs + ((k0 + row) & (kRingRows - 1)) * kStride + e - row * nx,
+                src + e);
+    }
+  }
+  cp_async_commit();
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(NPL * NPL * 32, 1)
+dprr_wide_kernel(const float* __restrict__ X,
+                 const int* __restrict__ lengths, int T, int nx,
+                 float* __restrict__ r) {
+  constexpr int kStride = 32 * NPL;
+  constexpr int kThreads = NPL * NPL * 32;
+  extern __shared__ __align__(16) float xs[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x;
+  const float* const xb = X + static_cast<size_t>(b) * T * nx;
+  const int len = min(max(lengths[b], 0), T);
+  const int chunks = (len + kChunkRows - 1) / kChunkRows;
+
+  for (int i = tid; i < kStride; i += kThreads)
+    xs[(kRingRows - 1) * kStride + i] = 0.0f;  // x(-1)
+
+  for (int c = 0; c <= kAhead; ++c)
+    issue_wide<kStride, kThreads>(xs, xb, c, chunks, len, nx);
+
+  const int g = lane >> 3, h = lane & 7;
+  const int tr = warp / NPL, tc = warp % NPL;
+  const int row0 = 32 * tr + 8 * g, col0 = 32 * tc + 4 * h;
+  float acc[8][4], sum = 0.0f;  // sum: of x(k)_(32 tr + lane), tr == tc
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kAhead>();  // chunk c has landed (this thread's copies)
+    __syncthreads();          // ... and every thread's
+    const int k1 = min((c + 1) * kChunkRows, len);
+#pragma unroll 4
+    for (int k = c * kChunkRows; k < k1; ++k) {
+      const float* const xk = xs + (k & (kRingRows - 1)) * kStride;
+      const float* const xp = xs + ((k - 1) & (kRingRows - 1)) * kStride;
+      sum += xk[32 * tr + lane];
+      dfr::fold_tile(xk + row0, xp + col0, &acc);
+    }
+    __syncthreads();          // chunk c - 1's slot is free
+    issue_wide<kStride, kThreads>(xs, xb, c + kAhead + 1, chunks, len, nx);
+  }
+  cp_async_wait_all();
+  __syncthreads();            // every warp is done with the ring
+
+  // the tiles into shared memory in r's layout, then contiguous stores
+  const int nr = nx * nx;
+  float* const out = xs;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int n = row0 + u;
+    if (n >= nx) continue;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int i = col0 + v;
+      if (i < nx) out[n * nx + i] = acc[u][v];
+    }
+  }
+  if (tr == tc && 32 * tr + lane < nx) out[nr + 32 * tr + lane] = sum;
+  __syncthreads();
+  float* const rb = r + static_cast<size_t>(b) * (nr + nx);
+  for (int i = tid; i < nr + nx; i += kThreads) rb[i] = out[i];
+}
+
 }  // namespace
+
+extern "C" int dfr_max_nodes() { return kMaxNodes; }
 
 extern "C" int dfr_dprr_features(const float* X, const int* lengths,
                                  int n_samples, int T, int nx, float* r,
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (nx < 1 || nx > kMaxNodes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const int npl = (nx + kCols - 1) / kCols;
+  if (npl > 1)
+    return static_cast<int>(dfr::for_npl(npl, [&](auto c) {
+      constexpr int NPL = decltype(c)::value;
+      return dfr::launch_smem(dprr_wide_kernel<NPL>, n_samples, NPL * NPL * 32,
+                              sizeof(float) * wide_smem_floats(nx, NPL),
+                              strm, X, lengths, T, nx, r);
+    }));
   const int blocks = (n_samples + kWarps - 1) / kWarps;
-  dprr_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, lengths, n_samples, T, nx, r);
+  dprr_kernel<<<blocks, kWarps * 32, 0, strm>>>(X, lengths, n_samples, T,
+                                                nx, r);
   return static_cast<int>(cudaGetLastError());
 }
 

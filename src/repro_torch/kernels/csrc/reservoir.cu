@@ -29,9 +29,13 @@
 // What holds it now: the step's chain (6 dependent shuffles), a few hundred
 // cycles at each chunk's boundary (the take of the next inputs and the
 // bulk store's fence), and, at 4 and 256 samples, the launch itself.
+// Above 32 nodes the same warp holds NPL = ceil(Nx / 32) contiguous nodes
+// a lane (reservoir_wide_kernel, dfr_step.cuh's scan_step_n), its chunks'
+// rows of Nx floats leaving by the same bulk copies.
 #include <cstdint>
 
 #include "dfr_step.cuh"
+#include "npl.cuh"
 #include "stage_rows.cuh"
 
 namespace {
@@ -80,7 +84,7 @@ reservoir_kernel(const float* __restrict__ j, const int* __restrict__ lengths,
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const bool node = lane < nx;
-  dfr::RowStage stage{smem, j + static_cast<size_t>(b) * T * nx, nx, 0};
+  dfr::RowStage<> stage{smem, j + static_cast<size_t>(b) * T * nx, nx, 0};
   stage.start_first(T);
   const int len = stage.len = min(max(lengths[b], 0), T);
   stage.start_rest();
@@ -130,6 +134,71 @@ reservoir_kernel(const float* __restrict__ j, const int* __restrict__ lengths,
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+template <int NPL>
+__global__ void __launch_bounds__(32)
+reservoir_wide_kernel(const float* __restrict__ j,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ p,
+                      const float* __restrict__ q, int T, int nx, int spp,
+                      int code, float alpha, float* __restrict__ X) {
+  // the input ring, then two buffers of a chunk's states
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const int n0 = threadIdx.x * NPL;
+  dfr::RowStage<dfr::kMaxNodes> stage{
+      smem, j + static_cast<size_t>(b) * T * nx, nx, 0};
+  stage.start_first(T);
+  const int len = stage.len = min(max(lengths[b], 0), T);
+  stage.start_rest();
+
+  const int sys = b / spp;
+  const float ps = p[sys];
+  dfr::RingScanN<NPL> scan;
+  dfr::make_scan_n<NPL>(q[sys], nx, scan);
+
+  const int slot = dfr::stage_slot_floats(nx);
+  float* const xb = X + static_cast<size_t>(b) * T * nx;
+  float x[NPL];
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) x[i] = 0.0f;
+  for (int c = 0, k0 = 0; k0 < len; ++c, k0 += dfr::kStageChunk) {
+    float* const dst = xb + k0 * nx;
+    const int ph = static_cast<int>(reinterpret_cast<uintptr_t>(dst) >> 2) & 3;
+    float* const buf = smem + (dfr::kStageSlots + (c & 1)) * slot;
+    if (c >= 2) {  // the bulk copy out of this buffer two chunks ago
+      if (threadIdx.x == 0)
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      __syncwarp();
+    }
+    const int steps = min(dfr::kStageChunk, len - k0);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float jr[dfr::kStageChunk / 2][NPL];
+      stage.take_half<NPL>(c, half, jr);
+#pragma unroll
+      for (int u = 0; u < dfr::kStageChunk / 2; ++u) {
+        const int k = half * (dfr::kStageChunk / 2) + u;
+        if (k >= steps) break;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          jr[u][i] = dfr::scan_input(jr[u][i], ps, code, alpha);
+        dfr::scan_step_n<NPL>(scan, jr[u], x, ps, code, alpha);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (n0 + i < nx) buf[ph + k * nx + n0 + i] = x[i];
+      }
+    }
+    store_chunk(dst, buf, ph, steps * nx);
+  }
+#pragma unroll
+  for (int i = 0; i < NPL; ++i)
+    if (n0 + i < nx)
+      for (int k = len; k < T; ++k) xb[k * nx + n0 + i] = x[i];  // frozen
+  cp_async_wait_all();  // a copy past a short length must land before exit
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 }  // namespace
 
 extern "C" int dfr_reservoir_states(const float* j, const int* lengths,
@@ -139,13 +208,21 @@ extern "C" int dfr_reservoir_states(const float* j, const int* lengths,
                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (nx < 1 || nx > dfr::kMaxNodes)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (dfr::kStageSlots + 2) * dfr::stage_slot_floats(nx);
-  reservoir_kernel<<<n_samples, 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      j, lengths, p, q, T, nx, spp, code, alpha, X);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const int npl = (nx + 31) / 32;
+  auto kernel = npl == 1 ? reservoir_kernel : dfr::for_npl(npl, [](auto c) {
+    return reservoir_wide_kernel<decltype(c)::value>;
+  });
+  kernel<<<n_samples, 32, smem, strm>>>(j, lengths, p, q, T, nx, spp, code,
+                                        alpha, X);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int dfr_max_nodes() { return dfr::kMaxNodes; }
 
 extern "C" const char* dfr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

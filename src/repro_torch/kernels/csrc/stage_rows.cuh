@@ -2,7 +2,8 @@
 // (K1 and K2 through dfr_sample.cuh, K5 in streaming_q8.cu, K6 in
 // reservoir.cu).
 //
-// A sample's live rows j(0), ..., j(len-1), Nx floats each and contiguous
+// A sample's live rows j(0), ..., j(len-1), Nx <= kNodes floats each (the
+// template argument: kWarpNodes, or kMaxNodes for NPL > 1) and contiguous
 // in device memory, stream through a ring of kStageSlots chunks of
 // kStageChunk rows by cp.async, and no row past the length is read.  A
 // chunk's words keep their 16-byte phase in shared memory, so the lanes copy
@@ -54,6 +55,7 @@ __device__ __forceinline__ void cp_async16_if(bool on, float* dst,
       "l"(src), "r"(static_cast<int>(on)));
 }
 
+template <int kNodes = kWarpNodes>
 struct RowStage {
   float* ring;        // kStageSlots * stage_slot_floats(nx) floats, 16-byte
                       // aligned, of shared memory
@@ -85,7 +87,7 @@ struct RowStage {
     const int tail = words - head - 4 * quads;
     cp_async4_if(lane < head, d0 + lane, s0 + lane);
 #pragma unroll
-    for (int i = 0; i < kStageChunk * kMaxNodes / 128; ++i) {
+    for (int i = 0; i < kStageChunk * kNodes / 128; ++i) {
       const int v = lane + 32 * i;
       cp_async16_if(v < quads, d0 + head + 4 * v, s0 + head + 4 * v);
     }
@@ -123,6 +125,35 @@ struct RowStage {
     }
     __syncwarp();                      // every lane has read the slot
     issue(c + kStageSlots, len);
+  }
+
+  // take() for NPL nodes a lane (lane l's nodes l NPL + i), in two halves
+  // of a chunk so that a half's rows take 8 NPL registers: half 0 waits
+  // for chunk c and loads rows 0-7, half 1 loads rows 8-15 and issues
+  // chunk c + kStageSlots into the freed slot.  Nodes n >= nx read up to
+  // 31 words past the row, as in take().
+  template <int NPL>
+  __device__ __forceinline__ void take_half(int c, int half,
+                                            float (&jr)[kStageChunk / 2]
+                                                       [NPL]) const {
+    if (half == 0) {
+      cp_async_wait<kStageSlots - 1>();
+      __syncwarp();
+    }
+    const int n0 = (threadIdx.x & 31) * NPL;
+    const float* const rows = slot(c) + half * (kStageChunk / 2) * nx;
+    const int k0 = c * kStageChunk + half * (kStageChunk / 2);
+#pragma unroll
+    for (int u = 0; u < kStageChunk / 2; ++u)
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const float v = rows[u * nx + n0 + i];
+        jr[u][i] = (n0 + i < nx && k0 + u < len) ? v : 0.0f;
+      }
+    if (half == 1) {
+      __syncwarp();
+      issue(c + kStageSlots, len);
+    }
   }
 };
 

@@ -62,6 +62,7 @@
 
 namespace {
 
+constexpr int kNodes = 32;                // one node a lane: Nx <= 32
 constexpr int kPeriod = 128;              // steps of codes a product takes
 constexpr int kCodeStride = kPeriod + 4;  // bytes a node's row: 33 words,
                                           // so a step's 32 byte stores hit
@@ -70,10 +71,10 @@ constexpr int kAccStride = kCodeStride / 4;  // the int32 (32, 33) staging
 
 struct Shared {
   alignas(16) float ring[dfr::kStageSlots * dfr::stage_slot_floats(
-      dfr::kMaxNodes)];
-  alignas(16) signed char arow[2][dfr::kMaxNodes];       // activation codes
-  alignas(16) signed char x1[dfr::kMaxNodes * kCodeStride];  // xq(k)
-  alignas(16) signed char x0[dfr::kMaxNodes * kCodeStride];  // xq(k-1)
+      kNodes)];
+  alignas(16) signed char arow[2][kNodes];       // activation codes
+  alignas(16) signed char x1[kNodes * kCodeStride];  // xq(k)
+  alignas(16) signed char x0[kNodes * kCodeStride];  // xq(k-1)
 };
 
 // f in the plain version's operation order (repro_torch.core.types), its
@@ -169,7 +170,7 @@ __device__ __forceinline__ int* acc_rows(Shared& sh) {
 
 // r, dequantized, in its (Nx (Nx + 1),) layout in x0's bytes; kRDummy is
 // past r whenever Nx < 32.
-constexpr int kRDummy = dfr::kMaxNodes * kAccStride - 1;
+constexpr int kRDummy = kNodes * kAccStride - 1;
 __device__ __forceinline__ float* r_flat(Shared& sh) {
   return reinterpret_cast<float*>(sh.x0);
 }
@@ -177,7 +178,7 @@ __device__ __forceinline__ float* r_flat(Shared& sh) {
 struct SampleArgs {
   int nx;
   float alpha, p, sx, rsx, mix_scale, qp;
-  unsigned lq[dfr::kMaxNodes / 4];  // row `lane` of the ring codes, packed
+  unsigned lq[kNodes / 4];  // row `lane` of the ring codes, packed
 };
 
 // One run of the sample's time loop over the inputs that `stage` has
@@ -186,9 +187,8 @@ struct SampleArgs {
 // returns whether any divide had an operand outside the fast path's range
 // (never with kExact).
 template <bool kExact, int kCode>
-__device__ __forceinline__ bool run_sample(Shared& sh,
-                                           const dfr::RowStage& stage,
-                                           const SampleArgs& s) {
+__device__ __forceinline__ bool run_sample(
+    Shared& sh, const dfr::RowStage<kNodes>& stage, const SampleArgs& s) {
   const int lane = threadIdx.x & 31;
   const int nx = s.nx, len = stage.len;
   int acc[2][4][4];
@@ -279,7 +279,7 @@ __device__ __forceinline__ bool run_sample(Shared& sh,
         rf[n < nx && i < nx ? n * nx + i : kRDummy] =
             __fmul_rn(static_cast<float>(acc[mt][nt][e]), sxx);
       }
-  rows[lane * kAccStride + dfr::kMaxNodes] = acc_sum;
+  rows[lane * kAccStride + kNodes] = acc_sum;
   rf[lane < nx ? nx * nx + lane : kRDummy] =
       __fmul_rn(static_cast<float>(acc_sum), s.sx);
   __syncwarp();
@@ -305,7 +305,8 @@ streaming_q8_kernel(const float* __restrict__ j,
 
   const int nr = nx * (nx + 1);
   const signed char* const w_sys = Wq + static_cast<size_t>(sys) * ny * nr;
-  dfr::RowStage stage{sh.ring, j + static_cast<size_t>(b) * T * nx, nx, 0};
+  dfr::RowStage<kNodes> stage{sh.ring, j + static_cast<size_t>(b) * T * nx,
+                              nx, 0};
   stage.start_first(T);  // the copies overlap the set-up below
   stage.len = min(max(lengths[b], 0), T);
   stage.start_rest();
@@ -324,7 +325,7 @@ streaming_q8_kernel(const float* __restrict__ j,
   s.qp = node ? qpow[sys * nx + lane] : 0.0f;
   const signed char* lq = Lq + (static_cast<size_t>(sys) * nx + lane) * nx;
 #pragma unroll
-  for (int w = 0; w < dfr::kMaxNodes / 4; ++w) {
+  for (int w = 0; w < kNodes / 4; ++w) {
     unsigned word = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -356,7 +357,7 @@ streaming_q8_kernel(const float* __restrict__ j,
     int* const dst = acc_out + static_cast<size_t>(b) * nx * (nx + 1);
     for (int e = lane; e < nx * (nx + 1); e += 32) {
       const int n = e / (nx + 1), i = e - n * (nx + 1);
-      dst[e] = rows[n * kAccStride + (i < nx ? i : dfr::kMaxNodes)];
+      dst[e] = rows[n * kAccStride + (i < nx ? i : kNodes)];
     }
   }
 
@@ -365,7 +366,7 @@ streaming_q8_kernel(const float* __restrict__ j,
   // coalesced; the codes of the next kAhead classes are in flight while a
   // class is summed, and the lanes' sums of up to 32 classes meet in shared
   // memory, where lane yc adds up class yc's.
-  constexpr int kTerms = (dfr::kMaxNodes * (dfr::kMaxNodes + 1) + 31) / 32;
+  constexpr int kTerms = (kNodes * (kNodes + 1) + 31) / 32;
   constexpr int kAhead = 3;
   const float* const rf = r_flat(sh);
   float rv[kTerms];
@@ -436,6 +437,8 @@ extern "C" int dfr_streaming_logits_q8(const float* j, const int* lengths,
       acc_out);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int dfr_max_nodes() { return kNodes; }
 
 extern "C" const char* dfr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

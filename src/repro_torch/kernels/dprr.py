@@ -2,8 +2,9 @@
 
 The port of ``repro.kernels.dprr._dprr_kernel``.  The kernel
 (``csrc/dprr.cu``) runs one warp per sample over its stored states X
-(N, T, Nx): the sample's live rows stream through a ring in shared memory,
-each lane sums an 8 x 4 tile of the outer products in registers, and r
+(N, T, Nx) up to Nx = 32, and a block of ceil(Nx / 32)^2 warps above: the
+sample's live rows stream through a ring in shared memory, each lane sums
+an 8 x 4 tile of the outer products in registers, and r
 (N, Nx*(Nx+1)) gets the outer products row-major, then the sums.  The
 x(k) side is masked by the sample's length.  Its plain
 version is ``kernels.ref.dprr_ref``; ``kernels.ops.dprr_features`` chooses
@@ -16,8 +17,8 @@ import ctypes
 import torch
 
 from repro_torch.core.types import Tensor
-from repro_torch.kernels._build import (MAX_NODES, CudaKernel, check_operand,
-                                        stream_handle)
+from repro_torch.kernels._build import (CudaKernel, check_nodes,
+                                        check_operand, stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -37,9 +38,7 @@ def dprr_features_cuda(x: Tensor, lengths: Tensor) -> Tensor:
     if x.ndim != 3:
         raise ValueError(f"x must be (N, T, Nx), got {tuple(x.shape)}")
     n, t_len, nx = x.shape
-    if not (1 <= nx <= MAX_NODES):
-        raise ValueError(f"the CUDA kernels take 1 <= Nx <= {MAX_NODES} "
-                         f"(one warp per sample), got Nx={nx}")
+    check_nodes(KERNEL, "K7 (dprr)", nx)
     if n < 1 or t_len < 1:
         raise ValueError(f"empty x {tuple(x.shape)}")
     check_operand("lengths", lengths, torch.int32, dev, (n,))

@@ -34,7 +34,8 @@ def reservoir_states_cuda(
 ) -> Tensor:
     """Launch K6 once over all N samples (operand contract in
     ``kernels.ref``).  Returns X (N, T, Nx)."""
-    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q)
+    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q,
+                                                    KERNEL, "K6 (reservoir)")
     X = torch.empty((n, t_len, nx), dtype=torch.float32, device=dev)
     KERNEL.launch(
         j_seq.data_ptr(), lengths.data_ptr(), p.data_ptr(), q.data_ptr(),

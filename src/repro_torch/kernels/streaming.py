@@ -37,7 +37,8 @@ def streaming_logits_cuda(
 ) -> Tensor:
     """Launch K2 once over all N samples (operand contract in
     ``kernels.ref``): logits (N, Ny) = r . W[system]^T + b[system]."""
-    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q)
+    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q,
+                                                    KERNEL, "K2 (streaming)")
     n_sys = p.shape[0]
     if W.ndim != 3 or W.shape[0] != n_sys or W.shape[2] != nx * (nx + 1):
         raise ValueError(f"W must be ({n_sys}, Ny, {nx * (nx + 1)}), got "

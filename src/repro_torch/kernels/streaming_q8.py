@@ -43,7 +43,8 @@ def streaming_logits_q8_cuda(
     ``kernels.ref``): logits (N, Ny), bias included.  With ``acc`` (N, Nx,
     Nx+1) int32 the kernel also writes its DPRR code accumulators there."""
     n_sys = Lq.shape[0]
-    n, t_len, nx, spp, dev = check_samples(j_seq, lengths, n_sys)
+    n, t_len, nx, spp, dev = check_samples(j_seq, lengths, n_sys, KERNEL,
+                                           "K5 (streaming_q8)")
     nr = nx * (nx + 1)
     ny = Wq.shape[1] if Wq.ndim == 3 else -1
     for name, t, dtype, shape in (

@@ -36,7 +36,8 @@ def train_forward_cuda(
     """Launch K1 once over all N samples (operand contract in
     ``kernels.ref``).  Returns r (N, Nx*(Nx+1)) and x_last, x_prev, j_last
     (N, Nx)."""
-    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q)
+    n, t_len, nx, spp, dev = check_sample_operands(j_seq, lengths, p, q,
+                                                    KERNEL, "K1 (train)")
     r = torch.empty((n, nx * (nx + 1)), dtype=torch.float32, device=dev)
     x_last, x_prev, j_last = (
         torch.empty((n, nx), dtype=torch.float32, device=dev)

@@ -7,7 +7,8 @@ dependent steps, so their least time is the longest live length times the
 cycles of one step's dependent chain.  This script measures those cycles on
 the card: one warp runs a long dependent loop of each operation (and of
 the whole step that K1, K2 and K6 share, ``scan_step`` in
-``kernels/csrc/dfr_step.cuh``), timed with ``clock64`` at two loop lengths
+``kernels/csrc/dfr_step.cuh`` up to 32 nodes and ``scan_step_n`` at NPL =
+2, 3 and 4 nodes a lane above), timed with ``clock64`` at two loop lengths
 so that the loop's set-up cancels.  It prints one JSON object: cycles per
 dependent operation (``op_cycles``) and per whole step (``step_cycles``),
 beside the card's name and power limit.
@@ -37,6 +38,15 @@ __global__ void chain_kernel(int which, int n, long long* out, float* sink) {
   int xi = lane + 1;
   dfr::RingScan scan;
   dfr::make_scan(0.3f, scan);
+  dfr::RingScanN<2> scan2;
+  dfr::make_scan_n<2>(0.3f, 64, scan2);
+  dfr::RingScanN<3> scan3;
+  dfr::make_scan_n<3>(0.3f, 96, scan3);
+  dfr::RingScanN<4> scan4;
+  dfr::make_scan_n<4>(0.3f, 128, scan4);
+  float x2[2] = {x, x}, x3[3] = {x, x, x}, x4[4] = {x, x, x, x};
+  const float j2[2] = {0.01f, 0.01f}, j3[3] = {0.01f, 0.01f, 0.01f};
+  const float j4[4] = {0.01f, 0.01f, 0.01f, 0.01f};
   __syncwarp();
   const long long t0 = clock64();
   switch (which) {
@@ -74,6 +84,24 @@ __global__ void chain_kernel(int which, int n, long long* out, float* sink) {
       for (int i = 0; i < n; ++i)
         x = dfr::scan_step(scan, 0.01f, x, 30, 0.2f, 0, 1.0f);
       break;
+    case 7:  // the step at 2 nodes a lane (Nx 33-64, linear f)
+#pragma unroll 8
+      for (int i = 0; i < n; ++i)
+        dfr::scan_step_n<2>(scan2, j2, x2, 0.2f, 0, 1.0f);
+      x = x2[0] + x2[1];
+      break;
+    case 8:  // 3 nodes a lane (Nx 65-96)
+#pragma unroll 8
+      for (int i = 0; i < n; ++i)
+        dfr::scan_step_n<3>(scan3, j3, x3, 0.2f, 0, 1.0f);
+      x = x3[0] + x3[2];
+      break;
+    case 9:  // 4 nodes a lane (Nx 97-128)
+#pragma unroll 8
+      for (int i = 0; i < n; ++i)
+        dfr::scan_step_n<4>(scan4, j4, x4, 0.2f, 0, 1.0f);
+      x = x4[0] + x4[3];
+      break;
   }
   const long long t1 = clock64();
   if (lane == 0) out[which] = t1 - t0;
@@ -88,7 +116,8 @@ extern "C" int chain_probe(int which, int n, long long* out, float* sink) {
 """
 OPS = ("fp32 FMA", "fp32 min/max", "IDP4A", "SHFL.UP", "SHFL.IDX",
        "shared store, __syncwarp, load")
-STEPS = ("K1/K2/K6 scan_step",)
+STEPS = ("K1/K2/K6 scan_step", "scan_step_n NPL=2", "scan_step_n NPL=3",
+         "scan_step_n NPL=4")
 REPS = (1024, 2048)
 
 

@@ -90,11 +90,16 @@ def tree_map(fn: Callable[..., Any], tree, *rest,
         for k, c in kids])
 
 
+def _device(params):
+    """The device of the parameters' plain tensors (a DTensor's mesh
+    device type)."""
+    p = tree_leaves(params)[0]
+    return p.device_mesh.device_type if isinstance(p, DTensor) else p.device
+
+
 def _count(params) -> Tensor:
     """The int32 step count, a plain scalar on the parameters' device."""
-    p = tree_leaves(params)[0]
-    dev = p.device_mesh.device_type if isinstance(p, DTensor) else p.device
-    return torch.zeros((), dtype=torch.int32, device=dev)
+    return torch.zeros((), dtype=torch.int32, device=_device(params))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +113,6 @@ def _f32_zeros(p: Tensor) -> Tensor:
     """f32 zeros shaped (and, for a DTensor, placed) like ``p``."""
     return torch.zeros_like(p, dtype=torch.float32,
                             memory_format=torch.contiguous_format)
-
-
-def _zeros_along(p: Tensor, shape) -> Tensor:
-    """f32 zeros of a plain global shape on ``p``'s device (a factored
-    state leaf; a sharded optimizer state places them afterwards,
-    ``launch.steps.place_opt_state``)."""
-    dev = p.device_mesh.device_type if isinstance(p, DTensor) else p.device
-    return torch.zeros(shape, dtype=torch.float32, device=dev)
 
 
 def _square_sum(g: Tensor) -> Tensor:
@@ -209,24 +206,48 @@ class FactorState(NamedTuple):
     count: Tensor
 
 
+def _stack_shape(*layers: Tensor) -> Tensor:
+    """A layer list's stacked leaf as a meta tensor: its shape alone."""
+    return torch.empty((len(layers),) + tuple(layers[0].shape),
+                       device="meta")
+
+
 def adafactor(eps: float = 1e-30, decay: float = 0.8,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern 2018, the
     reference's simplified form): for >= 2-D parameters, row and column
     mean-square accumulators over the last two axes; below, a full one.
-    No first moment; relative update clipping at ``clip_threshold``."""
+    No first moment; relative update clipping at ``clip_threshold``.
+
+    The reference stacks each list of layers into one leaf, and so does
+    this optimizer: its state is in the reference's layout
+    (``convert.to_reference_layout``; a layer list is a dict of stacked
+    leaves), and each stacked leaf updates as one tensor.  A layer
+    vector (d,) stacks to (L, d) and is factored into rows (L,) and
+    columns (d,), and the clip's RMS is taken over the whole stack.
+    Neither the gradients nor the parameters are stacked: the stack's
+    statistics are sums over its layers (``upd_stack``)."""
 
     def init(params):
-        def rows(p):
-            return _f32_zeros(p) if p.ndim < 2 else _zeros_along(
-                p, p.shape[:-1])
+        from repro_torch.convert import to_reference_layout
+
+        dev = _device(params)
+
+        def zeros(shape):
+            # a factored leaf: plain zeros (a sharded optimizer state
+            # places them afterwards, ``launch.steps.place_opt_state``)
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def rows(p):  # p: a leaf, or a meta tensor of a stacked leaf
+            if p.ndim < 2:
+                return zeros(p.shape) if p.is_meta else _f32_zeros(p)
+            return zeros(p.shape[:-1])
 
         def cols(p):
-            return _zeros_along(p, (1,) if p.ndim < 2 else
-                                p.shape[:-2] + p.shape[-1:])
+            return zeros((1,) if p.ndim < 2 else p.shape[:-2] + p.shape[-1:])
 
-        return FactorState(row=tree_map(rows, params),
-                           col=tree_map(cols, params),
+        ref = to_reference_layout(params, stack=_stack_shape)
+        return FactorState(row=tree_map(rows, ref), col=tree_map(cols, ref),
                            count=_count(params))
 
     @_replicated
@@ -234,35 +255,105 @@ def adafactor(eps: float = 1e-30, decay: float = 0.8,
         c = state.count + 1
         beta = 1.0 - c.to(torch.float32) ** -decay
 
+        def factors(r2, c2):
+            return (torch.rsqrt(r2 / torch.clamp(r2.mean(-1, keepdim=True),
+                                                 min=eps) + eps),
+                    torch.rsqrt(c2 + eps))
+
+        def clip(mean_sq):
+            # relative update clipping: the divisor of u
+            rms_u = torch.sqrt(mean_sq + eps)
+            return torch.clamp(rms_u / clip_threshold, min=1.0)
+
+        def step(p, u):
+            return (p.to(torch.float32) - lr * u).to(p.dtype)
+
         def upd_one(p, g, r, cl):
             gf = g.to(torch.float32)
             g2 = torch.square(gf) + eps
-            if p.ndim < 2:
+            if g.ndim < 2:
                 r2 = beta * r + (1 - beta) * g2
                 u = gf * torch.rsqrt(r2 + eps)
                 new_r, new_c = r2, cl
             else:
-                r2 = beta * r + (1 - beta) * g2.mean(-1)
-                c2 = beta * cl + (1 - beta) * g2.mean(-2)
-                r_factor = torch.rsqrt(
-                    r2 / torch.clamp(r2.mean(-1, keepdim=True), min=eps)
-                    + eps)
-                c_factor = torch.rsqrt(c2 + eps)
+                new_r = beta * r + (1 - beta) * g2.mean(-1)
+                new_c = beta * cl + (1 - beta) * g2.mean(-2)
+                r_factor, c_factor = factors(new_r, new_c)
                 u = gf * r_factor[..., None] * c_factor[..., None, :]
-                new_r, new_c = r2, c2
-            # relative update clipping
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps)
-            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
-            return (p.to(torch.float32) - lr * u).to(p.dtype), new_r, new_c
+            u = u / clip(torch.mean(torch.square(u)))
+            return step(p, u), new_r, new_c
 
-        out = tree_map(lambda *a: upd_one(*a), params, grads, state.row,
-                       state.col)
-        first = tree_map(lambda p, o: o[0], params, out)
-        return first, FactorState(row=tree_map(lambda p, o: o[1], params, out),
-                                  col=tree_map(lambda p, o: o[2], params, out),
-                                  count=c)
+        def upd_stack(ps, gs, r, cl):
+            # the stacked leaf (L, *q) of layer leaves q (ndim >= 1), from
+            # per-layer reductions: rows over the last axis; columns over
+            # axis -2, which for a layer vector is the layers' own
+            def g2(g):
+                return torch.square(g.to(torch.float32)) + eps
+
+            if gs[0].ndim == 1:
+                row_mean = torch.stack([g2(g).mean() for g in gs])
+                col_mean = sum(g2(g) for g in gs) / len(gs)
+            else:
+                row_mean = torch.stack([g2(g).mean(-1) for g in gs])
+                col_mean = torch.stack([g2(g).mean(-2) for g in gs])
+            new_r = beta * r + (1 - beta) * row_mean
+            new_c = beta * cl + (1 - beta) * col_mean
+            r_factor, c_factor = factors(new_r, new_c)
+
+            def u(i):
+                gf = gs[i].to(torch.float32)
+                if gf.ndim == 1:
+                    return gf * r_factor[i] * c_factor
+                return gf * r_factor[i][..., None] * c_factor[i][..., None, :]
+
+            # u twice a layer (once for the clip's sum, once for the step)
+            # rather than a stacked u alive at once
+            div = clip(sum(torch.sum(torch.square(u(i)))
+                           for i in range(len(gs)))
+                       / (len(gs) * gs[0].numel()))
+            return ([step(p, u(i) / div) for i, p in enumerate(ps)], new_r,
+                    new_c)
+
+        def upd(p, g, r, cl):
+            if isinstance(g, _Layers):
+                return upd_stack(p, g, r, cl)
+            return upd_one(p, g, r, cl)
+
+        from repro_torch.convert import (from_reference_layout,
+                                         to_reference_layout)
+
+        def ref(tree):
+            return to_reference_layout(tree, stack=_Layers.of,
+                                       is_leaf=_Layers.is_one)
+
+        ref_p = ref(tree_map(torch.Tensor.detach, params))
+        out = tree_map(upd, ref_p, ref(grads), state.row, state.col,
+                       is_leaf=_Layers.is_one)
+
+        def part(k):
+            return tree_map(lambda p, o: _Layers(o[0]) if k == 0 and
+                            isinstance(p, _Layers) else o[k], ref_p, out,
+                            is_leaf=_Layers.is_one)
+
+        # each layer's new leaves, in the params' layout
+        new = from_reference_layout(tree_map(torch.Tensor.detach, params),
+                                    part(0), is_leaf=_Layers.is_one)
+        return new, FactorState(row=part(1), col=part(2), count=c)
 
     return Optimizer(init, update)
+
+
+class _Layers(tuple):
+    """A layer list's leaves at one position, unstacked: what the
+    reference's stacked leaf holds, one tensor a layer."""
+
+    @classmethod
+    def of(cls, *leaves):
+        return cls(leaves)
+
+    @staticmethod
+    def is_one(node) -> bool:
+        return isinstance(node, _Layers)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

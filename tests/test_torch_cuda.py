@@ -113,11 +113,16 @@ def _operands(dev, n_sys, b, t, nx, ny, seed):
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
+# Nx up to 32: one node a lane (K1, K2, K5); WIDE_SHAPES, K1 and K2 at
+# 33-128: a block of 5, 10 or 9 warps a sample, NPL = 2, 2, 2, 4 and 4
+# nodes a lane
 SHAPES = [(1, 3, 7, 1, 2), (3, 4, 20, 5, 3), (2, 8, 93, 30, 10),
           (4, 2, 33, 32, 4)]
+WIDE_SHAPES = [(2, 3, 40, 33, 3), (1, 4, 20, 48, 5), (2, 4, 93, 64, 10),
+               (1, 3, 35, 100, 4), (2, 2, 17, 128, 3)]
 
 
-@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("f_name", ["linear", "tanh", "mackey_glass"])
 def test_k1_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
     j, lens, p, q, _, _ = _operands(dev, n_sys, b, t, nx, ny, seed=nx + t)
@@ -129,7 +134,7 @@ def test_k1_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
         torch.testing.assert_close(g, w, msg=name, **TOL)
 
 
-@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("f_name", ["linear", "tanh", "mackey_glass"])
 def test_k2_kernel_matches_plain(dev, n_sys, b, t, nx, ny, f_name):
     j, lens, p, q, W, bias = _operands(dev, n_sys, b, t, nx, ny, seed=t)
@@ -153,9 +158,21 @@ def test_launch_counts_and_default_dispatch(dev):
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
-    j, lens, p, q, W, bias = _operands(dev, 1, 2, 5, 33, 2, seed=1)
-    with pytest.raises(ValueError, match="Nx"):
-        ops.train_forward(j, lens, p, q, 33)
+    j, lens, p, q, W, bias = _operands(dev, 1, 2, 5, 129, 2, seed=1)
+    for name, call in (
+            ("K1", lambda: ops.train_forward(j, lens, p, q, 129)),
+            ("K2", lambda: ops.streaming_logits_slots(j, lens, p, q, W, bias,
+                                                      129)),
+            ("K6", lambda: ops.reservoir_states(j[0], lens[0], p[0], q[0],
+                                                129))):
+        with pytest.raises(ValueError, match=f"{name} .*Nx <= 128"):
+            call()
+    # K5 keeps one node a lane: Nx = 33 raises, and nothing falls back
+    k5 = k_streaming_q8.KERNEL.launches
+    with pytest.raises(ValueError, match="K5 .*Nx <= 32"):
+        ops.streaming_logits_slots_q8(*_q8_operands(dev, 1, 2, 5, 33, 2,
+                                                    seed=1), 33)
+    assert k_streaming_q8.KERNEL.launches == k5
     j, lens, p, q, W, bias = _operands(dev, 1, 2, 5, 4, 2, seed=1)
     with pytest.raises(ValueError, match="device|on"):
         k_train.train_forward_cuda(j[0], lens[0], p.cpu(), q)
@@ -240,13 +257,18 @@ def _assert_factor_close(got, want):
 
 
 # W of 1, 4, 9 and 17 (one pass of up to 8 rows, or several); s from 1 to
-# 4096, where shared memory takes passes of 5 rows
+# 4096, where shared memory takes passes of 5 rows, 4161 (Nx = 64: passes
+# of 4 rows) and K3's limit, one row a pass ("max": k_cholupdate.max_factor)
 @pytest.mark.parametrize("k,w,s", [(1, 1, 5), (3, 4, 73), (2, 11, 200),
                                    (4, 4, 931), (2, 1, 1), (2, 9, 2),
                                    (3, 17, 31), (2, 4, 33), (1, 9, 931),
-                                   (1, 4, 2048), (1, 9, 4096)])
+                                   (1, 4, 2048), (1, 9, 4096), (2, 4, 4161),
+                                   (1, 2, "max")])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
 def test_k3_kernel_matches_plain(dev, k, w, s, sign):
+    if s == "max":
+        s = k_cholupdate.max_factor()
+        assert 4161 < s < 76 * 77 + 1   # Nx = 64 takes it, Nx = 76 not
     Lt, X = _k3_operands(dev, k, w, s, seed=s + w)
     X[:, 0] = 0.0                                  # a zero row: a no-op
     if sign < 0:
@@ -338,10 +360,11 @@ def test_k5_k3_launch_counts_and_rejections(dev):
     ops.cholupdate_window_t(Lt, X, backend="torch")      # the plain version
     assert k_streaming_q8.KERNEL.launches == k5 + 1
     assert k_cholupdate.KERNEL.launches == k3 + 1
-    with pytest.raises(ValueError, match="s <="):
+    over = k_cholupdate.max_factor() + 1
+    with pytest.raises(ValueError, match="K3 .*s <="):
         k_cholupdate.cholupdate_window_t_cuda(
-            torch.zeros(1, 4097, 4097, device=dev),
-            torch.zeros(1, 1, 4097, device=dev), 1.0)
+            torch.zeros(1, over, over, device=dev),
+            torch.zeros(1, 1, over, device=dev), 1.0)
     with pytest.raises(TypeError):
         k_cholupdate.cholupdate_window_t_cuda(Lt, X.double(), 1.0)
 
@@ -644,7 +667,7 @@ def test_failed_capture_raises(dev, monkeypatch):
 
 
 # B = 4 is fit_sgd's minibatch and 6600 ARAB's training split (T = 93)
-@pytest.mark.parametrize("nx", [1, 8, 17, 30, 32])
+@pytest.mark.parametrize("nx", [1, 8, 17, 30, 32, 33, 48, 64, 100, 128])
 @pytest.mark.parametrize("b", [1, 4, 7, 37, 6600])
 @pytest.mark.parametrize("f_name", ["linear", "tanh"])
 def test_k6_k7_kernels_match_plain(dev, nx, b, f_name):
@@ -672,14 +695,15 @@ def test_k6_k7_kernels_match_plain(dev, nx, b, f_name):
     torch.testing.assert_close(r, r_plain, **TOL)
 
 
-# K6 at one warp a block: lone samples and the grid's edges around the 132
+# K6 at one warp a block (one node a lane up to 32, NPL above): lone
+# samples and the grid's edges around the 132
 # SMs, one system or several, and lengths 0, 1, T - 1 and T.  The gains are
 # drawn where the reservoir is stable (p alpha / (1 - |q|) < 1, the echo
 # state the model trains in): past it the states grow like the gain to the
 # power of the step, and so do the rounding differences of any two fp32
 # orders of the sums, the plain version's own distance to a float64 run
 # among them.
-@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("nx", [1, 7, 30, 32, 33, 48, 64, 100, 128])
 @pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
 def test_k6_sample_counts_systems_and_lengths(dev, nx, n):
     t = 93
@@ -708,7 +732,8 @@ def test_k6_sample_counts_systems_and_lengths(dev, nx, n):
             assert bool((got[lens == 0] == 0).all())
 
 
-# K1 and K2 at one warp a block: lone samples and the grid's edges around
+# K1 and K2 at one warp a block up to 32 nodes and a block of 5-10
+# warps above: lone samples and the grid's edges around
 # the 132 SMs, one system or several, T from 1 to 257 (several turns of the
 # state ring), lengths around the chunks of 16 steps (0, 1, 2, 15, 16, 17,
 # 31, 32, 33, T - 1 and T, as far as n and T allow; the first is T), all
@@ -740,7 +765,7 @@ def _edge_cases(dev, nx, n):
                    *(torch.from_numpy(a).to(dev) for a in arrays))
 
 
-@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("nx", [1, 7, 30, 32, 33, 48, 64, 100, 128])
 @pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
 def test_k1_sample_counts_systems_and_lengths(dev, nx, n):
     for t, _, j, lens, p, q, _, _ in _edge_cases(dev, nx, n):
@@ -756,7 +781,7 @@ def test_k1_sample_counts_systems_and_lengths(dev, nx, n):
             assert not any(bool(g[lens == 0].any()) for g in got)
 
 
-@pytest.mark.parametrize("nx", [1, 7, 30, 32])
+@pytest.mark.parametrize("nx", [1, 7, 30, 32, 33, 48, 64, 100, 128])
 @pytest.mark.parametrize("n", [1, 4, 5, 131, 132, 133])
 def test_k2_sample_counts_systems_and_lengths(dev, nx, n):
     for t, ny, j, lens, p, q, W, bias in _edge_cases(dev, nx, n):
@@ -1014,8 +1039,8 @@ def test_k4_k6_k7_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="rhs"):
         k_cholesky.trsm_tile_cuda(torch.zeros(1, 4, 8, device=dev),
                                   torch.eye(16, device=dev)[None], False)
-    with pytest.raises(ValueError, match="Nx"):
-        k_dprr.dprr_features_cuda(torch.zeros(2, 4, 33, device=dev),
+    with pytest.raises(ValueError, match="K7 .*Nx <= 128"):
+        k_dprr.dprr_features_cuda(torch.zeros(2, 4, 129, device=dev),
                                   torch.ones(2, dtype=torch.int32,
                                              device=dev))
     with pytest.raises(TypeError):
@@ -1663,7 +1688,7 @@ def _bf16(*ts):
     return [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ts]
 
 
-@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES)
+@pytest.mark.parametrize("n_sys,b,t,nx,ny", SHAPES + WIDE_SHAPES)
 def test_k1_k2_bf16_operands_match_plain(dev, n_sys, b, t, nx, ny):
     """K1 and K2 on bf16 operands: the wrapper upcasts, the kernel computes
     in fp32 and the result is rounded to bf16 once, as the plain version's;

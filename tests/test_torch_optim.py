@@ -133,6 +133,90 @@ def test_tree_map_over_a_module_and_a_namedtuple():
     assert len(popt.tree_leaves(st)) == 7
 
 
+# layer l's gradients scaled by LAYER_SCALE[l][step]: one layer's grow and
+# the other's shrink, so that from the second step the clip acts on the
+# first layer's update and not on the second's, where a per-layer RMS and
+# the stack's RMS differ
+LAYER_SCALE = ((1.0, 10.0, 10.0), (1.0, 0.1, 0.1))
+
+
+def _lm_grads(rparams, step):
+    """Seeded gradients shaped like the reference's stacked parameters."""
+    rng = np.random.default_rng(100 + step)
+    leaves, treedef = jax.tree_util.tree_flatten(rparams)
+    grads = []
+    for path_leaf in leaves:
+        g = rng.normal(size=path_leaf.shape).astype(np.float32)
+        grads.append(g)
+    tree = jax.tree_util.tree_unflatten(treedef, grads)
+    for l, scales in enumerate(LAYER_SCALE):
+        tree["layers"] = jax.tree_util.tree_map(
+            lambda a, l=l, f=scales[step]: np.concatenate(
+                [a[:l], a[l:l + 1] * np.float32(f), a[l + 1:]]),
+            tree["layers"])
+    return tree
+
+
+def _same_state(got, want, name):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), name
+        for k in want:
+            _same_state(got[k], want[k], f"{name}.{k}")
+    else:
+        assert tuple(got.shape) == tuple(want.shape), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+
+def test_adafactor_lm_steps_match_reference():
+    """Three Adafactor steps of the reduced smollm-135m (2 layers, d_model
+    64, fp32) at ``clip_threshold=0.5`` against the reference's
+    ``make_optimizer('adafactor')`` on the same weights and gradients:
+    parameters and state, compared in the reference's layout
+    (``convert.to_reference_layout``), within rtol 1e-5 / atol 1e-7.  The
+    reference factors each stacked layer vector (L, d) into rows (L,) and
+    columns (d,), and takes each stacked leaf's clip RMS over all layers;
+    the layers' gradients are scaled apart (``LAYER_SCALE``) so that the
+    clip acts on one layer and not on the other."""
+    import dataclasses
+
+    import repro.configs as rconfigs
+    import repro_torch.configs as pconfigs
+    from repro.models.transformer import Transformer as RTransformer
+    from repro_torch import convert
+    from repro_torch.models.transformer import Transformer
+
+    small = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=1,
+                 head_dim=32, d_ff=128, vocab=256)
+    rcfg = dataclasses.replace(rconfigs.get_reduced("smollm-135m"),
+                               dtype=jnp.float32, **small)
+    pcfg = dataclasses.replace(pconfigs.get_reduced("smollm-135m"),
+                               dtype=torch.float32, **small)
+    rparams, _ = RTransformer(rcfg).init(jax.random.PRNGKey(0))
+    rparams = jax.tree_util.tree_map(np.asarray, rparams)
+    model = convert.lm_params_from_numpy(Transformer(pcfg, device="cpu"),
+                                         rparams)
+    ropt_ = ropt.make_optimizer("adafactor", clip_threshold=0.5)
+    popt_ = popt.make_optimizer("adafactor", clip_threshold=0.5)
+    rs, ps = ropt_.init(rparams), popt_.init(model)
+    _same_state(convert.to_reference_layout(ps.row), rs.row, "row init")
+    update = jax.jit(ropt_.update)
+    rp, pp = rparams, model
+    for i in range(3):
+        g = _lm_grads(rparams, i)
+        lr = np.float32(0.01 * (i + 1))
+        rp, rs = update(g, rs, rp, jnp.asarray(lr))
+        pg = convert.from_reference_layout(
+            popt.tree_map(torch.Tensor.detach, model),
+            jax.tree_util.tree_map(torch.from_numpy, g))
+        pp, ps = popt_.update(pg, ps, pp, torch.tensor(lr))
+        _same_state(convert.to_reference_layout(pp), rp, f"step {i} params")
+        for field in ("row", "col"):
+            _same_state(convert.to_reference_layout(getattr(ps, field)),
+                        getattr(rs, field), f"step {i} {field}")
+        assert int(ps.count) == int(rs.count) == i + 1
+
+
 SCHEDULES = {
     "constant": lambda m: m.constant_schedule(3e-4),
     "cosine": lambda m: m.cosine_schedule(1e-3, warmup=5, total=40),

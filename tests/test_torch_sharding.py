@@ -90,7 +90,8 @@ def _same(port, ref, reshaped=None):
     """Two (shape, spec) trees equal: dicts key for key, namedtuples
     (optimizer states) field by field, each leaf's spec exactly.  Where
     ``reshaped`` is a list, a leaf whose stacked shape differs from the
-    reference's is appended to it instead (see the Adafactor test)."""
+    reference's is appended to it instead (the optimizer-state test
+    requires the list to stay empty)."""
     if isinstance(ref, dict):
         assert sorted(port) == sorted(ref)
         for k in ref:
@@ -137,16 +138,8 @@ def test_param_and_opt_specs_match_reference(arch, mesh_name):
         reshaped = []
         _same(_port_specs(state, state_axes, mesh),
               _ref_specs(rstate, rstate_axes, mesh), reshaped)
-        # the one structural difference: the reference's Adafactor factors
-        # a stacked vector (L, d) of the layers into rows (L,) and columns
-        # (d,), where the port keeps each layer's vector (d,) whole (row)
-        # with a (1,) column; those leaves have no counterpart to match
-        for (pshape, _), (rshape, _) in reshaped:
-            assert name == "adafactor" and len(pshape) == 2
-            assert (rshape == pshape[:1]) or (
-                pshape[1] == 1 and len(rshape) == 1)
-        if name == "adamw":
-            assert not reshaped
+        # both optimizers' states are in the reference's stacked shapes
+        assert not reshaped
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
